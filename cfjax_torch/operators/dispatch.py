@@ -1,0 +1,267 @@
+"""The smart `gramian()` constructor: automatic structure detection
+(counterpart of `cfjax.operators.dispatch`, reference src/gramian.jl:144-189).
+
+One explicit decision tree over (kernel metadata, input container), run
+once at operator construction:
+  1. matrix-valued kernels          -> not ported yet (derivative layer)
+  2. Constant                       -> lazy Fill (rank-1)
+  2b. MatrixKernel                  -> dense A[ix][:, iy]
+  3. FiniteBasis with n > rank      -> low-rank U V^T
+  4. SeparableProduct on LazyGrid   -> not ported yet (Kronecker)
+  5. input transforms (ARD/Energetic/Warped/ScaledInput/Periodic)
+                                    -> pre-transform points once, recurse
+  6. VerticalRescaling              -> D G D lazy product
+  7. Sum with Delta terms (x is y)  -> diagonal split + recurse
+  8. uniform 1-D grid + stationary  -> not ported yet (Toeplitz / Circulant)
+  9. fallback                       -> lazy Gramian (CUDA kernel or blocked MVM)
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+from torch.func import vmap
+
+from ..kernels.algebra import Product, SeparableProduct, Sum
+from ..kernels.base import InputTrait, Kernel, MultiKernel, input_trait
+from ..kernels.mercer import FiniteBasis, MatrixKernel
+from ..kernels.stationary import Constant, Delta
+from ..kernels.transforms import (
+    ARDKernel,
+    Energetic,
+    Periodic,
+    ScaledInputKernel,
+    VerticalRescaling,
+    Warped,
+)
+from ..utils.grids import LazyGrid, UniformGrid, as_points, detect_uniform_grid
+from .gramian import Gramian, kernel_decline_reason
+from .linop import (
+    DenseOperator,
+    DiagonalOperator,
+    FillOperator,
+    LowRankOperator,
+    ProductOperator,
+    SumOperator,
+)
+
+
+def _not_ported(what, item):
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md, queue 1, item {item})")
+
+
+class LambdaKernel(Kernel):
+    """Wrap a plain callable as a GENERIC-trait kernel (the reference tests'
+    closure-wrapping trick that erases structure, test/gradient.jl:38-45)."""
+
+    FIELDS = (("fn", None),)
+    STATIC = ("fn",)
+
+    def forward(self, x, y):
+        return self.fn(x, y)
+
+
+def _as_kernel(k):
+    if isinstance(k, (Kernel, MultiKernel)):
+        return k
+    if callable(k):
+        return LambdaKernel(k)
+    raise TypeError(f"not a kernel: {k!r}")
+
+
+def _delta_amplitude(k):
+    """If k is Delta or Constant*...*Delta, its scalar amplitude (for the
+    exact white-noise diagonal split); else None."""
+    if isinstance(k, Delta):
+        return torch.tensor(1.0, dtype=torch.float64)
+    if isinstance(k, Product):
+        amp = torch.tensor(1.0, dtype=torch.float64)
+        seen_delta = False
+        for a in k.args:
+            if isinstance(a, Delta):
+                if seen_delta:
+                    return None
+                seen_delta = True
+            elif isinstance(a, Constant):
+                amp = amp * a.c
+            else:
+                return None
+        return amp if seen_delta else None
+    return None
+
+
+def _embed_periodic(xp):
+    return torch.cat([torch.cos(2 * math.pi * xp), torch.sin(2 * math.pi * xp)], dim=1)
+
+
+def gramian(k, x, y=None, **opts):
+    """Build the structure-detected covariance operator K with
+    K[i, j] = k(x_i, y_j) (reference `gramian`, src/gramian.jl:144-163)."""
+    k = _as_kernel(k)
+    same = y is None
+
+    # 1. matrix-valued (derivative / separable multi-output) kernels
+    if isinstance(k, MultiKernel):
+        raise _not_ported("the derivative-kernel gramian", 9)
+
+    # 2. constant kernel -> lazy fill (src/stationary.jl:34)
+    if isinstance(k, Constant):
+        xp = as_points(x)
+        yp = xp if same else as_points(y)
+        return FillOperator(k.c.to(device=xp.device), (xp.shape[0], yp.shape[0]))
+
+    # 2b. discrete-input matrix kernel: K = A[ix][:, iy]
+    if isinstance(k, MatrixKernel):
+        ix = torch.as_tensor(x).reshape(-1).to(torch.long)
+        iy = ix if same else torch.as_tensor(y).reshape(-1).to(torch.long)
+        return DenseOperator(k.A[ix][:, iy], symmetric=same)
+
+    # 3. finite basis -> low-rank (src/mercer.jl:61-70)
+    if isinstance(k, FiniteBasis):
+        xp = as_points(x)
+        yp = xp if same else as_points(y)
+        r = k.rank
+        if xp.shape[0] > r and yp.shape[0] > r:
+            U = vmap(k.features)(xp)
+            V = U if same else vmap(k.features)(yp)
+            return LowRankOperator(U, V.T, psd=same)
+        return Gramian(k, xp, None if same else yp, **opts)
+
+    # 4. separable product on a lazy grid -> Kronecker (src/algebra.jl:91-95)
+    if isinstance(k, SeparableProduct) and isinstance(x, LazyGrid):
+        raise _not_ported("the Kronecker gramian of a SeparableProduct on a LazyGrid", 10)
+
+    # 5. input transforms -> pre-transform points once, recurse
+    #    (src/transformation.jl:83-95, 113-121)
+    if isinstance(k, ARDKernel):
+        xp = as_points(x)
+        l = k.l.to(device=xp.device, dtype=xp.dtype)
+        return gramian(k.k, xp / l, None if same else as_points(y) / l, **opts)
+    if isinstance(k, Energetic):
+        xp = as_points(x)
+        L = torch.linalg.cholesky(k.A.to(device=xp.device, dtype=xp.dtype))
+        return gramian(k.k, xp @ L, None if same else as_points(y) @ L, **opts)
+    if isinstance(k, ScaledInputKernel):
+        xp = as_points(x)
+        U = k.U.to(device=xp.device, dtype=xp.dtype)
+        return gramian(k.k, xp @ U.T, None if same else as_points(y) @ U.T, **opts)
+    if isinstance(k, Warped):
+        def warp(p):
+            w = vmap(k.u)(as_points(p))
+            return w[:, None] if w.ndim == 1 else w
+
+        return gramian(k.k, warp(x), None if same else warp(y), **opts)
+    if isinstance(k, Periodic):
+        # the circulant fast path on uniform grids is not ported; otherwise
+        # embed x -> (cos 2 pi x, sin 2 pi x): the MacKay warp becomes the
+        # plain isotropic distance in the embedded space
+        grid = _uniform_grid_of(x)
+        if grid is not None and same:
+            span = grid.step * grid.num
+            if np.isclose(span, round(span)) and round(span) >= 1:
+                raise _not_ported("the circulant gramian of a Periodic kernel on a grid", 10)
+        return gramian(_EmbeddedPeriodic(k.k), _embed_periodic(as_points(x)),
+                       None if same else _embed_periodic(as_points(y)), **opts)
+
+    # 6. vertical rescaling -> lazy D G D (src/transformation.jl:165-171)
+    if isinstance(k, VerticalRescaling):
+        xp = as_points(x)
+        yp = xp if same else as_points(y)
+        Dx = DiagonalOperator(vmap(k.f)(xp))
+        Dy = Dx if same else DiagonalOperator(vmap(k.f)(yp))
+        G = gramian(k.k, x, None if same else y, **opts)
+        return ProductOperator((Dx, G, Dy))
+
+    # 7. exact white-noise split: Sum with Delta terms on shared points
+    if same and isinstance(k, Sum):
+        deltas, rest = [], []
+        for a in k.args:
+            amp = _delta_amplitude(a)
+            (deltas if amp is not None else rest).append((a, amp))
+        if deltas:
+            xp = as_points(x)
+            amp = sum(a for _, a in deltas)
+            diag = DiagonalOperator(torch.full((xp.shape[0],), float(amp),
+                                               dtype=xp.dtype, device=xp.device))
+            if not rest:
+                return diag
+            rk = rest[0][0] if len(rest) == 1 else Sum(tuple(a for a, _ in rest))
+            return SumOperator((gramian(rk, x, **opts), diag))
+    if same and isinstance(k, Delta):
+        xp = as_points(x)
+        return DiagonalOperator(torch.ones((xp.shape[0],), dtype=xp.dtype, device=xp.device))
+
+    # 8. uniform 1-D grid + stationary kernel -> Toeplitz (src/gramian.jl:167-183)
+    gx = _uniform_grid_of(x)
+    if gx is not None and input_trait(k) in (
+        InputTrait.ISOTROPIC,
+        InputTrait.STATIONARY,
+        InputTrait.STATIONARY_LINEAR_FUNCTIONAL,
+    ):
+        gy = None if same else _uniform_grid_of(y)
+        if same or (gy is not None and np.isclose(gx.step, gy.step) and gx.num == gy.num):
+            raise _not_ported("the Toeplitz gramian of a stationary kernel on a uniform grid", 10)
+
+    # 9. fallback: lazy Gramian (CUDA kernel or blocked plain MVM)
+    return Gramian(k, x, None if same else y, **opts)
+
+
+class _EmbeddedPeriodic(Kernel):
+    """Isotropic view of a MacKay-periodic kernel on cos/sin-embedded
+    points: |z_x - z_y|^2 = sum_i 4 sin^2(pi tau_i) is exactly the MacKay
+    warped squared distance, so profile(s) = k.profile(s)."""
+
+    FIELDS = (("k", None),)
+
+    @property
+    def trait(self):
+        return InputTrait.ISOTROPIC
+
+    @property
+    def is_mercer(self):
+        return getattr(self.k, "is_mercer", False)
+
+    def profile(self, s):
+        return self.k.profile(s)
+
+    def profile_value(self, s):
+        return self.k.profile_value(s)
+
+
+def _uniform_grid_of(x):
+    if isinstance(x, UniformGrid):
+        return x
+    if isinstance(x, LazyGrid):
+        return None
+    if isinstance(x, torch.Tensor):
+        if not (x.ndim == 1 or (x.ndim == 2 and x.shape[1] == 1)):
+            return None
+        return detect_uniform_grid(x)
+    arr = np.asarray(x)
+    if arr.ndim == 1 or (arr.ndim == 2 and arr.shape[1] == 1):
+        return detect_uniform_grid(arr)
+    return None
+
+
+def explain(k, x, y=None, **opts) -> str:
+    """Describe the structure the dispatcher detected, and whether the
+    lazy Gramian's MVM runs on a CUDA kernel (and which) or why not."""
+    op = gramian(k, x, y, **opts)
+    parts = [f"{type(op).__name__}{op.shape}"]
+    if isinstance(op, Gramian):
+        parts.append(f"mvm mode = {op.mode}, block = {op.block}")
+        why = kernel_decline_reason(op)
+        if why is None:
+            name = {"direct": "K1 gramian_matvec_direct",
+                    "expand": "K2 gramian_matvec_expand"}[op.kernel]
+            parts.append(f"cuda kernel {name}")
+        else:
+            parts.append(f"cuda kernel declined: {why}")
+    if isinstance(op, SumOperator):
+        parts.append("terms: " + " + ".join(type(t).__name__ for t in op.terms))
+    if isinstance(op, ProductOperator):
+        parts.append("factors: " + " @ ".join(type(f).__name__ for f in op.factors))
+    return " | ".join(parts)

@@ -1,0 +1,8 @@
+from .gramian_mvm import (
+    LAUNCHES,
+    gramian_matvec_direct,
+    gramian_matvec_direct_plain,
+    gramian_matvec_expand,
+    gramian_matvec_expand_plain,
+)
+from .tiles import inner_tile, matmul_p, sqdist_tile
