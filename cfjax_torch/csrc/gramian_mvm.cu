@@ -28,148 +28,13 @@
 // no atomics, so the result does not change from run to run. Ragged
 // edges are bounds-checked in the kernels; nothing is padded in memory.
 
-#include <cuda_runtime.h>
+#include "profile_spec.cuh"
 
-#define OP_PUSH_S 0
-#define OP_PUSH_C 1
-#define OP_ADD 2
-#define OP_MUL 3
-#define OP_DIV 4
-#define OP_NEG 5
-#define OP_EXP 6
-#define OP_SQRT 7
-#define OP_ROOT 8
-#define OP_POWC 9
-#define OP_POWI 10
-#define OP_MATERNP 11
-
-#define MAX_OPS 64
-#define MAX_CONSTS 64
-#define MAX_STACK 8
-
-struct ProfileSpec {
-    int n_ops;
-    int op[MAX_OPS];
-    int arg[MAX_OPS];
-    float c[MAX_CONSTS];
-};
-
-// the value-path sqrt: s * rsqrt(max(s, 1e-18)), as profile_value computes it
-__device__ __forceinline__ float root_value(float s) {
-    const float sc = fmaxf(s, 1e-18f);
-    return sc * rsqrtf(sc);
-}
-
-__device__ __forceinline__ float ipow(float x, int p) {
-    unsigned int e = p < 0 ? -p : p;
-    float r = 1.f, b = x;
-    while (e) {
-        if (e & 1u) r *= b;
-        b *= b;
-        e >>= 1;
-    }
-    return p < 0 ? 1.f / r : r;
-}
-
-// Evaluate the profile program on V arguments at once (one decode per V
-// entries). s holds the arguments on entry and the profile values on exit.
-template <int V>
-__device__ __forceinline__ void eval_profile(const ProfileSpec& sp, float (&s)[V]) {
-    float st[MAX_STACK][V];
-    int top = 0;
-    for (int i = 0; i < sp.n_ops; ++i) {
-        const int a = sp.arg[i];
-        switch (sp.op[i]) {
-        case OP_PUSH_S:
-#pragma unroll
-            for (int v = 0; v < V; ++v) st[top][v] = s[v];
-            ++top;
-            break;
-        case OP_PUSH_C: {
-            const float c = sp.c[a];
-#pragma unroll
-            for (int v = 0; v < V; ++v) st[top][v] = c;
-            ++top;
-            break;
-        }
-        case OP_ADD:
-            --top;
-#pragma unroll
-            for (int v = 0; v < V; ++v) st[top - 1][v] = st[top - 1][v] + st[top][v];
-            break;
-        case OP_MUL:
-            --top;
-#pragma unroll
-            for (int v = 0; v < V; ++v) st[top - 1][v] = st[top - 1][v] * st[top][v];
-            break;
-        case OP_DIV:
-            --top;
-#pragma unroll
-            for (int v = 0; v < V; ++v) st[top - 1][v] = st[top - 1][v] / st[top][v];
-            break;
-        case OP_NEG:
-#pragma unroll
-            for (int v = 0; v < V; ++v) st[top - 1][v] = -st[top - 1][v];
-            break;
-        case OP_EXP:
-#pragma unroll
-            for (int v = 0; v < V; ++v) st[top - 1][v] = expf(st[top - 1][v]);
-            break;
-        case OP_SQRT:
-#pragma unroll
-            for (int v = 0; v < V; ++v) st[top - 1][v] = sqrtf(st[top - 1][v]);
-            break;
-        case OP_ROOT:
-#pragma unroll
-            for (int v = 0; v < V; ++v) st[top - 1][v] = root_value(st[top - 1][v]);
-            break;
-        case OP_POWC: {
-            const float c = sp.c[a];
-#pragma unroll
-            for (int v = 0; v < V; ++v) st[top - 1][v] = powf(st[top - 1][v], c);
-            break;
-        }
-        case OP_POWI:
-#pragma unroll
-            for (int v = 0; v < V; ++v) st[top - 1][v] = ipow(st[top - 1][v], a);
-            break;
-        case OP_MATERNP: {
-            const int p = (int)sp.c[a];
-#pragma unroll
-            for (int v = 0; v < V; ++v) {
-                const float r = root_value(st[top - 1][v]);
-                const float u = 2.f * r;
-                float val = sp.c[a + 1 + p];
-                for (int j = p - 1; j >= 0; --j) val = val * u + sp.c[a + 1 + j];
-                st[top - 1][v] = val * expf(-r);
-            }
-            break;
-        }
-        default:
-            break;
-        }
-    }
-#pragma unroll
-    for (int v = 0; v < V; ++v) s[v] = st[0][v];
-}
-
-// Compensated (Kahan) accumulation of a row sum. One thread adds up to
-// m / (4 * splits) terms in sequence — 32768 at n = 2^17 — and plain fp32
-// accumulation then loses about eps * sqrt(terms) relative, more than a
-// CG solve at tol 1e-5 can absorb. The Pallas kernels sum lane-wise in a
-// tree; compensation costs four flops per entry here.
-__device__ __forceinline__ void kahan_add(float& sum, float& comp, float v) {
-    const float y = v - comp;
-    const float t = sum + y;
-    comp = (t - sum) - y;
-    sum = t;
-}
-
-__device__ __forceinline__ void load_spec(ProfileSpec& dst, const ProfileSpec& src) {
-    const int* s = reinterpret_cast<const int*>(&src);
-    int* d = reinterpret_cast<int*>(&dst);
-    for (int t = threadIdx.x; t < (int)(sizeof(ProfileSpec) / sizeof(int)); t += blockDim.x) d[t] = s[t];
-}
+// Row sums use compensated (Kahan) accumulation (kahan_add): one thread
+// adds up to m / (4 * splits) terms in sequence — 32768 at n = 2^17 — and
+// plain fp32 accumulation then loses about eps * sqrt(terms) relative,
+// more than a CG solve at tol 1e-5 can absorb. The Pallas kernels sum
+// lane-wise in a tree; compensation costs four flops per entry here.
 
 // ---------------------------------------------------------------------------
 // K1: direct (difference-form) isotropic MVM, d = D <= 16

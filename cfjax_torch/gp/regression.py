@@ -1,8 +1,9 @@
 """GP regression on top of the lazy operator layer (counterpart of
 `cfjax.gp.regression`): posterior conditioning through the
 structure-dispatched `gramian` + solve (dense Cholesky up to
-max_cholesky_size, Nystrom-preconditioned CG above it), and the
-Cholesky log marginal likelihood.
+max_cholesky_size, Nystrom-preconditioned CG above it for a plain
+Gramian, plain CG for other operators such as the gradient gramian of
+`GradientKernel` observations), and the Cholesky log marginal likelihood.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import math
 import torch
 
 from ..operators.dispatch import gramian
-from ..operators.solvers import cg
+from ..operators.solvers import cg, solve_with_info
 
 
 @dataclasses.dataclass
@@ -22,7 +23,8 @@ class GPPosterior:
     x_train: torch.Tensor
     alpha: torch.Tensor  # (K + noise I)^{-1} y
     noise: float
-    # (CG iterations, final residual norm) on the preconditioned-CG branch
+    # (CG iterations, final residual norm) on the CG branches; None after
+    # a dense factorization
     solve_info: tuple = None
 
     def mean(self, x_test):
@@ -33,7 +35,9 @@ class GPPosterior:
 def gp_condition(kernel, x, y, noise: float = 1e-6,
                  precondition: str = "auto", precond_rank: int = 512,
                  seed: int = 0, **solve_opts) -> GPPosterior:
-    """Condition a GP prior on observations y at points x.
+    """Condition a GP prior on observations y at points x (y may be
+    values, or stacked gradient blocks when kernel is a derivative kernel
+    such as `GradientKernel`, point-major: y[i*d + l] = d f / dx_l at x_i).
 
     precondition: "auto" builds a rank-`precond_rank` Nystrom
     preconditioner (landmarks drawn from `seed`) for the lazy-CG regime
@@ -61,7 +65,8 @@ def gp_condition(kernel, x, y, noise: float = 1e-6,
         alpha, info = cg(K._matvec, y, M=M, x0=solve_opts.get("x0"),
                          tol=solve_opts.get("tol"), maxiter=solve_opts.get("maxiter"))
         return GPPosterior(kernel, x, alpha, noise, info)
-    return GPPosterior(kernel, x, K.solve(y, **solve_opts), noise)
+    alpha, info = solve_with_info(K, y, **solve_opts)
+    return GPPosterior(kernel, x, alpha, noise, info)
 
 
 def log_marginal_likelihood(kernel, x, y, noise: float = 1e-6, method: str = "auto"):

@@ -68,13 +68,27 @@ def _is_reference_kernel(v) -> bool:
     return dataclasses.is_dataclass(v) and type(v).__module__.startswith("cfjax.")
 
 
+_MULTI_KERNELS = ("GradientKernel", "ValueGradientKernel", "HessianKernel",
+                  "ValueGradientHessianKernel", "SeparableKernel", "DerivativeKernel",
+                  "ValueDerivativeKernel")
+
+
 def from_reference(k):
     """The port's counterpart of a cfjax kernel object: the class of the
     same name, with every field converted (sub-kernels recursively, array
-    leaves through `np.asarray`, static fields as they are)."""
+    leaves through `np.asarray`, static fields as they are). cfjax's
+    derivative multi-kernels convert their inner kernel."""
     from .. import kernels as _kernels
 
     name = type(k).__name__
+    if name in _MULTI_KERNELS and type(k).__module__.startswith("cfjax."):
+        from .. import derivative as _derivative
+
+        cls = getattr(_derivative, name)
+        if name == "SeparableKernel":
+            return cls(from_reference(k.k), np.asarray(k.B))
+        inner = k.k.k if name in ("DerivativeKernel", "ValueDerivativeKernel") else k.k
+        return cls(from_reference(inner))
     cls = getattr(_kernels, name, None)
     if cls is None:  # LambdaKernel, _EmbeddedPeriodic
         from ..operators import dispatch as _dispatch

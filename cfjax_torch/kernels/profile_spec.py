@@ -14,11 +14,24 @@ ExponentialDot, closed under Sum, Product, Power, Lengthscale and Constant
 scaling. `to_spec(k)` returns `(spec, None)` or `(None, reason)`.
 `ProfileSpec.evaluate` is the plain torch evaluator of a program; it
 agrees with `k.profile_value` op for op.
+
+Derivative specs. The gradient-block kernel needs f, f' and f'' of the
+profile. A value program cannot give them: ROOT and MATERNP clamp their
+argument at 1e-18, so their derivatives vanish at s = 0, where -2 f'(0) I
+is the whole diagonal block of a gradient gramian. `to_spec(k,
+derivative=True)` therefore compiles `k.profile` instead: MaternP becomes
+MATERNP_JET, whose rules follow `MaternP.profile` down to s = 0 (the
+Taylor branch below eps^(1/p), the closed form above it), and kernels
+whose profile has no finite f' or f'' at s = 0 (Exp, MaternP(0), GammaExp)
+decline. `ProfileSpec.evaluate_jet(s)` propagates the
+second-order jet (f, f', f'') through a program, one rule per opcode.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+from fractions import Fraction
 
 import torch
 
@@ -52,13 +65,98 @@ POWC = 9      # a ** consts[arg]
 POWI = 10     # a ** arg, integer exponent
 MATERNP = 11  # Matern-(p+1/2) closed form of t = (2p+1) s; consts[arg] = p,
               # consts[arg+1 .. arg+1+p] = Horner coefficients of (2r)^j
+MATERNP_JET = 12  # MaternP.profile of s (derivative specs only); consts[arg] = p,
+                  # then the tables of `_maternp_jet_table` (4p + 1 values)
 
 MAX_OPS = 64
 MAX_CONSTS = 64
 MAX_STACK = 8
 
 _POP = {PUSH_S: -1, PUSH_C: -1, ADD: 1, MUL: 1, DIV: 1, POWC: 0, POWI: 0,
-        NEG: 0, EXP: 0, SQRT: 0, ROOT: 0, MATERNP: 0}
+        NEG: 0, EXP: 0, SQRT: 0, ROOT: 0, MATERNP: 0, MATERNP_JET: 0}
+
+
+def _maternp_jet_table(p: int):
+    """Exact tables for MATERNP_JET (p >= 1), in rho = sqrt((2p+1) s):
+      tau (p): Taylor coefficients, f = 1 + sum_i tau_i s^i below eps^(1/p);
+      q (p+1): f = exp(-rho) Q(rho), Q = sum_j q_j rho^j;
+      r1 (p):  f' = (c/2) exp(-rho) R1(rho), R1 = (Q' - Q) / rho;
+      s2 (p):  f'' = (c/2)^2 exp(-rho) S2(rho) / rho, S2 = R1' - R1,
+    with c = 2p + 1. S2(0) = 0 for p >= 2, so f'' is finite at 0; for
+    p = 1 it grows like 1/rho above the Taylor bound, as the closed form's
+    does. Computed with Fractions: the closed forms carry no cancellation,
+    where autodiff of the closed form loses about eps / rho^3 in f''."""
+    norm = Fraction(math.factorial(p), math.factorial(2 * p))
+    q = [norm * Fraction(math.factorial(2 * p - j),
+                         math.factorial(p - j) * math.factorial(j)) * 2 ** j
+         for j in range(p + 1)]
+    s1 = [(j + 1) * q[j + 1] - q[j] for j in range(p)] + [-q[p]]
+    assert s1[0] == 0
+    r1 = s1[1:]
+    s2 = [(j + 1) * r1[j + 1] - r1[j] for j in range(p - 1)] + [-r1[p - 1]]
+    # Taylor: even coefficients of exp(-rho) Q(rho), times c^i
+    series = [sum(q[j] * Fraction((-1) ** (i - j), math.factorial(i - j))
+                  for j in range(min(i, p) + 1)) for i in range(2 * p + 1)]
+    tau = [series[2 * i] * (2 * p + 1) ** i for i in range(1, p + 1)]
+    return tuple(float(v) for v in tau + q + r1 + s2)
+
+
+def _horner(cs, x):
+    v = torch.full_like(x, cs[-1])
+    for c in cs[-2::-1]:
+        v = v * x + c
+    return v
+
+
+def _maternp_jet(p, tab, s):
+    """(g, g', g'') of MaternP(p).profile at s, from `_maternp_jet_table`."""
+    tau, q = tab[:p], tab[p:2 * p + 1]
+    r1, s2 = tab[2 * p + 1:3 * p + 1], tab[3 * p + 1:]
+    c = 2 * p + 1
+    bound = torch.finfo(s.dtype).eps ** (1.0 / p)
+    taylor = s < bound
+    t = torch.where(taylor, s, torch.zeros_like(s))
+    t0 = 1.0 + t * _horner(tau, t)
+    t1 = _horner([i * tau[i - 1] for i in range(1, p + 1)], t)
+    t2 = (_horner([i * (i - 1) * tau[i - 1] for i in range(2, p + 1)], t)
+          if p >= 2 else torch.zeros_like(t))
+    rho = torch.sqrt(c * torch.where(taylor, torch.ones_like(s), s))
+    e = torch.exp(-rho)
+    c0 = e * _horner(q, rho)
+    c1 = (c / 2) * e * _horner(r1, rho)
+    c2 = (c / 2) ** 2 * e * _horner(s2, rho) / rho
+    return (torch.where(taylor, t0, c0), torch.where(taylor, t1, c1),
+            torch.where(taylor, t2, c2))
+
+
+def _chain(u, g, g1, g2):
+    """Jet of g(u) from the jet of u and g's derivatives at u."""
+    return g, g1 * u[1], g2 * u[1] * u[1] + g1 * u[2]
+
+
+def _jmul(u, v):
+    return (u[0] * v[0], u[1] * v[0] + u[0] * v[1],
+            u[2] * v[0] + 2 * u[1] * v[1] + u[0] * v[2])
+
+
+def _jdiv(u, v):
+    q = u[0] / v[0]
+    q1 = (u[1] - q * v[1]) / v[0]
+    return q, q1, (u[2] - 2 * q1 * v[1] - q * v[2]) / v[0]
+
+
+def _jroot(u):
+    """Jet of the value-path sqrt: derivatives 0 below the clamp."""
+    live = u[0] >= RSQRT_CLAMP
+    sc = torch.clamp(u[0], min=RSQRT_CLAMP)
+    r = sc * torch.rsqrt(sc)
+    g1 = torch.where(live, 0.5 / r, torch.zeros_like(r))
+    g2 = torch.where(live, -0.25 / (r * sc), torch.zeros_like(r))
+    return _chain(u, r, g1, g2)
+
+
+def _ipow(u, n):
+    return u ** n if n else torch.ones_like(u)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,6 +167,7 @@ class ProfileSpec:
     ops: tuple
     args: tuple
     consts: tuple
+    jet: bool = False  # compiled from `profile` (derivative spec), not `profile_value`
 
     @property
     def depth(self) -> int:
@@ -114,10 +213,71 @@ class ProfileSpec:
                 for j in range(p - 1, -1, -1):
                     val = val * u + c[a + 1 + j]
                 st.append(val * torch.exp(-r))
+            elif op == MATERNP_JET:
+                p = int(c[a])
+                st.append(_maternp_jet(p, c[a + 1:a + 4 * p + 2], st.pop())[0])
             else:
                 raise ValueError(f"unknown opcode {op}")
         (out,) = st
         return out * torch.ones_like(s)
+
+    def evaluate_jet(self, s):
+        """Plain torch second-order jet of the program: (f, f', f'') at s,
+        elementwise, one propagation rule per opcode."""
+        s = torch.as_tensor(s)
+        zero, one = torch.zeros_like(s), torch.ones_like(s)
+        c = self.consts
+        st = []
+        for op, a in zip(self.ops, self.args):
+            if op == PUSH_S:
+                st.append((s, one, zero))
+            elif op == PUSH_C:
+                st.append((torch.full_like(s, c[a]), zero, zero))
+            elif op in (ADD, MUL, DIV):
+                v = st.pop()
+                u = st.pop()
+                st.append(tuple(x + y for x, y in zip(u, v)) if op == ADD
+                          else _jmul(u, v) if op == MUL else _jdiv(u, v))
+            elif op == NEG:
+                st.append(tuple(-x for x in st.pop()))
+            elif op == EXP:
+                u = st.pop()
+                e = torch.exp(u[0])
+                st.append(_chain(u, e, e, e))
+            elif op == SQRT:
+                u = st.pop()
+                r = torch.sqrt(u[0])
+                st.append(_chain(u, r, 0.5 / r, -0.25 / (r * u[0])))
+            elif op == ROOT:
+                st.append(_jroot(st.pop()))
+            elif op == POWC:
+                u = st.pop()
+                e = c[a]
+                st.append(_chain(u, u[0] ** e, e * u[0] ** (e - 1),
+                                 e * (e - 1) * u[0] ** (e - 2)))
+            elif op == POWI:
+                u = st.pop()
+                g1 = a * _ipow(u[0], a - 1) if a else zero
+                g2 = a * (a - 1) * _ipow(u[0], a - 2) if a not in (0, 1) else zero
+                st.append(_chain(u, _ipow(u[0], a), g1, g2))
+            elif op == MATERNP:
+                p = int(c[a])
+                r = _jroot(st.pop())
+                u = tuple(2 * x for x in r)
+                val = (torch.full_like(s, c[a + 1 + p]), zero, zero)
+                for j in range(p - 1, -1, -1):
+                    val = _jmul(val, u)
+                    val = (val[0] + c[a + 1 + j], val[1], val[2])
+                e = torch.exp(-r[0])
+                st.append(_jmul(val, _chain(r, e, -e, e)))
+            elif op == MATERNP_JET:
+                p = int(c[a])
+                u = st.pop()
+                st.append(_chain(u, *_maternp_jet(p, c[a + 1:a + 4 * p + 2], u[0])))
+            else:
+                raise ValueError(f"unknown opcode {op}")
+        (out,) = st
+        return tuple(v * one for v in out)
 
 
 class _Decline(Exception):
@@ -147,7 +307,7 @@ def _scalar(k, name):
     return float(t.detach().reshape(()))
 
 
-def _emit(k, b: _Builder, push_s):
+def _emit(k, b, push_s, jet: bool):
     if isinstance(k, Constant):
         b.push(_scalar(k, "c"))
     elif isinstance(k, EQ):                      # exp(-s / 2)
@@ -157,17 +317,32 @@ def _emit(k, b: _Builder, push_s):
         b.emit(DIV)
         b.emit(EXP)
     elif isinstance(k, Exp):                     # exp(-root(s))
+        if jet:
+            raise _Decline("Exp: exp(-sqrt(s)) has no finite derivative at s = 0")
         push_s()
         b.emit(ROOT)
         b.emit(NEG)
         b.emit(EXP)
     elif isinstance(k, GammaExp):                # exp(-(s ** (g/2)) / 2)
+        if jet:
+            # gamma < 2: f' is unbounded at 0; gamma = 2: autodiff of s ** 1.0
+            # gives 0 * inf = NaN for f''(0), in cfjax's profile and in the port's
+            raise _Decline(f"GammaExp({k.gamma}): s ** (gamma/2) has no finite "
+                           "f'' at s = 0")
         push_s()
         b.emit(POWC, b.const(k.gamma / 2))
         b.emit(NEG)
         b.push(2.0)
         b.emit(DIV)
         b.emit(EXP)
+    elif isinstance(k, MaternP) and jet:
+        if k.p == 0:
+            raise _Decline("MaternP(0): exp(-sqrt(s)) has no finite derivative at s = 0")
+        push_s()
+        off = b.const(k.p)
+        for v in _maternp_jet_table(k.p):
+            b.const(v)
+        b.emit(MATERNP_JET, off)
     elif isinstance(k, MaternP):
         push_s()
         b.push(2 * k.p + 1)
@@ -206,11 +381,11 @@ def _emit(k, b: _Builder, push_s):
     elif isinstance(k, (Sum, Product)):
         op = ADD if isinstance(k, Sum) else MUL
         for i, a in enumerate(k.args):
-            _emit(a, b, push_s)
+            _emit(a, b, push_s, jet)
             if i:
                 b.emit(op)
     elif isinstance(k, Power):
-        _emit(k.k, b, push_s)
+        _emit(k.k, b, push_s, jet)
         b.emit(POWI, int(k.p))
     elif isinstance(k, Lengthscale):             # k(s / l^2)
         l = _scalar(k, "l")
@@ -220,25 +395,28 @@ def _emit(k, b: _Builder, push_s):
             b.push(l * l)
             b.emit(DIV)
 
-        _emit(k.k, b, push_scaled)
+        _emit(k.k, b, push_scaled, jet)
     elif type(k).__name__ == "_EmbeddedPeriodic":
-        _emit(k.k, b, push_s)
+        _emit(k.k, b, push_s, jet)
     else:
         raise _Decline(f"{type(k).__name__} has no profile spec")
 
 
-def to_spec(k):
-    """(ProfileSpec, None) for a covered iso/dot kernel, else (None, reason)."""
+def to_spec(k, derivative: bool = False):
+    """(ProfileSpec, None) for a covered iso/dot kernel, else (None, reason).
+    derivative=True compiles `k.profile` for `evaluate_jet` and the
+    gradient-block kernel, and declines profiles whose f' or f'' is not
+    finite at s = 0."""
     trait = getattr(k, "trait", None)
     if trait not in (InputTrait.ISOTROPIC, InputTrait.DOT):
         return None, f"trait {getattr(trait, 'value', trait)!r} has no scalar profile spec"
     b = _Builder()
     try:
-        _emit(k, b, lambda: b.emit(PUSH_S))
+        _emit(k, b, lambda: b.emit(PUSH_S), derivative)
     except _Decline as e:
         return None, str(e)
     spec = ProfileSpec("iso" if trait == InputTrait.ISOTROPIC else "dot",
-                       tuple(b.ops), tuple(b.args), tuple(b.consts))
+                       tuple(b.ops), tuple(b.args), tuple(b.consts), derivative)
     if len(spec.ops) > MAX_OPS or len(spec.consts) > MAX_CONSTS:
         return None, (f"profile program too long ({len(spec.ops)} ops, "
                       f"{len(spec.consts)} constants; limits {MAX_OPS}, {MAX_CONSTS})")

@@ -3,7 +3,9 @@
 
 One explicit decision tree over (kernel metadata, input container), run
 once at operator construction:
-  1. matrix-valued kernels          -> not ported yet (derivative layer)
+  1. matrix-valued kernels          -> derivative layer (gradient, value+
+                                       gradient, Hessian gramians; the
+                                       SeparableKernel's Kronecker raises)
   2. Constant                       -> lazy Fill (rank-1)
   2b. MatrixKernel                  -> dense A[ix][:, iy]
   3. FiniteBasis with n > rank      -> low-rank U V^T
@@ -105,7 +107,9 @@ def gramian(k, x, y=None, **opts):
 
     # 1. matrix-valued (derivative / separable multi-output) kernels
     if isinstance(k, MultiKernel):
-        raise _not_ported("the derivative-kernel gramian", 9)
+        from ..derivative.dispatch import gramian_multikernel
+
+        return gramian_multikernel(k, x, y, **opts)
 
     # 2. constant kernel -> lazy fill (src/stationary.jl:34)
     if isinstance(k, Constant):
@@ -248,7 +252,10 @@ def _uniform_grid_of(x):
 
 def explain(k, x, y=None, **opts) -> str:
     """Describe the structure the dispatcher detected, and whether the
-    lazy Gramian's MVM runs on a CUDA kernel (and which) or why not."""
+    lazy Gramian's or gradient gramian's MVM runs on a CUDA kernel (and
+    which) or why not."""
+    from ..derivative.gradient import GradientGramian, JacobianConjugatedGradientGramian
+
     op = gramian(k, x, y, **opts)
     parts = [f"{type(op).__name__}{op.shape}"]
     if isinstance(op, Gramian):
@@ -260,6 +267,12 @@ def explain(k, x, y=None, **opts) -> str:
             parts.append(f"cuda kernel {name}")
         else:
             parts.append(f"cuda kernel declined: {why}")
+    g = op.inner if isinstance(op, JacobianConjugatedGradientGramian) else op
+    if isinstance(g, GradientGramian):
+        parts.append(f"gradient mode = {g.mode}")
+        why = g.kernel_reason
+        parts.append("cuda kernel K3 grad_matvec" if why is None
+                     else f"cuda kernel declined: {why}")
     if isinstance(op, SumOperator):
         parts.append("terms: " + " + ".join(type(t).__name__ for t in op.terms))
     if isinstance(op, ProductOperator):

@@ -158,8 +158,14 @@ def solve(op, b, tol: float = None, maxiter: int = None, method: str = "auto"):
     """A \\ b: dense Cholesky for small symmetric PSD operators (the
     reference policy up to max_cholesky_size, src/gramian.jl:201-213), CG
     for larger PSD ones."""
+    return solve_with_info(op, b, tol, maxiter, method)[0]
+
+
+def solve_with_info(op, b, tol: float = None, maxiter: int = None, method: str = "auto"):
+    """`solve`, returning (x, info): info is CG's (iterations, final
+    residual norm) on the CG branch (a list of them for a 2-D b), else None."""
     if isinstance(op, (CholeskyFactorization, LowRankFactorization)):
-        return op.solve(b)
+        return op.solve(b), None
     b = torch.as_tensor(b)
     if method == "auto":
         if not (op.is_symmetric and op.is_psd):
@@ -168,11 +174,12 @@ def solve(op, b, tol: float = None, maxiter: int = None, method: str = "auto"):
                 "ported yet (ROADMAP.md, queue 1, item 5)")
         method = "cholesky" if op.shape[0] <= _config.DEFAULT.max_cholesky_size else "cg"
     if method == "cholesky":
-        return CholeskyFactorization(op).solve(b)
+        return CholeskyFactorization(op).solve(b), None
     if method == "cg":
-        f = lambda bb: cg(op._matvec, bb, tol=tol, maxiter=maxiter)[0]
+        f = lambda bb: cg(op._matvec, bb, tol=tol, maxiter=maxiter)
         if b.ndim == 1:
             return f(b)
-        return torch.stack([f(b[:, j]) for j in range(b.shape[1])], dim=1)
+        cols = [f(b[:, j]) for j in range(b.shape[1])]
+        return torch.stack([c[0] for c in cols], dim=1), [c[1] for c in cols]
     raise NotImplementedError(
         f"solve method {method!r} is not ported yet (ROADMAP.md, queue 1, item 5)")

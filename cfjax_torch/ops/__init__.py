@@ -5,4 +5,5 @@ from .gramian_mvm import (
     gramian_matvec_expand,
     gramian_matvec_expand_plain,
 )
+from .grad_mvm import grad_matvec, grad_matvec_plain
 from .tiles import inner_tile, matmul_p, sqdist_tile

@@ -1,0 +1,121 @@
+"""K3: the gradient-gramian block MVM (counterpart of
+`cfjax.ops.pallas_mvm.pallas_grad_matvec`).
+
+For x (n, d), y (m, d) and A (m, d), out_i = sum_j B_ij A_j with the
+d x d block B_ij = grad_x grad_y^T k(x_i, y_j) of an isotropic or
+dot-product kernel:
+  iso: B_ij a = -2 f'(s) a - 4 f''(s) <r, a> r,  s = |r|^2, r = x_i - y_j;
+  dot: B_ij a = f'(s) a + f''(s) <x_i, a> y_j,   s = <x_i, y_j>.
+
+`grad_matvec` launches the hand-written CUDA kernel
+(`cfjax_torch/csrc/grad_mvm.cu`, built by `ops/build.py`) on CUDA tensors
+and raises on what it does not take; on CPU tensors it takes the plain
+torch version `grad_matvec_plain`, which takes f' and f'' from autodiff of
+`k.profile` (`torch.func`) and forms s and <r, A> as cfjax's
+`grad_matvec_iso` does. The kernel takes them from the jet of the kernel's
+derivative spec (`to_spec(k, derivative=True)`) and forms s and <r, A> as
+differences at every d, exact at coincident points (see the source's
+header). It computes the "highest" (full fp32) tier only and is
+forward-only, like the Pallas kernel. Launches count in
+`gramian_mvm.LAUNCHES["grad"]`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..kernels.derivatives import elementwise_derivatives
+from ..kernels.profile_spec import ProfileSpec, to_spec
+from . import build as _build
+from .gramian_mvm import _cdiv, _CSpec, _cspec, _launch, _ptr, column_split
+from .tiles import inner_tile, map_rows, matmul_p, resolve_precision, sqdist_tile
+
+# row / column tile sizes of the kernel, for the column split
+_K3_TM, _K3_TN = 32, 64
+# most column tiles one split sums into its partial output (see grad_mvm.cu)
+_K3_MAX_TILES = 64
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The K3 library (built once per source digest), with its C signature set."""
+    lib = _build.load("grad_mvm")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.k3_grad_matvec.argtypes = [p] * 5 + [i] * 6 + [_CSpec, p]
+    lib.k3_grad_matvec.restype = i
+    return lib
+
+
+def grad_matvec_plain(k, x, y, A, mode: str = "iso", block: int = 256):
+    """Plain torch version of K3, row block by row block: the same closed
+    form, with f' and f'' from autodiff of `k.profile`, the squared
+    distance from `sqdist_tile` and <r_ij, A_j> = <x_i, A_j> - <y_j, A_j>."""
+    if mode not in ("iso", "dot"):
+        raise ValueError(f"grad_matvec_plain covers iso and dot, not {mode!r}")
+    t = torch.sum(y * A, dim=1)  # <y_j, A_j>
+
+    def body(xb):
+        if mode == "dot":
+            _, k1, k2 = elementwise_derivatives(k.profile, inner_tile(xb, y), 2)
+            return matmul_p(k1, A) + matmul_p(k2 * inner_tile(xb, A), y)
+        _, k1, k2 = elementwise_derivatives(k.profile, sqdist_tile(xb, y), 2)
+        W = k2 * (inner_tile(xb, A) - t[None, :])  # f'' <r_ij, A_j>
+        return -2.0 * matmul_p(k1, A) - 4.0 * (torch.sum(W, dim=1)[:, None] * xb
+                                               - matmul_p(W, y))
+
+    return map_rows(body, x, block, x.shape[1])
+
+
+def _check_inputs(k, x, y, A, spec, mode):
+    ts = (x, y, A)
+    if not all(t.is_cuda and t.device == x.device for t in ts):
+        raise ValueError("x, y and A must lie on one CUDA device")
+    if any(t.dtype != torch.float32 for t in ts):
+        raise TypeError("the CUDA gradient-block kernel takes float32 tensors")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("x, y and A must be contiguous")
+    if x.ndim != 2 or y.ndim != 2 or tuple(A.shape) != tuple(y.shape) \
+            or x.shape[1] != y.shape[1]:
+        raise ValueError(f"shapes x {tuple(x.shape)}, y {tuple(y.shape)}, A "
+                         f"{tuple(A.shape)}: need (n, d), (m, d), (m, d)")
+    if any(t.requires_grad for t in ts) or any(b.requires_grad for b in k.buffers()):
+        raise RuntimeError("the CUDA gradient-block kernel is forward-only: an input "
+                           "requires grad")
+    if spec is None:
+        spec, why = to_spec(k, derivative=True)
+        if spec is None:
+            raise ValueError(f"no derivative spec for this kernel: {why}")
+    if not spec.jet:
+        raise ValueError("the gradient-block kernel takes a derivative spec "
+                         "(to_spec(k, derivative=True)), not a value spec")
+    if spec.mode != mode:
+        raise ValueError(f"kernel mode {spec.mode!r}, this call takes {mode!r}")
+    return spec
+
+
+def grad_matvec(k, x, y, A, mode: str = "iso", spec: ProfileSpec = None):
+    """K3: the gradient-gramian block MVM (CUDA), or its plain version for
+    CPU tensors. x (n, d), y (m, d), A (m, d) -> (n, d)."""
+    if not x.is_cuda:
+        return grad_matvec_plain(k, x, y, A, mode)
+    spec = _check_inputs(k, x, y, A, spec, mode)
+    if resolve_precision() != "highest":
+        raise ValueError("the gradient-block kernel computes full fp32 products only; "
+                         "the tf32 tiers are not ported yet")
+    n, d = x.shape
+    m = y.shape[0]
+    out = torch.empty((n, d), dtype=torch.float32, device=x.device)
+    if n == 0 or m == 0 or d == 0:
+        return out.zero_()
+    splits, per = column_split(_cdiv(n, _K3_TM), m, _K3_TN, x.device)
+    if per > _K3_MAX_TILES * _K3_TN:
+        per = _K3_MAX_TILES * _K3_TN
+        splits = _cdiv(m, per)
+    partial = out if splits == 1 else torch.empty((splits, n, d), dtype=torch.float32,
+                                                  device=x.device)
+    return _launch("grad", library().k3_grad_matvec, out,
+                   _ptr(x), _ptr(y), _ptr(A), _ptr(partial), _ptr(out), n, m, d,
+                   int(mode == "iso"), splits, per, _cspec(spec))

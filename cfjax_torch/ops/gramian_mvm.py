@@ -10,30 +10,23 @@ Two CUDA kernels for Hopper, in `cfjax_torch/csrc/gramian_mvm.cu`:
     for dot-product kernels through x.y, in full fp32 ("highest" tier).
 
 The source is compiled with nvcc for sm_90a at first use into `build/`
-at the checkout root (named by a hash of the source) and loaded with
-ctypes. Each wrapper takes the kernel's plain torch version when its
-tensors lie on the CPU; for CUDA tensors it launches the kernel or
-raises. `LAUNCHES` counts kernel launches per kernel. Both kernels are
-forward-only, like the Pallas kernels.
+at the checkout root and loaded with ctypes (`ops/build.py`). Each
+wrapper takes the kernel's plain torch version when its tensors lie on
+the CPU; for CUDA tensors it launches the kernel or raises. `LAUNCHES`
+counts kernel launches per kernel (K3, in `ops/grad_mvm.py`, counts
+under "grad"). Both kernels are forward-only, like the Pallas kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
 from ..kernels.profile_spec import MAX_CONSTS, MAX_OPS, ProfileSpec, to_spec
+from . import build as _build
 from .tiles import sqdist_tile, inner_tile, resolve_precision
-
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "gramian_mvm.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 
 # largest d of the direct kernel (its template instances run d = 1..16)
 DIRECT_MAX_D = 16
@@ -41,7 +34,7 @@ DIRECT_MAX_D = 16
 _K1_TM, _K1_TN = 64, 512
 _K2_BM, _K2_BN = 64, 64
 
-LAUNCHES = {"direct": 0, "expand": 0}
+LAUNCHES = {"direct": 0, "expand": 0, "grad": 0}
 
 
 class _CSpec(ctypes.Structure):
@@ -63,39 +56,11 @@ def _cspec(spec: ProfileSpec) -> _CSpec:
     return cs
 
 
-def _nvcc() -> str:
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the CUDA Gramian MVM kernels are "
-                           "built from source at first use and need the CUDA toolkit")
-    return found
-
-
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"libgramian_mvm_{digest}.so"
-
-
 @functools.cache
 def library() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernel library. The
-    compiler's resource report (-Xptxas -v) is kept beside it as .log."""
-    so = library_path()
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-               "-o", str(tmp), str(SOURCE)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        so.with_suffix(".log").write_text(res.stdout + res.stderr)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    """The K1/K2 library (built once per source digest), with its C
+    signatures set."""
+    lib = _build.load("gramian_mvm")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.k1_gramian_matvec_direct.argtypes = [p, p, p, p, p, i, i, i, i, i, _CSpec, p]
     lib.k1_gramian_matvec_direct.restype = i
@@ -119,6 +84,7 @@ def column_split(n_row_blocks: int, m: int, tn: int, device) -> tuple:
 
 
 def _check_inputs(k, x, y, a, spec, mode):
+    """The value kernels' input contract (K1, K2)."""
     ts = (x, y, a)
     if not all(t.is_cuda and t.device == x.device for t in ts):
         raise ValueError("x, y and a must lie on one CUDA device")
@@ -138,6 +104,8 @@ def _check_inputs(k, x, y, a, spec, mode):
         spec, why = to_spec(k)
         if spec is None:
             raise ValueError(f"no profile spec for this kernel: {why}")
+    if spec.jet:
+        raise ValueError("the value kernels take a value spec, not a derivative spec")
     if spec.mode != mode:
         raise ValueError(f"kernel mode {spec.mode!r}, this kernel takes {mode!r}")
     return spec

@@ -72,3 +72,16 @@ def sqdist_tile(xb, y, precision=None, direct_max_d=None):
     D = (torch.sum(xb * xb, dim=1)[:, None]
          + torch.sum(y * y, dim=1)[None, :] - 2.0 * S)
     return torch.clamp(D, min=0.0)
+
+
+def map_rows(body, x, block, width):
+    """Apply body to the row blocks of x (block rows each) and concatenate
+    its outputs, each a tensor or a tuple of tensors: the counterpart of
+    cfjax's `lax.map` over padded row blocks. (0, width) zeros when x has
+    no rows."""
+    outs = [body(x[i:i + block]) for i in range(0, x.shape[0], block)]
+    if not outs:
+        return x.new_zeros((0, width))
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+    return torch.cat(outs)
