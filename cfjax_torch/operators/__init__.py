@@ -11,6 +11,6 @@ from .linop import (
 )
 from .gramian import Gramian, gramian_dense, gramian_matvec, kernel_decline_reason
 from .solvers import (CholeskyFactorization, LowRankFactorization, cg,
-                      factorize, solve, solve_with_info)
+                      factorize, gmres, minres, solve, solve_with_info)
 from .preconditioner import nystrom_preconditioner
 from .dispatch import LambdaKernel, explain, gramian

@@ -1,13 +1,13 @@
-"""Solvers: CG, the Cholesky policy and factorize (counterpart of
-`cfjax.operators.solvers`, reference src/gramian.jl:193-238 and
-src/lazy_linear_algebra.jl:135-144).
+"""Solvers: CG, MINRES, GMRES, the Cholesky policy and factorize
+(counterpart of `cfjax.operators.solvers`, reference src/gramian.jl:193-238,
+src/lazy_linear_algebra.jl:135-144 and src/barneshut.jl:64-72).
 
-CG is a Python loop with one host sync per residual check (cfjax's is a
-`lax.while_loop`). `torch.linalg.cholesky` raises on a matrix that is not
-positive definite where `jnp.linalg.cholesky` returns NaN, so the
-rank-revealing tests use `torch.linalg.cholesky_ex` and its `info`.
-MINRES, GMRES, CGNR and the refinement solvers are not ported yet
-(ROADMAP.md, queue 1, item 5).
+CG, MINRES and GMRES are Python loops with one host sync per residual
+check (cfjax's are `lax.while_loop`s). `torch.linalg.cholesky` raises on a
+matrix that is not positive definite where `jnp.linalg.cholesky` returns
+NaN, so the rank-revealing tests use `torch.linalg.cholesky_ex` and its
+`info`. `cg_columns` and the refinement solvers are not ported yet
+(ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -55,6 +55,112 @@ def cg(matvec, b, x0=None, tol: float = None, maxiter: int = None, M=None):
         gamma = gamma_new
         i += 1
     return xa.to(b.dtype), (i, torch.linalg.norm(r))
+
+
+def minres(matvec, b, x0=None, tol: float = None, maxiter: int = None):
+    """MINRES for symmetric (possibly indefinite) operators: the Lanczos
+    recurrence with Givens QR (Paige & Saunders), as cfjax's. Returns
+    (x, info) with info = (iterations, |eta|), |eta| being the recursive
+    residual norm.
+
+    A float32 solve accumulates its iterate x in float64 (and returns it in
+    float32), as `cg` does; the operator and every other vector stay in
+    b's dtype."""
+    tol = _config.DEFAULT.cg_tol if tol is None else tol
+    maxiter = _config.DEFAULT.cg_maxiter if maxiter is None else maxiter
+    b = torch.as_tensor(b)
+    x0 = torch.zeros_like(b) if x0 is None else torch.as_tensor(x0)
+    acc = torch.float64 if b.dtype == torch.float32 else b.dtype
+    xa = x0.to(acc)
+
+    r0 = b - matvec(x0)
+    beta1 = torch.linalg.norm(r0)
+    bnorm = float(torch.linalg.norm(b))
+    atol = tol * (bnorm if bnorm > 0 else 1.0)
+    tiny = torch.finfo(b.dtype).tiny
+    safe = lambda t: torch.where(t > tiny, t, torch.ones_like(t))
+
+    v_prev = torch.zeros_like(b)
+    v = r0 / torch.where(beta1 > 0, beta1, torch.ones_like(beta1))
+    w0 = torch.zeros_like(b)
+    w_m1 = torch.zeros_like(b)
+    beta = beta1
+    one = torch.ones((), dtype=b.dtype, device=b.device)
+    g0, g1, s0, s1 = one, one, 0 * one, 0 * one
+    eta = beta1
+    i = 0
+    while i < maxiter and float(torch.abs(eta)) > atol:
+        Av = matvec(v)
+        alpha = torch.dot(v, Av)
+        v_next = Av - alpha * v - beta * v_prev
+        beta_next = torch.linalg.norm(v_next)
+        v_next = v_next / safe(beta_next)
+
+        delta = g1 * alpha - g0 * s1 * beta
+        rho1 = torch.sqrt(delta**2 + beta_next**2)
+        rho2 = s1 * alpha + g0 * g1 * beta
+        rho3 = s0 * beta
+        gamma_new = delta / safe(rho1)
+        sigma_new = beta_next / safe(rho1)
+
+        w_new = (v - rho3 * w_m1 - rho2 * w0) / safe(rho1)
+        xa = xa + (gamma_new * eta).to(acc) * w_new.to(acc)
+        eta = -sigma_new * eta
+
+        v_prev, v, w_m1, w0, beta = v, v_next, w0, w_new, beta_next
+        g0, g1, s0, s1 = g1, gamma_new, s1, sigma_new
+        i += 1
+    return xa.to(b.dtype), (i, torch.abs(eta))
+
+
+def gmres(matvec, b, x0=None, tol: float = None, maxiter: int = None, restart: int = 32,
+          M=None):
+    """Restarted GMRES(m) for non-symmetric operators, as cfjax's: each
+    cycle runs `restart` Arnoldi steps (modified Gram-Schmidt), solves the
+    small least-squares problem, and tests the true residual ||b - A x||.
+    M: callable v -> M^-1 v (left preconditioner). Returns (x, (matvecs,
+    final residual norm))."""
+    tol = _config.DEFAULT.cg_tol if tol is None else tol
+    maxiter = _config.DEFAULT.cg_maxiter if maxiter is None else maxiter
+    b = torch.as_tensor(b)
+    n = b.shape[0]
+    x = torch.zeros_like(b) if x0 is None else torch.as_tensor(x0)
+    Minv = (lambda v: v) if M is None else M
+    m = int(min(restart, maxiter))
+    bnorm = float(torch.linalg.norm(b))
+    atol = tol * (bnorm if bnorm > 0 else 1.0)
+    eps = torch.finfo(b.dtype).eps
+    safe = lambda t, lo: torch.where(t > lo, t, torch.ones_like(t))
+
+    def arnoldi_cycle(x):
+        r = Minv(b - matvec(x))
+        beta = torch.linalg.norm(r)
+        V = torch.zeros((m + 1, n), dtype=b.dtype, device=b.device)
+        V[0] = r / safe(beta, 0)
+        H = torch.zeros((m + 1, m), dtype=b.dtype, device=b.device)
+        for j in range(m):
+            w = Minv(matvec(V[j]))
+            for i in range(j + 1):
+                H[i, j] = torch.dot(V[i], w)
+                w = w - H[i, j] * V[i]
+            H[j + 1, j] = torch.linalg.norm(w)
+            V[j + 1] = w / safe(H[j + 1, j], eps)
+        e1 = torch.zeros((m + 1, 1), dtype=torch.float64)
+        e1[0, 0] = beta.double().cpu()
+        # minimum-norm least squares (SVD-based, as jnp.linalg.lstsq), on
+        # the host: the problem is (restart + 1) x restart
+        y = torch.linalg.lstsq(H.double().cpu(), e1, driver="gelsd").solution[:, 0]
+        return x + V[:m].T @ y.to(device=b.device, dtype=b.dtype)
+
+    res = float(torch.linalg.norm(b - matvec(x)))
+    it = 0
+    while it < maxiter and res > atol:
+        x = arnoldi_cycle(x)
+        # stopping test on the true residual (one extra matvec per cycle):
+        # with M the Arnoldi residual lives in preconditioned space
+        res = float(torch.linalg.norm(b - matvec(x)))
+        it += m + 1
+    return x, (it, res)
 
 
 def _tri_solve(L, b, upper=False, left_transpose=False):
@@ -155,31 +261,43 @@ def factorize(op, max_cholesky_size: int = None, rank_tol: float = None):
 
 
 def solve(op, b, tol: float = None, maxiter: int = None, method: str = "auto"):
-    """A \\ b: dense Cholesky for small symmetric PSD operators (the
+    """A \\ b for any operator: Cholesky (small symmetric PSD, the
     reference policy up to max_cholesky_size, src/gramian.jl:201-213), CG
-    for larger PSD ones."""
+    (PSD), MINRES (symmetric indefinite), GMRES (general,
+    method="gmres"), CGNR normal equations (non-symmetric / rectangular
+    least squares, src/lazy_linear_algebra.jl:135-144)."""
     return solve_with_info(op, b, tol, maxiter, method)[0]
 
 
 def solve_with_info(op, b, tol: float = None, maxiter: int = None, method: str = "auto"):
-    """`solve`, returning (x, info): info is CG's (iterations, final
-    residual norm) on the CG branch (a list of them for a 2-D b), else None."""
+    """`solve`, returning (x, info): info is the iterative solver's
+    (iterations, final residual norm) on the CG, MINRES, GMRES and CGNR
+    branches (a list of them for a 2-D b), else None."""
     if isinstance(op, (CholeskyFactorization, LowRankFactorization)):
         return op.solve(b), None
     b = torch.as_tensor(b)
     if method == "auto":
-        if not (op.is_symmetric and op.is_psd):
-            raise NotImplementedError(
-                "solving a non-PSD operator needs MINRES or CGNR, which are not "
-                "ported yet (ROADMAP.md, queue 1, item 5)")
-        method = "cholesky" if op.shape[0] <= _config.DEFAULT.max_cholesky_size else "cg"
+        if op.is_symmetric and op.is_psd:
+            method = "cholesky" if op.shape[0] <= _config.DEFAULT.max_cholesky_size else "cg"
+        elif op.is_symmetric:
+            method = "minres"
+        else:
+            method = "cgnr"
     if method == "cholesky":
         return CholeskyFactorization(op).solve(b), None
-    if method == "cg":
-        f = lambda bb: cg(op._matvec, bb, tol=tol, maxiter=maxiter)
-        if b.ndim == 1:
-            return f(b)
-        cols = [f(b[:, j]) for j in range(b.shape[1])]
-        return torch.stack([c[0] for c in cols], dim=1), [c[1] for c in cols]
-    raise NotImplementedError(
-        f"solve method {method!r} is not ported yet (ROADMAP.md, queue 1, item 5)")
+    mv = op._matvec
+    if method == "cgnr":
+        # normal equations A^T A x = A^T b, solved by CG: the least-squares
+        # solution for rectangular / non-symmetric operators
+        rmv = op._rmatvec
+        f = lambda bb: cg(lambda v: rmv(mv(v)), rmv(bb), tol=tol, maxiter=maxiter)
+    elif method in ("cg", "minres", "gmres"):
+        it = {"cg": cg, "minres": minres, "gmres": gmres}[method]
+        f = lambda bb: it(mv, bb, tol=tol, maxiter=maxiter)
+    else:
+        raise NotImplementedError(
+            f"solve method {method!r} is not ported yet (ROADMAP.md, queue 1)")
+    if b.ndim == 1:
+        return f(b)
+    cols = [f(b[:, j]) for j in range(b.shape[1])]
+    return torch.stack([c[0] for c in cols], dim=1), [c[1] for c in cols]

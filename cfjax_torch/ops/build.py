@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-LIBRARIES = ("gramian_mvm", "grad_mvm")
+LIBRARIES = ("gramian_mvm", "grad_mvm", "tile_ell_mvm")
 
 
 def _nvcc() -> str:

@@ -14,7 +14,8 @@ at the checkout root and loaded with ctypes (`ops/build.py`). Each
 wrapper takes the kernel's plain torch version when its tensors lie on
 the CPU; for CUDA tensors it launches the kernel or raises. `LAUNCHES`
 counts kernel launches per kernel (K3, in `ops/grad_mvm.py`, counts
-under "grad"). Both kernels are forward-only, like the Pallas kernels.
+under "grad"; K4, in `ops/tile_ell_mvm.py`, under "tile_ell"). Both
+kernels are forward-only, like the Pallas kernels.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ DIRECT_MAX_D = 16
 _K1_TM, _K1_TN = 64, 512
 _K2_BM, _K2_BN = 64, 64
 
-LAUNCHES = {"direct": 0, "expand": 0, "grad": 0}
+LAUNCHES = {"direct": 0, "expand": 0, "grad": 0, "tile_ell": 0}
 
 
 class _CSpec(ctypes.Structure):

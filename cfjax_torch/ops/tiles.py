@@ -52,25 +52,27 @@ def matmul_p(a, b, precision=None):
 
 
 def inner_tile(xb, y, precision=None):
-    """(B, m) inner-product tile x_i . y_j at controlled precision."""
-    return _mm(xb, y.T, precision)
+    """(B, m) inner-product tile x_i . y_j at controlled precision (leading
+    batch dimensions of xb and y broadcast)."""
+    return _mm(xb, y.mT, precision)
 
 
 def sqdist_tile(xb, y, precision=None, direct_max_d=None):
     """(B, m) squared-distance tile ||x_i - y_j||^2, exact at small d
-    (unrolled difference form), matmul expansion otherwise."""
-    d = xb.shape[1]
+    (unrolled difference form), matmul expansion otherwise. Leading batch
+    dimensions of xb and y broadcast: (G, B, d) and (G, m, d) give (G, B, m)."""
+    d = xb.shape[-1]
     dmax = _config.DEFAULT.direct_sqdist_max_d if direct_max_d is None else direct_max_d
     if d <= dmax:
         D = None
         for i in range(d):
-            t = xb[:, i, None] - y[None, :, i]
+            t = xb[..., :, i, None] - y[..., None, :, i]
             t = t * t
             D = t if D is None else D + t
         return D
     S = inner_tile(xb, y, precision)
-    D = (torch.sum(xb * xb, dim=1)[:, None]
-         + torch.sum(y * y, dim=1)[None, :] - 2.0 * S)
+    D = (torch.sum(xb * xb, dim=-1)[..., :, None]
+         + torch.sum(y * y, dim=-1)[..., None, :] - 2.0 * S)
     return torch.clamp(D, min=0.0)
 
 

@@ -12,13 +12,19 @@ card, then drives the paths a user runs:
   * phases 7-8, the GP on gradient observations: `gramian(GradientKernel)`
     -> gradient-block MVM (K3) -> CG -> posterior mean of the gradients,
     at BASELINE config 4 (EQ, n = 4096, d = 16) and the reference
-    README's gradient configuration (MaternP(2), n = d = 1024).
-Phase 1 holds K1 and K2, phase 6 K3, against their float64 plain
-versions; phase 5 times each kernel against its plain version. One line
-per phase, then a JSON line of kernel results, the card's name and power
-limit, and a last JSON line `{"ok": true, "device": {...}}`. Any failed
-check raises: the script then exits non-zero and prints no result. It
-needs a CUDA device and fails at once without one.
+    README's gradient configuration (MaternP(2), n = d = 1024);
+  * phases 10-11, sparsify then solve (reference src/sparse.jl):
+    `sparse_gramian` -> TileELL operator (MVM through K4) ->
+    `solve(S + noise I)`, which is MINRES, at the reference's sparse
+    configuration (EQ, d = 32, n = 16384, scan build) and a spatial sparse
+    GP at the tile format's widest m (n = 32768, tree build, nt = 256).
+Phase 1 holds K1 and K2, phase 6 K3, phase 9 K4 against their float64
+plain versions; phase 5 times each kernel against its plain version (K4
+after phase 11, at its operator). One line per phase, then a JSON line of
+kernel results, the card's name and power limit, and a last JSON line
+`{"ok": true, "device": {...}}`. Any failed check raises: the script then
+exits non-zero and prints no result. It needs a CUDA device and fails at
+once without one.
 """
 
 from __future__ import annotations
@@ -34,6 +40,8 @@ import torch
 K1_BOUND = 1e-5   # relative L2 error of K1 vs its float64 plain version
 K2_BOUND = 1e-4   # K2: the expansion cancels (cfjax's interpret tolerance is 2e-4)
 K3_BOUND = 1e-4   # K3: float32 jet and Taylor bound (cfjax's interpret tolerance is 3e-4)
+K4_BOUND = {torch.float32: 1e-5, torch.float64: 1e-12}   # K4 vs its float64 plain version
+SPARSE_TOL = 1e-6  # the sparsification tolerance of phases 10 and 11
 NOISE = 1e-2      # the GP's noise variance
 Y_NOISE = 0.01    # standard deviation of the noise in the observations y
 
@@ -288,6 +296,170 @@ def phase8_readme_gradient(tk, ops, gmvm):
     return dict(residual=res, residual64=res64, wall_s=wall, row_err=row_err)
 
 
+def phase9_tile_kernel(tmvm, res, a2, off, val, what):
+    """K4 against its float64 plain version on one group, in float32 and in
+    the float64 instance; res[dtype] = [cases, max rel, max abs]."""
+    ref = tmvm.slab_matvec_plain(a2.double(), off, val.double())
+    for dtype, bound in K4_BOUND.items():
+        out = tmvm.slab_matvec(a2.to(dtype), off, val.to(dtype))
+        r = rel(out, ref)
+        check(torch.isfinite(out).all().item(), f"K4 {what} {dtype}: non-finite output")
+        check(r <= bound, f"K4 {what} {dtype}: relative error {r:.3e} > {bound:.0e}")
+        c = res[dtype]
+        res[dtype] = [c[0] + 1, max(c[1], r), max(c[2], float((out.double() - ref).abs().max()))]
+
+
+def phase9_synthetic(tmvm):
+    """K4 on synthetic groups: K in {1, 2, 8, 32, 128}, nt in {1, 2, 128,
+    256}, B in {8, 136}, offsets over the whole lane range, ~70% zero
+    values; groups above 2^28 slots are left out (memory of the float64
+    reference)."""
+    g = torch.Generator(device="cuda").manual_seed(9)
+    res = {dtype: [0, 0.0, 0.0] for dtype in K4_BOUND}
+    skipped = 0
+    for K in (1, 2, 8, 32, 128):
+        for nt in (1, 2, 128, 256):
+            for B in (8, 136):
+                shape = (B, K, nt, 128)
+                if B * K * nt * 128 > 1 << 28:
+                    skipped += 1
+                    continue
+                a2 = torch.randn((nt, 128), generator=g, device="cuda")
+                off = torch.randint(0, 128, shape, generator=g, device="cuda", dtype=torch.int32)
+                val = torch.randn(shape, generator=g, device="cuda")
+                val *= torch.rand(shape, generator=g, device="cuda") < 0.3
+                phase9_tile_kernel(tmvm, res, a2, off, val, f"B={B} K={K} nt={nt}")
+                del a2, off, val
+    torch.cuda.synchronize()
+    return res, skipped
+
+
+def slab_plain64(S, tmvm, v):
+    """S @ v through the float64 plain slab version (the reference for the
+    residuals of phases 10 and 11): the same groups, perm and crops as
+    `tile_ell_matvec`."""
+    n, m = S.shape
+    a2 = torch.nn.functional.pad(v.double(), (0, S.nt * 128 - m)).reshape(S.nt, 128)
+    outs = [tmvm.slab_matvec_plain(a2, off[:(r1 - r0) // 128], val[:(r1 - r0) // 128].double())
+            .reshape(-1) for r0, r1, off, val in S.groups]
+    out = torch.zeros(S.perm.shape[0], dtype=torch.float64, device=v.device)
+    out[S.perm] = torch.cat(outs)[:S.perm.shape[0]]
+    return out[:n]
+
+
+def slab_stats(S):
+    """(groups as (K, B real, B allocated), allocated off+val bytes, slots
+    over the real row blocks)."""
+    groups = [(off.shape[1], (r1 - r0) // 128, off.shape[0]) for r0, r1, off, val in S.groups]
+    nbytes = sum(off.numel() * 4 + val.numel() * val.element_size()
+                 for _, _, off, val in S.groups)
+    slots = sum(K * b * S.nt * 128 for K, b, _ in groups)
+    return groups, nbytes, slots
+
+
+def sparse_solve(ops, S, b, label):
+    """MINRES on (S + noise I) alpha = b, tol 1e-5, through `solve`."""
+    op = S.add_diagonal(NOISE)
+    (alpha, info), wall = sync_time(lambda: ops.solve_with_info(op, b, tol=1e-5, maxiter=1000))
+    it = info[0]
+    check(it < 1000, f"{label}: MINRES did not converge in 1000 iterations "
+                     f"(residual {float(info[1]):.3e})")
+    return alpha, it, wall
+
+
+def phase10_reference_sparse(tk, ops, so, tmvm):
+    """The reference's sparse configuration (benchmarks/run_baseline.py
+    bench_sparse): sparse_gramian(EQ(), x, tol=1e-6), x ~ N(0, I), n = 16384,
+    d = 32, float32 — the scan build."""
+    from cfjax_torch.ops.tiles import sqdist_tile
+
+    rng = np.random.default_rng(10)
+    n, d = 16384, 32
+    k = tk.EQ()
+    x = cuda_tensor(rng.standard_normal((n, d)))
+    (S, ratio), build_s = sync_time(lambda: so.sparse_gramian(k, x, tol=SPARSE_TOL))
+    check(type(S).__name__ == "TileEllOperator", f"phase 10: got {type(S).__name__}")
+    groups, nbytes, slots = slab_stats(S)
+    # S @ a rows against the float64 dense rows, entries outside the decay
+    # radius dropped
+    r2 = so.decay_radius(k, SPARSE_TOL) ** 2
+    a = cuda_tensor(rng.standard_normal(n))
+    xd = x.double()
+    D = sqdist_tile(xd[:256], xd, direct_max_d=d)
+    ref = torch.where(D <= r2, k.profile_value(D), 0.0) @ a.double()
+    row_err = rel((S @ a)[:256], ref)
+    check(row_err <= 1e-5, f"phase 10: S @ a rows disagree with the dense rows ({row_err:.3e})")
+    b = torch.sin(x[:, 0]) + Y_NOISE * cuda_tensor(rng.standard_normal(n))
+    alpha, it, wall = sparse_solve(ops, S, b, "phase 10")
+    res = residual(S @ alpha, alpha, b)
+    res64 = residual(slab_plain64(S, tmvm, alpha), alpha, b)
+    check(max(res, res64) <= 1e-4, f"phase 10: residual {res:.3e} / {res64:.3e} > 1e-4")
+    print(f"phase 10 reference sparse config EQ d=32 n=16384 tol 1e-6 (scan build): build "
+          f"{build_s:.3f} s, nnz {S.nnz} ratio {ratio:.6f}, nt {S.nt}, groups (K, B, B "
+          f"allocated) {groups}, slabs {nbytes / 1e6:.1f} MB allocated, {slots / S.nnz:.1f} "
+          f"slots per nonzero; S @ a rows rel {row_err:.3e}; solve(S + 1e-2 I) MINRES {it} "
+          f"iterations {wall:.4f} s, residual {res:.3e} (K4) / {res64:.3e} float64 (bound 1e-4)",
+          flush=True)
+    return dict(S=S, iters=it, wall_s=wall, residual=res, residual64=res64, build_s=build_s)
+
+
+def phase11_spatial_sparse(tk, ops, so, tmvm, mvm):
+    """A spatial sparse GP at the tile format's widest m: Lengthscale(EQ,
+    0.2), x uniform in [0, 20]^2, n = 32768, tol 1e-6, the tree build
+    (nt = 256), MINRES on (S + 1e-2 I) alpha = sin(x0) + 0.01 eps."""
+    rng = np.random.default_rng(11)
+    n = 32768
+    k = tk.Lengthscale(tk.EQ(), 0.2)
+    x = cuda_tensor(rng.uniform(0, 20, (n, 2)))
+    (S, ratio), build_s = sync_time(lambda: so.sparse_gramian(k, x, tol=SPARSE_TOL,
+                                                              method="tree"))
+    check(type(S).__name__ == "TileEllOperator" and S.nt == 256,
+          f"phase 11: got {type(S).__name__} with nt {getattr(S, 'nt', None)}")
+    groups, nbytes, slots = slab_stats(S)
+    b = torch.sin(x[:, 0]) + Y_NOISE * cuda_tensor(rng.standard_normal(n))
+    before = mvm.LAUNCHES["tile_ell"]
+    alpha, it, wall = sparse_solve(ops, S, b, "phase 11")
+    launches = mvm.LAUNCHES["tile_ell"] - before
+    check(launches >= it, f"phase 11: {launches} K4 launches < {it} MINRES iterations")
+    res = residual(S @ alpha, alpha, b)
+    res64 = residual(slab_plain64(S, tmvm, alpha), alpha, b)
+    check(max(res, res64) <= 1e-4, f"phase 11: residual {res:.3e} / {res64:.3e} > 1e-4")
+    (SL, ratio_l), lazy_s = sync_time(lambda: so.sparse_gramian(k, x, tol=SPARSE_TOL,
+                                                                format="lazy"))
+    check(type(SL).__name__ == "TreeSparseOperator" and SL.nnz == S.nnz,
+          f"phase 11: format='lazy' gave {type(SL).__name__} with nnz {SL.nnz} != {S.nnz}")
+    a = cuda_tensor(rng.standard_normal(n))
+    lazy_err = rel(SL @ a, (S @ a).double())
+    check(lazy_err <= 1e-5, f"phase 11: S_lazy @ a disagrees with S @ a ({lazy_err:.3e})")
+    print(f"phase 11 spatial sparse GP Lengthscale(EQ, 0.2) [0,20]^2 n=32768 tol 1e-6 (tree "
+          f"build): build {build_s:.3f} s, nnz {S.nnz} ({S.nnz / n:.1f} per row) ratio "
+          f"{ratio:.6f}, nt {S.nt}, groups (K, B, B allocated) {groups}, slabs "
+          f"{nbytes / 1e6:.1f} MB allocated, {slots / S.nnz:.1f} slots per nonzero; MINRES {it} "
+          f"iterations (tol 1e-5) {wall:.4f} s, {launches} K4 launches, residual {res:.3e} (K4) "
+          f"/ {res64:.3e} float64 (bound 1e-4); lazy TreeSparseOperator build {lazy_s:.3f} s, "
+          f"rel to S @ a {lazy_err:.3e}", flush=True)
+    return dict(S=S, iters=it, wall_s=wall, launches=launches, residual=res, residual64=res64,
+                build_s=build_s, nbytes=nbytes)
+
+
+def k4_times(S, tmvm):
+    """K4 against its plain version on every group of S, plain / kernel /
+    kernel / plain, median of 20 each; and the bytes one MVM reads."""
+    rng = np.random.default_rng(12)
+    n, m = S.shape
+    a2 = torch.nn.functional.pad(cuda_tensor(rng.standard_normal(m)),
+                                 (0, S.nt * 128 - m)).reshape(S.nt, 128)
+    slabs = [(off[:(r1 - r0) // 128], val[:(r1 - r0) // 128]) for r0, r1, off, val in S.groups]
+    kern = lambda: [tmvm.slab_matvec(a2, off, val) for off, val in slabs]
+    plain = lambda: [tmvm.slab_matvec_plain(a2, off, val) for off, val in slabs]
+    kern(), plain()   # warm-up
+    t_plain = median_ms(plain, 10)
+    t_kern = median_ms(kern, 10) + median_ms(kern, 10)
+    t_plain += median_ms(plain, 10)
+    nbytes = sum(off.numel() * 4 + val.numel() * 4 for off, val in slabs) + a2.numel() * 4
+    return float(np.median(t_kern)), float(np.median(t_plain)), nbytes
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -296,15 +468,17 @@ def main():
     import cfjax_torch.gp as gp
     import cfjax_torch.operators as ops
     from cfjax_torch.ops import build
+    from cfjax_torch.operators import sparse_op as so
     from cfjax_torch.ops import grad_mvm as gmvm
     from cfjax_torch.ops import gramian_mvm as mvm
+    from cfjax_torch.ops import tile_ell_mvm as tmvm
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
     build.build()
-    mvm.library(), gmvm.library()
+    mvm.library(), gmvm.library(), tmvm.library()
     print(f"phase 0 card: {smi} | torch {torch.__version__} cuda {torch.version.cuda} | "
           f"kernel libraries {', '.join(build.LIBRARIES)} built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -391,16 +565,56 @@ def main():
           f"phase 7: {p7['launches']} K3 launches < {p7['cg_iters']} CG iterations")
     launches["grad"] = grad_launches
 
+    p9, p9_skipped = phase9_synthetic(tmvm)
+
+    # ---- the sparsify-then-solve path: counts from here to the end of phase 11 ----
+    for key in mvm.LAUNCHES:
+        mvm.LAUNCHES[key] = 0
+    p10 = phase10_reference_sparse(tk, ops, so, tmvm)
+    p11 = phase11_spatial_sparse(tk, ops, so, tmvm, mvm)
+    launches["tile_ell"] = mvm.LAUNCHES["tile_ell"]
+    check(launches["tile_ell"] > 0, "kernel 'tile_ell' was not launched on the sparse path")
+
+    # ---- phase 9 (continued): K4 on the groups of the phase-10 and phase-11 operators ----
+    rng = np.random.default_rng(9)
+    for label, S in (("phase 10", p10["S"]), ("phase 11", p11["S"])):
+        a2 = torch.nn.functional.pad(cuda_tensor(rng.standard_normal(S.shape[1])),
+                                     (0, S.nt * 128 - S.shape[1])).reshape(S.nt, 128)
+        for gi, (r0, r1, off, val) in enumerate(S.groups):
+            blocks = (r1 - r0) // 128
+            phase9_tile_kernel(tmvm, p9, a2, off[:blocks], val[:blocks],
+                               f"{label} group {gi} K={off.shape[1]} B={blocks}")
+    torch.cuda.synchronize()
+    f32, f64 = p9[torch.float32], p9[torch.float64]
+    synthetic = f32[0] - len(p10["S"].groups) - len(p11["S"].groups)
+    print(f"phase 9 K4 vs float64 plain: {f32[0]} groups ({synthetic} synthetic, "
+          f"{p9_skipped} over 2^28 slots left out, and the groups of phases 10 and "
+          f"11): float32 max rel {f32[1]:.3e} (bound {K4_BOUND[torch.float32]:.0e}) max abs "
+          f"{f32[2]:.3e}; float64 instance max rel {f64[1]:.3e} (bound "
+          f"{K4_BOUND[torch.float64]:.0e}) max abs {f64[2]:.3e}", flush=True)
+
+    # ---- phase 5 (K4): at phase 11's operator ----
+    k4_ms, k4_plain_ms, k4_bytes = k4_times(p11["S"], tmvm)
+    times["tile_ell"] = (k4_ms, k4_plain_ms)
+    gbs = k4_bytes / k4_ms / 1e6
+    print(f"phase 5 (K4) times (median of 20, CUDA events) at phase 11's operator (all groups): "
+          f"K4 {k4_ms:.4f} ms vs plain {k4_plain_ms:.4f} ms; {k4_bytes / 1e6:.1f} MB of off+val+a "
+          f"read per MVM, {gbs:.1f} GB/s = {100 * gbs / 3350:.1f}% of the H100 SXM's 3350 GB/s; "
+          f"one MINRES solve {p11['wall_s']:.4f} s ({p11['iters']} "
+          f"iterations), phase 10's {p10['wall_s']:.4f} s ({p10['iters']} iterations)", flush=True)
+
     meta = {"direct": ("K1 gramian_matvec_direct", "cfjax_torch/csrc/gramian_mvm.cu",
                        "cfjax/ops/pallas_mvm.py:253", p1["direct"][2]),
             "expand": ("K2 gramian_matvec_expand", "cfjax_torch/csrc/gramian_mvm.cu",
                        "cfjax/ops/pallas_mvm.py:152", p1["expand"][2]),
             "grad": ("K3 grad_matvec", "cfjax_torch/csrc/grad_mvm.cu",
-                     "cfjax/ops/pallas_mvm.py:374", p6[2])}
+                     "cfjax/ops/pallas_mvm.py:374", p6[2]),
+            "tile_ell": ("K4 slab_matvec", "cfjax_torch/csrc/tile_ell_mvm.cu",
+                         "cfjax/operators/tile_ell.py:344", f32[2])}
     print(json.dumps({"kernels": [
         {"name": meta[key][0], "route": "cuda", "source": meta[key][1],
          "replaces": meta[key][2], "launches": launches[key], "max_abs_err": meta[key][3],
-         "ms": times[key][0], "plain_ms": times[key][1]} for key in ("direct", "expand", "grad")]}))
+         "ms": times[key][0], "plain_ms": times[key][1]} for key in meta]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

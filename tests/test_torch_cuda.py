@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card, and its independence from jax.
 
-The tests marked `needs_gpu` compare K1, K2 and K3 with their plain torch
-versions on a CUDA device; they skip where there is none (the skip is
+The tests marked `needs_gpu` compare K1, K2, K3 and K4 with their plain
+torch versions on a CUDA device; they skip where there is none (the skip is
 decided when the test runs, not when the module is imported). The two
 import checks run everywhere: the port package never imports jax."""
 
@@ -18,8 +18,12 @@ import cfjax_torch.kernels as tk
 from cfjax_torch.derivative import GradientKernel
 from cfjax_torch.kernels.profile_spec import to_spec
 from cfjax_torch.operators.dispatch import explain, gramian
+from cfjax_torch.operators import solve_with_info
+from cfjax_torch.operators.sparse_op import sparse_gramian
+from cfjax_torch.operators.tile_ell import TileEllOperator
 from cfjax_torch.ops import grad_mvm
 from cfjax_torch.ops import gramian_mvm as mvm
+from cfjax_torch.ops import tile_ell_mvm
 
 PACKAGE = Path(__file__).resolve().parents[1] / "cfjax_torch"
 
@@ -36,7 +40,8 @@ def test_port_source_has_no_jax_import():
 
 def test_port_import_loads_no_jax():
     code = ("import sys, cfjax_torch, cfjax_torch.gp, cfjax_torch.operators, cfjax_torch.ops,"
-            " cfjax_torch.derivative, cfjax_torch.utils.linalg;"
+            " cfjax_torch.derivative, cfjax_torch.utils.linalg, cfjax_torch.barneshut,"
+            " cfjax_torch.operators.sparse_op, cfjax_torch.operators.tile_ell;"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'cfjax.'))];"
             "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=PACKAGE.parent,
@@ -195,3 +200,83 @@ def test_gradient_gramian_on_cuda_selects_k3():
     assert "declined: dtype" in explain(GradientKernel(tk.EQ()), x.double())
     assert "no derivative spec" in explain(GradientKernel(tk.Exp()), x)
     assert "cuda kernel K3" in explain(GradientKernel(tk.Warped(tk.EQ(), torch.tanh)), x)
+
+
+def _slab_data(B, K, nt, dtype, seed=0):
+    """Random slabs: offsets over the whole lane range, ~70% zero values."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (B, K, nt, 128)
+    a2 = torch.randn((nt, 128), generator=g, device="cuda", dtype=dtype)
+    off = torch.randint(0, 128, shape, generator=g, device="cuda", dtype=torch.int32)
+    val = torch.randn(shape, generator=g, device="cuda", dtype=dtype)
+    val = val * (torch.rand(shape, generator=g, device="cuda") < 0.3)
+    return a2, off, val
+
+
+@needs_gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("B,K,nt", [(8, 1, 1), (8, 2, 2), (136, 8, 128), (8, 32, 256),
+                                    (16, 128, 2), (136, 1, 256), (24, 4, 1)])
+def test_tile_ell_kernel_matches_plain(B, K, nt, dtype):
+    a2, off, val = _slab_data(B, K, nt, dtype)
+    before = mvm.LAUNCHES["tile_ell"]
+    out = tile_ell_mvm.slab_matvec(a2, off, val)
+    torch.cuda.synchronize()
+    assert mvm.LAUNCHES["tile_ell"] == before + 1
+    assert out.dtype == dtype and tuple(out.shape) == (B, 128)
+    ref = tile_ell_mvm.slab_matvec_plain(a2.double(), off, val.double())
+    assert _rel(out, ref) <= (1e-5 if dtype == torch.float32 else 1e-12)
+    # the chunks are added in a fixed order: a second launch repeats bit for bit
+    assert torch.equal(out, tile_ell_mvm.slab_matvec(a2, off, val))
+
+
+@needs_gpu
+def test_tile_ell_kernel_refuses_wrong_inputs():
+    a2, off, val = _slab_data(8, 2, 3, torch.float32)
+    with pytest.raises(TypeError):
+        tile_ell_mvm.slab_matvec(a2.half(), off, val.half())
+    with pytest.raises(TypeError):
+        tile_ell_mvm.slab_matvec(a2.double(), off, val)
+    with pytest.raises(TypeError):
+        tile_ell_mvm.slab_matvec(a2, off.long(), val)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        tile_ell_mvm.slab_matvec(a2, off.cpu(), val)
+    with pytest.raises(ValueError, match="shapes"):
+        tile_ell_mvm.slab_matvec(a2[:2].contiguous(), off, val)
+    strided = lambda t: torch.stack([t, t], dim=-1)[..., 0]   # same shape, not contiguous
+    with pytest.raises(ValueError, match="contiguous"):
+        tile_ell_mvm.slab_matvec(a2, strided(off), strided(val))
+    with pytest.raises(RuntimeError, match="forward-only"):
+        tile_ell_mvm.slab_matvec(a2, off, val.clone().requires_grad_(True))
+
+
+@needs_gpu
+@pytest.mark.parametrize("method", ["scan", "tree"])
+def test_sparse_gramian_on_cuda_launches_k4(method):
+    """The sparsified Gramian of CUDA points is a TileELL operator whose
+    MVM launches K4 once per group (a matrix right-hand side once per group
+    and column), agrees with the port's own build on the CPU, and solves
+    through MINRES."""
+    rng = np.random.default_rng(3)
+    xs = rng.uniform(0, 12, (20000, 2))
+    k = tk.Lengthscale(tk.EQ(), 0.2)
+    x = torch.tensor(xs, dtype=torch.float32, device="cuda")
+    S, ratio = sparse_gramian(k, x, tol=1e-6, method=method)
+    assert isinstance(S, TileEllOperator) and S.perm.is_cuda
+    S_cpu, ratio_cpu = sparse_gramian(k, x.cpu(), tol=1e-6, method=method)
+    assert abs(ratio - ratio_cpu) <= 1e-4 * ratio_cpu
+    a = torch.tensor(rng.standard_normal(20000), dtype=torch.float32, device="cuda")
+    before = mvm.LAUNCHES["tile_ell"]
+    out = S @ a
+    assert mvm.LAUNCHES["tile_ell"] == before + len(S.groups)
+    assert _rel(out, (S_cpu @ a.cpu()).double().cuda()) <= 1e-5
+    out2 = S @ torch.stack([a, 2 * a], dim=1)
+    assert mvm.LAUNCHES["tile_ell"] == before + 3 * len(S.groups)
+    assert torch.equal(out2[:, 0], out)
+    op = S.add_diagonal(1e-1)
+    b = torch.sin(x[:, 0])
+    before = mvm.LAUNCHES["tile_ell"]
+    alpha, (it, _) = solve_with_info(op, b, tol=1e-5, maxiter=1000)
+    assert 0 < it < 1000 and mvm.LAUNCHES["tile_ell"] - before >= it
+    res = torch.linalg.norm((op @ alpha).double() - b.double()) / torch.linalg.norm(b.double())
+    assert float(res) <= 1e-4

@@ -128,8 +128,10 @@ def test_cg_and_solve_methods(problem):
     Y = torch.tensor(np.stack([y, 2 * y], axis=1))
     np.testing.assert_allclose(solve(K, Y, method="cg", tol=1e-10, maxiter=2000).numpy(),
                                np.stack([ref, 2 * ref], axis=1), rtol=1e-6, atol=1e-8)
+    np.testing.assert_allclose(solve(K, torch.tensor(y), method="minres", tol=1e-12,
+                                     maxiter=2000).numpy(), ref, rtol=1e-6, atol=1e-8)
     with pytest.raises(NotImplementedError):
-        solve(K, torch.tensor(y), method="minres")
+        solve(K, torch.tensor(y), method="refined")
 
 
 def test_factorize_rank_revealing_matches_reference(rng):

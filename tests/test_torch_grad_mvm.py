@@ -122,7 +122,7 @@ def test_library_digest_covers_every_source(tmp_path, monkeypatch):
     (tmp_path / "shared.cuh").write_text("// changed\n")
     assert build.library_path("a") != first
     assert build.library_path("a").name.startswith("liba_")
-    assert set(build.LIBRARIES) == {"gramian_mvm", "grad_mvm"}
+    assert set(build.LIBRARIES) == {"gramian_mvm", "grad_mvm", "tile_ell_mvm"}
 
 
 def test_csrc_sources_declare_every_opcode():
