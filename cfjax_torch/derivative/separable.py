@@ -2,8 +2,7 @@
 `cfjax.derivative.separable`, reference src/separable.jl).
 
 Its gramian is gramian(k, x, y) ⊗ B (src/separable.jl:29-42), a lazy
-Kronecker operator in cfjax; the port's KroneckerOperator comes with the
-structured fast paths, so `gramian` raises until then."""
+KroneckerOperator whose scalar factor keeps its own fast path."""
 
 from __future__ import annotations
 
@@ -27,6 +26,10 @@ class SeparableKernel(MultiKernel):
         return torch.as_tensor(self.B) * self.k(x, y)
 
     def gramian(self, x, y=None, **opts):
-        raise NotImplementedError(
-            "the gramian of a SeparableKernel is a KroneckerOperator, which is not "
-            "ported yet (ROADMAP.md, queue 1, item 10)")
+        from ..operators.dispatch import gramian as scalar_gramian
+        from ..operators.kronecker import KroneckerOperator
+        from ..operators.linop import DenseOperator
+
+        G = scalar_gramian(self.k, x, y, **opts)
+        B = torch.as_tensor(self.B).to(dtype=G.dtype, device=G.device)
+        return KroneckerOperator((G, DenseOperator(B, symmetric=True, psd=True)))

@@ -10,7 +10,17 @@ from .linop import (
     ZeroOperator,
 )
 from .gramian import Gramian, gramian_dense, gramian_matvec, kernel_decline_reason
-from .solvers import (CholeskyFactorization, LowRankFactorization, cg,
+from .toeplitz import (
+    CirculantOperator,
+    ToeplitzOperator,
+    circulant_matvec,
+    durbin,
+    levinson,
+    toeplitz_matvec,
+    trench,
+)
+from .kronecker import KroneckerCholesky, KroneckerOperator
+from .solvers import (CholeskyFactorization, LowRankFactorization, cg, cg_columns,
                       factorize, gmres, minres, solve, solve_with_info)
 from .preconditioner import nystrom_preconditioner
 from .dispatch import LambdaKernel, explain, gramian

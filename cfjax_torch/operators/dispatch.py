@@ -5,16 +5,17 @@ One explicit decision tree over (kernel metadata, input container), run
 once at operator construction:
   1. matrix-valued kernels          -> derivative layer (gradient, value+
                                        gradient, Hessian gramians; the
-                                       SeparableKernel's Kronecker raises)
+                                       SeparableKernel's Kronecker)
   2. Constant                       -> lazy Fill (rank-1)
   2b. MatrixKernel                  -> dense A[ix][:, iy]
   3. FiniteBasis with n > rank      -> low-rank U V^T
-  4. SeparableProduct on LazyGrid   -> not ported yet (Kronecker)
+  4. SeparableProduct on LazyGrid   -> Kronecker of per-axis gramians
   5. input transforms (ARD/Energetic/Warped/ScaledInput/Periodic)
                                     -> pre-transform points once, recurse
   6. VerticalRescaling              -> D G D lazy product
   7. Sum with Delta terms (x is y)  -> diagonal split + recurse
-  8. uniform 1-D grid + stationary  -> not ported yet (Toeplitz / Circulant)
+  8. uniform 1-D grid + stationary  -> SymmetricToeplitz / Toeplitz;
+     periodic kernel on grid        -> Circulant (in step 5)
   9. fallback                       -> lazy Gramian (CUDA kernel or blocked MVM)
 """
 
@@ -40,6 +41,7 @@ from ..kernels.transforms import (
 )
 from ..utils.grids import LazyGrid, UniformGrid, as_points, detect_uniform_grid
 from .gramian import Gramian, kernel_decline_reason
+from .kronecker import KroneckerOperator
 from .linop import (
     DenseOperator,
     DiagonalOperator,
@@ -48,11 +50,7 @@ from .linop import (
     ProductOperator,
     SumOperator,
 )
-
-
-def _not_ported(what, item):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, queue 1, item {item})")
+from .toeplitz import CirculantOperator, ToeplitzOperator
 
 
 class LambdaKernel(Kernel):
@@ -136,7 +134,13 @@ def gramian(k, x, y=None, **opts):
 
     # 4. separable product on a lazy grid -> Kronecker (src/algebra.jl:91-95)
     if isinstance(k, SeparableProduct) and isinstance(x, LazyGrid):
-        raise _not_ported("the Kronecker gramian of a SeparableProduct on a LazyGrid", 10)
+        ygrid = x if same else y
+        if not isinstance(ygrid, LazyGrid) or len(ygrid.axes) != len(x.axes):
+            raise ValueError("SeparableProduct gramian needs LazyGrid for both inputs")
+        if len(k.args) != len(x.axes):
+            raise ValueError(f"SeparableProduct needs {len(x.axes)} kernels, has {len(k.args)}")
+        return KroneckerOperator([gramian(ki, x.axes[i], None if same else ygrid.axes[i], **opts)
+                                  for i, ki in enumerate(k.args)])
 
     # 5. input transforms -> pre-transform points once, recurse
     #    (src/transformation.jl:83-95, 113-121)
@@ -159,14 +163,15 @@ def gramian(k, x, y=None, **opts):
 
         return gramian(k.k, warp(x), None if same else warp(y), **opts)
     if isinstance(k, Periodic):
-        # the circulant fast path on uniform grids is not ported; otherwise
-        # embed x -> (cos 2 pi x, sin 2 pi x): the MacKay warp becomes the
-        # plain isotropic distance in the embedded space
+        # circulant on a uniform grid spanning whole periods (lazy column);
+        # otherwise embed x -> (cos 2 pi x, sin 2 pi x): the MacKay warp
+        # becomes the plain isotropic distance in the embedded space
         grid = _uniform_grid_of(x)
         if grid is not None and same:
             span = grid.step * grid.num
             if np.isclose(span, round(span)) and round(span) >= 1:
-                raise _not_ported("the circulant gramian of a Periodic kernel on a grid", 10)
+                return CirculantOperator(lambda: _grid_col(k, grid.start, grid), num=grid.num,
+                                         dtype=grid.dtype, device=grid.device)
         return gramian(_EmbeddedPeriodic(k.k), _embed_periodic(as_points(x)),
                        None if same else _embed_periodic(as_points(y)), **opts)
 
@@ -205,9 +210,15 @@ def gramian(k, x, y=None, **opts):
         InputTrait.STATIONARY,
         InputTrait.STATIONARY_LINEAR_FUNCTIONAL,
     ):
-        gy = None if same else _uniform_grid_of(y)
-        if same or (gy is not None and np.isclose(gx.step, gy.step) and gx.num == gy.num):
-            raise _not_ported("the Toeplitz gramian of a stationary kernel on a uniform grid", 10)
+        # lazy column: construction evaluates no kernel (the reference's
+        # Kronecker of grid gramians is lazy too, src/algebra.jl:91-95)
+        place = dict(num=gx.num, dtype=gx.dtype, device=gx.device)
+        if same:
+            return ToeplitzOperator(lambda: _grid_col(k, gx.start, gx), **place)
+        gy = _uniform_grid_of(y)
+        if gy is not None and np.isclose(gx.step, gy.step) and gx.num == gy.num:
+            return ToeplitzOperator(lambda: _grid_col(k, gy.start, gx),
+                                    lambda: _grid_col(k, gx.start, gy), **place)
 
     # 9. fallback: lazy Gramian (CUDA kernel or blocked plain MVM)
     return Gramian(k, x, None if same else y, **opts)
@@ -250,6 +261,15 @@ def _uniform_grid_of(x):
     return None
 
 
+def _grid_col(k, x0, grid):
+    """k(x0, p_j) for the points p_j of a UniformGrid, on the grid's
+    device and in its dtype: the first column (or row) of a grid
+    Gramian."""
+    pts = grid.points()
+    x0 = torch.tensor(x0, dtype=pts.dtype, device=pts.device)
+    return vmap(lambda xj: k(x0, xj))(pts)
+
+
 def explain(k, x, y=None, **opts) -> str:
     """Describe the structure the dispatcher detected, and whether the
     lazy Gramian's or gradient gramian's MVM runs on a CUDA kernel (and
@@ -273,6 +293,8 @@ def explain(k, x, y=None, **opts) -> str:
         why = g.kernel_reason
         parts.append("cuda kernel K3 grad_matvec" if why is None
                      else f"cuda kernel declined: {why}")
+    if isinstance(op, KroneckerOperator):
+        parts.append("factors: " + " ⊗ ".join(f"{type(f).__name__}{f.shape}" for f in op.factors))
     if isinstance(op, SumOperator):
         parts.append("terms: " + " + ".join(type(t).__name__ for t in op.terms))
     if isinstance(op, ProductOperator):

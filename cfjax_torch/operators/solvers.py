@@ -6,8 +6,7 @@ CG, MINRES and GMRES are Python loops with one host sync per residual
 check (cfjax's are `lax.while_loop`s). `torch.linalg.cholesky` raises on a
 matrix that is not positive definite where `jnp.linalg.cholesky` returns
 NaN, so the rank-revealing tests use `torch.linalg.cholesky_ex` and its
-`info`. `cg_columns` and the refinement solvers are not ported yet
-(ROADMAP.md, queue 1).
+`info`. The refinement solvers are not ported yet (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -55,6 +54,37 @@ def cg(matvec, b, x0=None, tol: float = None, maxiter: int = None, M=None):
         gamma = gamma_new
         i += 1
     return xa.to(b.dtype), (i, torch.linalg.norm(r))
+
+
+def cg_columns(matvec, B, tol: float = None, maxiter: int = None):
+    """Multi-RHS CG: solve A X = B for every column of B in ONE batched
+    recurrence (per-column alpha and beta; converged columns frozen by
+    masking), so the operator sees (n, p) matmats: the batched equivalent
+    of one `cg` per column. Returns (X, iterations). As in `cg`, a float32
+    solve accumulates X in float64."""
+    tol = _config.DEFAULT.cg_tol if tol is None else tol
+    maxiter = _config.DEFAULT.cg_maxiter if maxiter is None else maxiter
+    B = torch.as_tensor(B)
+    acc = torch.float64 if B.dtype == torch.float32 else B.dtype
+    atol2 = (tol * torch.linalg.norm(B, dim=0)) ** 2    # (p,)
+    X = torch.zeros_like(B, dtype=acc)
+    R, P = B, B
+    g = torch.sum(R * R, dim=0)
+    i = 0
+    live = g > atol2
+    while i < maxiter and bool(live.any()):
+        AP = matvec(P)
+        pAp = torch.sum(P * AP, dim=0)
+        alpha = torch.where(live, g / torch.where(pAp != 0, pAp, 1.0), 0.0)
+        X = X + alpha.to(acc)[None, :] * P.to(acc)
+        R = R - alpha[None, :] * AP
+        g_new = torch.sum(R * R, dim=0)
+        beta = torch.where(live, g_new / torch.where(g != 0, g, 1.0), 0.0)
+        P = torch.where(live[None, :], R + beta[None, :] * P, P)
+        g = torch.where(live, g_new, g)
+        live = g > atol2
+        i += 1
+    return X.to(B.dtype), i
 
 
 def minres(matvec, b, x0=None, tol: float = None, maxiter: int = None):

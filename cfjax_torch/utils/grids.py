@@ -4,6 +4,11 @@
 products without materializing them; `detect_uniform_grid` classifies a
 1-D array numerically; `as_points` normalizes any input container to an
 (n, d) tensor. Tensors keep their device.
+
+A grid descriptor carries an optional `device` and `dtype` (defaults: the
+CPU and `torch.get_default_dtype()`): its points, and the lazy Toeplitz,
+circulant and Kronecker columns built from it, are made there. JAX places
+arrays on its default device, so cfjax's grids need neither field.
 """
 
 from __future__ import annotations
@@ -21,9 +26,12 @@ class UniformGrid:
     start: float
     step: float
     num: int
+    device: object = None
+    dtype: object = None
 
     def points(self):
-        return self.start + self.step * torch.arange(self.num, dtype=torch.get_default_dtype())
+        dtype = torch.get_default_dtype() if self.dtype is None else self.dtype
+        return self.start + self.step * torch.arange(self.num, dtype=dtype, device=self.device)
 
     def __len__(self):
         return self.num
@@ -33,9 +41,21 @@ class UniformGrid:
 class LazyGrid:
     """Lazy Cartesian product of per-dimension 1-D point sets
     (reference src/lazy_grid.jl), last axis fastest. `axes` entries are
-    UniformGrid or 1-D arrays; `points()` materializes the product."""
+    UniformGrid or 1-D arrays; `points()` materializes the product. A
+    `device` or `dtype` given here is passed on to every axis."""
 
     axes: tuple
+    device: object = None
+    dtype: object = None
+
+    def __post_init__(self):
+        if self.device is None and self.dtype is None:
+            return
+        place = {k: v for k, v in (("device", self.device), ("dtype", self.dtype))
+                 if v is not None}
+        axes = tuple(dataclasses.replace(a, **place) if isinstance(a, UniformGrid)
+                     else torch.as_tensor(a).to(**place) for a in self.axes)
+        object.__setattr__(self, "axes", axes)
 
     def __len__(self):
         n = 1
@@ -65,11 +85,11 @@ class LazyGrid:
 
 def detect_uniform_grid(x, rtol: float = None):
     """Classify a 1-D array as a uniform grid; returns a UniformGrid or
-    None. The tolerance is dtype-aware: float32 grid positions carry
-    rounding ~eps*|x[i]|, an absolute (not step-relative) error."""
-    if isinstance(x, torch.Tensor):
-        x = x.detach().cpu().numpy()
-    x = np.asarray(x).squeeze()
+    None. The grid carries x's device and floating dtype. The tolerance is
+    dtype-aware: float32 grid positions carry rounding ~eps*|x[i]|, an
+    absolute (not step-relative) error."""
+    t = torch.as_tensor(x)
+    x = t.detach().cpu().numpy().squeeze()
     if x.ndim != 1 or x.size < 2:
         return None
     d = np.diff(x)
@@ -81,7 +101,8 @@ def detect_uniform_grid(x, rtol: float = None):
         rtol = max(1e-10, 4 * eps)
     atol = 8 * eps * float(np.max(np.abs(x))) + abs(step) * rtol
     if np.all(np.abs(d - step) <= atol):
-        return UniformGrid(float(x[0]), float(step), int(x.size))
+        return UniformGrid(float(x[0]), float(step), int(x.size), device=t.device,
+                           dtype=t.dtype if t.is_floating_point() else None)
     return None
 
 

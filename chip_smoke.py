@@ -17,7 +17,14 @@ card, then drives the paths a user runs:
     `sparse_gramian` -> TileELL operator (MVM through K4) ->
     `solve(S + noise I)`, which is MINRES, at the reference's sparse
     configuration (EQ, d = 32, n = 16384, scan build) and a spatial sparse
-    GP at the tile format's widest m (n = 32768, tree build, nt = 256).
+    GP at the tile format's widest m (n = 32768, tree build, nt = 256);
+  * phases 12-14, GPs on regular grids: `gramian()` on a UniformGrid /
+    LazyGrid placed on the card -> lazy Toeplitz (FFT MVM, Strang-PCG,
+    CG, Levinson), circulant (exact spectral solve and logML) and
+    Kronecker (mode-product MVM, per-factor Cholesky, exact logML and its
+    gradient) operators, at BASELINE config 2 (Exp, n = 65536), a periodic
+    kernel at n = 65536 and BASELINE config 3 (separable EQ on 128^3);
+    the posterior mean off the grid is a rectangular Gramian through K1.
 Phase 1 holds K1 and K2, phase 6 K3, phase 9 K4 against their float64
 plain versions; phase 5 times each kernel against its plain version (K4
 after phase 11, at its operator). One line per phase, then a JSON line of
@@ -42,6 +49,8 @@ K2_BOUND = 1e-4   # K2: the expansion cancels (cfjax's interpret tolerance is 2e
 K3_BOUND = 1e-4   # K3: float32 jet and Taylor bound (cfjax's interpret tolerance is 3e-4)
 K4_BOUND = {torch.float32: 1e-5, torch.float64: 1e-12}   # K4 vs its float64 plain version
 SPARSE_TOL = 1e-6  # the sparsification tolerance of phases 10 and 11
+TOEPLITZ_BOUND = 1e-5   # float32 FFT MVMs of phases 12-13 vs float64 (relative L2)
+VARIANCE_BOUND = 1e-4   # float32 posterior variance vs float64 (absolute; prior variance 1)
 NOISE = 1e-2      # the GP's noise variance
 Y_NOISE = 0.01    # standard deviation of the noise in the observations y
 
@@ -460,6 +469,283 @@ def k4_times(S, tmvm):
     return float(np.median(t_kern)), float(np.median(t_plain)), nbytes
 
 
+def rows64(k, x, y, a):
+    """(K a)[i] for the rows x of a 1-D grid Gramian, summed directly in
+    float64 through K1's plain version (the reference of the FFT MVMs)."""
+    from cfjax_torch.ops import gramian_mvm as mvm
+
+    return mvm.gramian_matvec_direct_plain(k, x.double()[:, None], y.double()[:, None],
+                                           a.double())
+
+
+def phase12_toeplitz(tk, ops, gp, mvm):
+    """BASELINE config 2 (cfjax's bench_toeplitz, uncut): Exp() on a uniform
+    grid of n = 65536 points over [0, 1), float32 on the card. FFT MVM,
+    Strang-PCG, gp_condition (plain CG on Toeplitz + noise), posterior
+    mean off the grid (K1) and variance, Levinson at n = 16384, and a
+    non-symmetric grid Gramian."""
+    from cfjax_torch.utils.grids import UniformGrid
+
+    rng = np.random.default_rng(12)
+    n = 65536
+    k = tk.Exp()
+    g = UniformGrid(0.0, 1.0 / n, n, device="cuda", dtype=torch.float32)
+    g64 = UniformGrid(0.0, 1.0 / n, n, device="cuda", dtype=torch.float64)
+    T, build_s = sync_time(lambda: ops.gramian(k, g))
+    check(type(T).__name__ == "ToeplitzOperator" and callable(T._col_src),
+          f"phase 12: gramian gave {type(T).__name__}, or evaluated its column at construction")
+    x = g.points()
+    a = cuda_tensor(rng.standard_normal(n))
+    b = T @ a
+    check(T.col.is_cuda and T.col.dtype == torch.float32 and b.dtype == torch.float32,
+          "phase 12: the lazy column or the MVM left the card's float32")
+    idx = torch.tensor(np.sort(rng.choice(n, 256, replace=False)), device="cuda")
+    mvm_err = rel(b[idx], rows64(k, x[idx], x, a))
+    check(mvm_err <= TOEPLITZ_BOUND, f"phase 12: FFT MVM rows rel {mvm_err:.3e}")
+    mvm_ms = float(np.median(median_ms(lambda: T @ a, 20)))
+    T64 = ops.gramian(k, g64)
+
+    def resid64(v, rhs):
+        return residual(T64 @ v.double(), v, rhs)
+
+    Tn = T.add_diagonal(NOISE)
+    bn = Tn @ a
+    (xs, (pcg_it, _)), pcg_s = sync_time(lambda: ops.cg(Tn._matvec, bn, tol=1e-5, maxiter=600,
+                                                        M=T.strang_preconditioner()))
+    pcg_res = resid64(xs, bn)
+    check(pcg_it < 600 and pcg_res <= 1e-4,
+          f"phase 12: Strang-PCG {pcg_it} iterations, float64 residual {pcg_res:.3e}")
+
+    y = torch.sin(6 * np.pi * x) + Y_NOISE * cuda_tensor(rng.standard_normal(n))
+    post, cond_s = sync_time(lambda: gp.gp_condition(k, g, y, noise=NOISE, tol=1e-5,
+                                                     maxiter=2000))
+    cg_it = post.solve_info[0]
+    cond_res = resid64(post.alpha, y)
+    check(cg_it < 2000 and cond_res <= 1e-4,
+          f"phase 12: gp_condition CG {cg_it} iterations, float64 residual {cond_res:.3e}")
+    xt = cuda_tensor(rng.uniform(0, 1, 4096))
+    before = mvm.LAUNCHES["direct"]
+    mean, mean_s = sync_time(lambda: post.mean(xt))
+    mean_launches = mvm.LAUNCHES["direct"] - before
+    check(mean_launches == 1, f"phase 12: post.mean launched K1 {mean_launches} times, not once")
+    mean_err = rel(mean[:64], rows64(k, xt[:64], x, post.alpha))
+    check(tuple(mean.shape) == (4096,) and mean_err <= 1e-4,
+          f"phase 12: posterior mean rows rel {mean_err:.3e}")
+    var, var_s = sync_time(lambda: post.variance(xt[:64], tol=1e-6, maxiter=2000))
+    post64 = gp.GPPosterior(k, g64, post.alpha.double(), NOISE)
+    var64 = post64.variance(xt[:64].double(), tol=1e-10, maxiter=5000)
+    var_err = float((var.double() - var64).abs().max())
+    check(bool((var64 > 0).all()) and var_err <= VARIANCE_BOUND,
+          f"phase 12: variance max abs error {var_err:.3e} (float64 range "
+          f"[{float(var64.min()):.3e}, {float(var64.max()):.3e}])")
+
+    # Levinson at n = 16384 (cfjax's toeplitz_levinson_n16384), float64,
+    # on T + noise I
+    n2 = 16384
+    T2 = ops.gramian(k, UniformGrid(0.0, 1.0 / n2, n2, device="cuda", dtype=torch.float64))
+    col = T2.col.clone()
+    col[0] += NOISE
+    T2n = ops.ToeplitzOperator(col)
+    b2 = T2n @ torch.tensor(rng.standard_normal(n2), device="cuda")
+    lev, lev_s = sync_time(lambda: ops.levinson(col, b2))
+    lev_res = float(torch.linalg.norm(T2n @ lev - b2) / torch.linalg.norm(b2))
+    check(lev_res <= 1e-8, f"phase 12: levinson float64 residual {lev_res:.3e}")
+    lev_ms = median_ms(lambda: ops.levinson(col, b2), 1)[0]
+
+    # a non-symmetric grid Gramian: y = x + h/2
+    gy = UniformGrid(0.5 / n, 1.0 / n, n, device="cuda", dtype=torch.float32)
+    Tns = ops.gramian(k, g, gy)
+    check(type(Tns).__name__ == "ToeplitzOperator" and not Tns.is_symmetric,
+          f"phase 12: gramian(Exp, gx, gy) gave {type(Tns).__name__}")
+    ns_err = rel((Tns @ a)[idx], rows64(k, x[idx], gy.points(), a))
+    check(ns_err <= TOEPLITZ_BOUND, f"phase 12: non-symmetric FFT MVM rows rel {ns_err:.3e}")
+    print(f"phase 12 Toeplitz (BASELINE config 2) Exp uniform grid n=65536 float32: lazy "
+          f"construction {build_s * 1e3:.3f} ms; FFT MVM {mvm_ms:.4f} ms (CUDA events, median "
+          f"of 20), rows rel {mvm_err:.3e} vs float64 direct sums (bound {TOEPLITZ_BOUND:.0e}); "
+          f"Strang-PCG on T + 1e-2 I tol 1e-5: {pcg_it} iterations {pcg_s:.3f} s, float64 "
+          f"residual {pcg_res:.3e}; gp_condition CG tol 1e-5: {cg_it} iterations {cond_s:.3f} s, "
+          f"float64 residual {cond_res:.3e} (bound 1e-4); mean(4096 off-grid) {mean_s:.4f} s, "
+          f"{mean_launches} K1 launch, rows rel {mean_err:.3e}; variance(64) {var_s:.3f} s, max "
+          f"abs error {var_err:.3e} vs float64 (bound {VARIANCE_BOUND:.0e}, float64 values "
+          f"[{float(var64.min()):.3e}, {float(var64.max()):.3e}]); levinson n=16384 float64 "
+          f"{lev_s:.3f} s wall, {lev_ms:.1f} ms CUDA events, residual {lev_res:.3e}; "
+          f"non-symmetric Toeplitz rows rel {ns_err:.3e}", flush=True)
+    return dict(mvm_ms=mvm_ms, pcg_it=pcg_it, pcg_s=pcg_s, cg_it=cg_it, cond_s=cond_s,
+                mean_launches=mean_launches, lev_s=lev_s, lev_ms=lev_ms)
+
+
+def phase13_circulant(tk, ops, gp):
+    """Periodic(EQ()) on a uniform grid of n = 65536 over [0, 1): a
+    CirculantOperator. MVM, exact spectral solve of C + noise I and the
+    circulant logML, each against a float64 run of the same on the card."""
+    from cfjax_torch.utils.grids import UniformGrid
+
+    rng = np.random.default_rng(13)
+    n = 65536
+    k = tk.Periodic(tk.EQ())
+    g, g64 = (UniformGrid(0.0, 1.0 / n, n, device="cuda", dtype=dt)
+              for dt in (torch.float32, torch.float64))
+    C, C64 = ops.gramian(k, g), ops.gramian(k, g64)
+    check(type(C).__name__ == "CirculantOperator" and callable(C._c_src),
+          f"phase 13: gramian gave {type(C).__name__}, or evaluated its column at construction")
+    a = cuda_tensor(rng.standard_normal(n))
+    b = C @ a
+    mvm_err = rel(b, C64 @ a.double())
+    x = g.points()
+    idx = torch.tensor(np.sort(rng.choice(n, 256, replace=False)), device="cuda")
+    rows_err = rel(b[idx], ops.Gramian(k, x[idx].double(), x.double()) @ a.double())
+    check(max(mvm_err, rows_err) <= TOEPLITZ_BOUND,
+          f"phase 13: MVM rel {mvm_err:.3e} vs float64 FFT, {rows_err:.3e} vs direct rows")
+    mvm_ms = float(np.median(median_ms(lambda: C @ a, 20)))
+    e0 = torch.zeros(n, device="cuda")
+    e0[0] = NOISE
+    Cn = ops.CirculantOperator(C.c + e0)
+    Cn64 = ops.CirculantOperator(C64.c + e0.double())
+    xs = Cn.solve(b)
+    solve_res = float(torch.linalg.norm(Cn64 @ xs.double() - b.double()) / torch.linalg.norm(b))
+    check(solve_res <= 1e-5, f"phase 13: exact solve float64 residual {solve_res:.3e}")
+    y = torch.cos(4 * np.pi * x) + 0.1 * cuda_tensor(rng.standard_normal(n))
+    lml, lml_s = sync_time(lambda: gp.log_marginal_likelihood(k, g, y, noise=NOISE))
+    lml64 = gp.log_marginal_likelihood(k, g64, y.double(), noise=NOISE)
+    lml_err = abs(float(lml) - float(lml64)) / abs(float(lml64))
+    check(lml_err <= 1e-4, f"phase 13: circulant logML {float(lml):.6e} vs float64 "
+                           f"{float(lml64):.6e} (rel {lml_err:.3e})")
+    print(f"phase 13 circulant Periodic(EQ) uniform grid n=65536 float32: FFT MVM "
+          f"{mvm_ms:.4f} ms (CUDA events, median of 20), rel {mvm_err:.3e} vs float64 FFT, "
+          f"{rows_err:.3e} vs float64 direct rows (bound {TOEPLITZ_BOUND:.0e}); exact solve of "
+          f"C + 1e-2 I float64 residual {solve_res:.3e} (bound 1e-5); logML {float(lml):.6e} in "
+          f"{lml_s * 1e3:.2f} ms vs float64 {float(lml64):.6e} (rel {lml_err:.3e}, bound 1e-4)",
+          flush=True)
+    return dict(mvm_ms=mvm_ms)
+
+
+def phase14_kronecker(tk, ops, gp):
+    """BASELINE config 3 at the reference README's 128^3 (n = 2,097,152):
+    separable("^", EQ(), d=3) on a LazyGrid of three uniform axes over
+    [0, 1). Kronecker MVM (float32 vs float64), the per-factor Cholesky
+    solve and logdet, gp_condition in float64, the exact float64 Kronecker
+    logML and its gradient in one lengthscale, the posterior mean on a
+    32^3 test grid, and a SeparableKernel's MVM."""
+    from cfjax_torch.derivative import SeparableKernel
+    from cfjax_torch.utils.grids import LazyGrid, UniformGrid
+
+    rng = np.random.default_rng(14)
+    m = 128
+    n = m ** 3
+    k = tk.separable("^", tk.EQ(), d=3)
+    grid, grid64 = (LazyGrid(tuple(UniformGrid(0.0, 1.0 / m, m) for _ in range(3)),
+                             device="cuda", dtype=dt) for dt in (torch.float32, torch.float64))
+    K, build_s = sync_time(lambda: ops.gramian(k, grid))
+    check(type(K).__name__ == "KroneckerOperator"
+          and all(type(f).__name__ == "ToeplitzOperator" and callable(f._col_src)
+                  for f in K.factors),
+          f"phase 14: gramian gave {ops.explain(k, grid)}, or evaluated a column at construction")
+    K64 = ops.gramian(k, grid64)
+    a = cuda_tensor(rng.standard_normal(n))
+    b = K @ a
+    mvm_err = rel(b, K64 @ a.double())
+    P = grid64.points()
+    rows = torch.tensor(rng.choice(n, 8, replace=False), device="cuda")
+    rows_err = rel((K64 @ a.double())[rows], ops.Gramian(k, P[rows], P) @ a.double())
+    check(mvm_err <= 1e-5 and rows_err <= 1e-12,
+          f"phase 14: Kronecker MVM rel {mvm_err:.3e} vs float64, float64 rows "
+          f"{rows_err:.3e} vs direct sums")
+    mvm_ms = float(np.median(median_ms(lambda: K @ a, 20)))
+
+    # per-factor Cholesky (jitter 1e-10 x mean diagonal): the factors are
+    # numerically singular, so the solve is held to its backward error
+    F, chol_s = sync_time(lambda: K64.cholesky())
+    xs, solve_s = sync_time(lambda: F.solve(a.double()))
+    mats = [f.todense() + 1e-10 * torch.mean(torch.diagonal(f.todense()))
+            * torch.eye(m, dtype=torch.float64, device="cuda") for f in K64.factors]
+    KJ = ops.KroneckerOperator([ops.DenseOperator(M) for M in mats])
+    norm = float(np.prod([float(torch.linalg.matrix_norm(M, 2)) for M in mats]))
+    bwd = float(torch.linalg.norm(KJ @ xs - a.double())
+                / (norm * torch.linalg.norm(xs) + torch.linalg.norm(a.double())))
+    ld = float(F.logdet())
+    ld_ref = sum((n // m) * float(torch.sum(torch.log(torch.linalg.eigvalsh(M)))) for M in mats)
+    ld_err = abs(ld - ld_ref) / abs(ld_ref)
+    check(bwd <= 1e-12 and ld_err <= 1e-6,
+          f"phase 14: Cholesky solve backward error {bwd:.3e}, logdet rel {ld_err:.3e}")
+
+    # gp_condition in float64: the spectrum of K + 1e-2 I spans ~1.7e8
+    y = torch.sin(2 * np.pi * P.sum(1)) + Y_NOISE * torch.tensor(rng.standard_normal(n),
+                                                                 device="cuda")
+    post, cond_s = sync_time(lambda: gp.gp_condition(k, grid64, y, noise=NOISE, tol=1e-8,
+                                                     maxiter=2000))
+    cg_it = post.solve_info[0]
+    cond_res = residual(K64 @ post.alpha, post.alpha, y)
+    check(cg_it < 2000 and cond_res <= 1e-6,
+          f"phase 14: gp_condition CG {cg_it} iterations, float64 residual {cond_res:.3e}")
+
+    # the exact Kronecker logML in float64 (in float32 the factors'
+    # eigenvalues carry ~4e-6 of rounding, which times lambda_max^2 ~ 1.4e4
+    # exceeds the noise: log of a negative number) against y . alpha from
+    # the CG solve and the logdet from the factors' eigvalsh; and d/dl in
+    # the first axis' lengthscale against a central difference
+    lml, lml_s = sync_time(lambda: gp.log_marginal_likelihood(k, grid64, y, noise=NOISE))
+    w = [torch.linalg.eigvalsh(f.todense()) for f in K64.factors]
+    lam = (w[0][:, None, None] * w[1][None, :, None] * w[2][None, None, :]).reshape(-1)
+    lml_ref = -0.5 * (float(y @ post.alpha) + float(torch.sum(torch.log(lam + NOISE)))
+                      + n * np.log(2 * np.pi))
+    lml_err = abs(float(lml) - lml_ref) / abs(lml_ref)
+
+    def lml_l(l):
+        kl = tk.separable("*", tk.Lengthscale(tk.EQ(), l), tk.EQ(), tk.EQ())
+        return gp.log_marginal_likelihood(kl, grid64, y, noise=NOISE)
+
+    l = torch.tensor(1.0, dtype=torch.float64, requires_grad=True)
+    (dl,), grad_s = sync_time(lambda: torch.autograd.grad(lml_l(l), l))
+    h = 1e-4
+    with torch.no_grad():
+        fd = float(lml_l(torch.tensor(1 + h, dtype=torch.float64))
+                   - lml_l(torch.tensor(1 - h, dtype=torch.float64))) / (2 * h)
+    grad_err = abs(float(dl) - fd) / abs(fd)
+    check(lml_err <= 1e-6 and grad_err <= 1e-4,
+          f"phase 14: Kronecker logML {float(lml):.9e} vs {lml_ref:.9e} from CG and eigvalsh "
+          f"(rel {lml_err:.3e}), d/dl {float(dl):.6e} vs central difference {fd:.6e} (rel "
+          f"{grad_err:.3e})")
+
+    # the posterior mean on a 32^3 test grid (a Kronecker of rectangular
+    # factors) against direct float64 sums; alpha's entries cancel, so the
+    # error is held to the rounding scale sum_j |K_ij| |alpha_j|
+    tgrid = LazyGrid(tuple(UniformGrid(0.5 / 32, 1.0 / 32, 32) for _ in range(3)),
+                     device="cuda", dtype=torch.float64)
+    Ks = ops.gramian(k, tgrid, grid64)
+    check(type(Ks).__name__ == "KroneckerOperator" and Ks.shape == (32 ** 3, n),
+          f"phase 14: test x train gramian gave {type(Ks).__name__}{Ks.shape}")
+    mean, mean_s = sync_time(lambda: post.mean(tgrid))
+    T = tgrid.points()
+    trows = torch.tensor(rng.choice(32 ** 3, 8, replace=False), device="cuda")
+    Krows = ops.Gramian(k, T[trows], P)
+    mean_err = float(torch.max(torch.abs(mean[trows] - Krows @ post.alpha)
+                               / (Krows @ torch.abs(post.alpha))))
+    check(tuple(mean.shape) == (32 ** 3,) and mean_err <= 1e-10,
+          f"phase 14: posterior mean on the 32^3 grid, error {mean_err:.3e} of sum |K||alpha|")
+
+    # SeparableKernel(EQ(), B), n = 4096, d = 3, B 3 x 3
+    Bm = rng.standard_normal((3, 3))
+    B = Bm @ Bm.T + 3 * np.eye(3)
+    xq = cuda_tensor(rng.standard_normal((4096, 3)))
+    G = ops.gramian(SeparableKernel(tk.EQ(), B), xq)
+    check(type(G).__name__ == "KroneckerOperator", f"phase 14: SeparableKernel gave {type(G)}")
+    v = cuda_tensor(rng.standard_normal(4096 * 3))
+    sep_err = rel(G @ v, ops.gramian(SeparableKernel(tk.EQ(), B), xq.double()) @ v.double())
+    check(sep_err <= 1e-5, f"phase 14: SeparableKernel MVM rel {sep_err:.3e} vs float64")
+    print(f"phase 14 Kronecker (BASELINE config 3) separable EQ^3 on a 128^3 LazyGrid "
+          f"(n=2097152): lazy construction {build_s * 1e3:.3f} ms; MVM float32 {mvm_ms:.4f} ms "
+          f"(CUDA events, median of 20), rel {mvm_err:.3e} vs float64 (bound 1e-5), float64 rows "
+          f"rel {rows_err:.3e} vs direct sums; float64 per-factor Cholesky {chol_s:.4f} s, solve "
+          f"{solve_s:.4f} s, backward error {bwd:.3e} (bound 1e-12), logdet {ld:.6e} rel "
+          f"{ld_err:.3e}; float64 logML {float(lml):.9e} in {lml_s:.3f} s, rel {lml_err:.3e} vs "
+          f"CG and eigvalsh; d/dl {float(dl):.6e} ({grad_s:.3f} s) vs central difference {fd:.6e} (rel "
+          f"{grad_err:.3e}); gp_condition float64 CG tol 1e-8: {cg_it} iterations {cond_s:.3f} "
+          f"s, residual {cond_res:.3e} (bound 1e-6); mean on the 32^3 grid {mean_s:.4f} s, error "
+          f"{mean_err:.3e} of sum |K||alpha| (bound 1e-10); SeparableKernel(EQ, 3x3 B) n=4096 d=3 MVM rel {sep_err:.3e}",
+          flush=True)
+    return dict(mvm_ms=mvm_ms, cg_it=cg_it, cond_s=cond_s)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -602,6 +888,20 @@ def main():
           f"read per MVM, {gbs:.1f} GB/s = {100 * gbs / 3350:.1f}% of the H100 SXM's 3350 GB/s; "
           f"one MINRES solve {p11['wall_s']:.4f} s ({p11['iters']} "
           f"iterations), phase 10's {p10['wall_s']:.4f} s ({p10['iters']} iterations)", flush=True)
+
+    # ---- the structured path: counts from here to the end of phase 14 ----
+    for key in mvm.LAUNCHES:
+        mvm.LAUNCHES[key] = 0
+    t_struct = time.perf_counter()
+    p12, w12 = sync_time(lambda: phase12_toeplitz(tk, ops, gp, mvm))
+    p13, w13 = sync_time(lambda: phase13_circulant(tk, ops, gp))
+    p14, w14 = sync_time(lambda: phase14_kronecker(tk, ops, gp))
+    check(mvm.LAUNCHES["direct"] > 0, "kernel 'direct' was not launched on the structured path")
+    print(f"phases 12-14 structured path {time.perf_counter() - t_struct:.1f} s (walls: 12 "
+          f"{w12:.3f} s, 13 {w13:.3f} s, 14 {w14:.3f} s, checks included): FFT MVM "
+          f"{p12['mvm_ms']:.4f} ms (Toeplitz n=65536) / {p13['mvm_ms']:.4f} ms (circulant "
+          f"n=65536), Kronecker MVM {p14['mvm_ms']:.4f} ms (128^3), levinson n=16384 "
+          f"{p12['lev_ms']:.1f} ms; K1 launches {mvm.LAUNCHES['direct']}", flush=True)
 
     meta = {"direct": ("K1 gramian_matvec_direct", "cfjax_torch/csrc/gramian_mvm.cu",
                        "cfjax/ops/pallas_mvm.py:253", p1["direct"][2]),

@@ -280,3 +280,95 @@ def test_sparse_gramian_on_cuda_launches_k4(method):
     assert 0 < it < 1000 and mvm.LAUNCHES["tile_ell"] - before >= it
     res = torch.linalg.norm((op @ alpha).double() - b.double()) / torch.linalg.norm(b.double())
     assert float(res) <= 1e-4
+
+
+def _grid(n, dtype=torch.float32, start=0.0):
+    from cfjax_torch.utils.grids import UniformGrid
+
+    return UniformGrid(start, 1.0 / n, n, device="cuda", dtype=dtype)
+
+
+@needs_gpu
+def test_toeplitz_grid_gp_on_cuda_launches_k1():
+    """A uniform grid placed on the card gives a lazy Toeplitz operator
+    whose column and FFT MVM stay on the card in float32; gp_condition
+    solves by CG; the posterior mean off the grid launches K1 once; the
+    variance agrees with a float64 run."""
+    from cfjax_torch.gp import GPPosterior, gp_condition
+    from cfjax_torch.operators import ToeplitzOperator
+
+    rng = np.random.default_rng(12)
+    n = 20000
+    k = tk.Exp()
+    g = _grid(n)
+    T = gramian(k, g)
+    assert isinstance(T, ToeplitzOperator) and callable(T._col_src)
+    a = torch.tensor(rng.standard_normal(n), dtype=torch.float32, device="cuda")
+    out = T @ a
+    assert T.col.is_cuda and T.col.dtype == torch.float32 and out.dtype == torch.float32
+    x = g.points()
+    ref = mvm.gramian_matvec_direct_plain(k, x[:300, None].double(), x[:, None].double(),
+                                          a.double())
+    assert _rel(out[:300], ref) <= 1e-5
+    y = torch.sin(6 * np.pi * x)
+    post = gp_condition(k, g, y, noise=1e-2, tol=1e-5, maxiter=2000)
+    assert post.solve_info is not None and post.solve_info[0] < 2000
+    xt = torch.tensor(rng.uniform(0, 1, 500), dtype=torch.float32, device="cuda")
+    before = mvm.LAUNCHES["direct"]
+    mean = post.mean(xt)
+    assert mvm.LAUNCHES["direct"] == before + 1 and mean.shape == (500,)
+    var = post.variance(xt[:16], tol=1e-6, maxiter=2000)
+    var64 = GPPosterior(k, _grid(n, torch.float64), post.alpha.double(), 1e-2).variance(
+        xt[:16].double(), tol=1e-10, maxiter=5000)
+    assert float((var.double() - var64).abs().max()) <= 1e-4
+
+
+@needs_gpu
+def test_circulant_and_levinson_on_cuda():
+    from cfjax_torch.gp import log_marginal_likelihood
+    from cfjax_torch.operators import CirculantOperator, ToeplitzOperator, levinson
+
+    rng = np.random.default_rng(13)
+    n = 4096
+    k = tk.Periodic(tk.EQ())
+    C, C64 = gramian(k, _grid(n)), gramian(k, _grid(n, torch.float64))
+    assert isinstance(C, CirculantOperator) and C.c.is_cuda
+    a = torch.tensor(rng.standard_normal(n), dtype=torch.float32, device="cuda")
+    assert _rel(C @ a, C64 @ a.double()) <= 1e-5
+    y = torch.cos(4 * np.pi * _grid(n).points())
+    lml = log_marginal_likelihood(k, _grid(n), y, noise=1e-2)
+    lml64 = log_marginal_likelihood(k, _grid(n, torch.float64), y.double(), noise=1e-2)
+    assert abs(float(lml) - float(lml64)) <= 1e-4 * abs(float(lml64))
+    col = gramian(tk.Exp(), _grid(512, torch.float64)).col.clone()
+    col[0] += 1e-2
+    b = torch.tensor(rng.standard_normal(512), device="cuda")
+    xs = levinson(col, b)
+    res = torch.linalg.norm(ToeplitzOperator(col) @ xs - b) / torch.linalg.norm(b)
+    assert xs.is_cuda and float(res) <= 1e-10
+
+
+@needs_gpu
+def test_kronecker_on_cuda():
+    from cfjax_torch.derivative import SeparableKernel
+    from cfjax_torch.gp import log_marginal_likelihood
+    from cfjax_torch.operators import KroneckerOperator
+    from cfjax_torch.utils.grids import LazyGrid, UniformGrid
+
+    rng = np.random.default_rng(14)
+    k = tk.separable("^", tk.EQ(), d=3)
+    grids = [LazyGrid(tuple(UniformGrid(0.0, 1.0 / 32, 32) for _ in range(3)), device="cuda",
+                      dtype=dt) for dt in (torch.float32, torch.float64)]
+    K, K64 = gramian(k, grids[0]), gramian(k, grids[1])
+    assert isinstance(K, KroneckerOperator) and K.factors[0].col.is_cuda
+    a = torch.tensor(rng.standard_normal(32 ** 3), dtype=torch.float32, device="cuda")
+    assert _rel(K @ a, K64 @ a.double()) <= 1e-5
+    y = torch.sin(grids[1].points().sum(1))
+    lml = log_marginal_likelihood(k, grids[0], y.float(), noise=1e-2)
+    lml64 = log_marginal_likelihood(k, grids[1], y, noise=1e-2)
+    assert abs(float(lml) - float(lml64)) <= 1e-4 * abs(float(lml64))
+    B = np.array([[2.0, 0.3, 0.0], [0.3, 1.0, 0.2], [0.0, 0.2, 1.5]])
+    x = torch.tensor(rng.standard_normal((3000, 3)), dtype=torch.float32, device="cuda")
+    v = torch.tensor(rng.standard_normal(9000), dtype=torch.float32, device="cuda")
+    G = gramian(SeparableKernel(tk.EQ(), B), x)
+    assert isinstance(G, KroneckerOperator)
+    assert _rel(G @ v, gramian(SeparableKernel(tk.EQ(), B), x.double()) @ v.double()) <= 1e-5

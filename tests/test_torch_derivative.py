@@ -366,8 +366,18 @@ def test_from_reference_converts_multikernels():
 
 
 def test_separable_kernel_gramian_not_ported(rng):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        t_gramian(SeparableKernel(tk.EQ(), np.eye(2)), torch.tensor(_pts(rng, 5, 3)))
+    """The SeparableKernel's gramian is now ported: gramian(k, x) ⊗ B as a
+    KroneckerOperator, with cfjax's MVM."""
+    from cfjax.derivative import SeparableKernel as JSeparableKernel
+
+    B = np.array([[2.0, 0.3], [0.3, 1.0]])
+    x = _pts(rng, 5, 3)
+    Gt = t_gramian(SeparableKernel(tk.EQ(), B), torch.tensor(x))
+    Gj = j_gramian(JSeparableKernel(jk.EQ(), jnp.asarray(B)), jnp.asarray(x))
+    assert type(Gt).__name__ == type(Gj).__name__ == "KroneckerOperator"
+    v = rng.standard_normal(10)
+    np.testing.assert_allclose((Gt @ torch.tensor(v)).numpy(), np.asarray(Gj @ jnp.asarray(v)),
+                               rtol=RTOL, atol=ATOL)
 
 
 def test_explain_derivative_gramians_on_cpu(rng):

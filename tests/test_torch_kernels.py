@@ -201,8 +201,10 @@ def test_config_and_grids_match_reference():
     tf = {f.name for f in dataclasses.fields(tc.Config)}
     assert jf - tf == {"cg_chunk_iters", "cg_chunk_min_n"} and tf <= jf
     x = np.linspace(-1.0, 2.0, 33).astype(np.float32)
-    assert (dataclasses.astuple(tg.detect_uniform_grid(torch.tensor(x)))
-            == dataclasses.astuple(jg.detect_uniform_grid(x)))
+    # the port's grid also carries the tensor's device and dtype
+    got = tg.detect_uniform_grid(torch.tensor(x))
+    assert (got.start, got.step, got.num) == dataclasses.astuple(jg.detect_uniform_grid(x))
+    assert (got.device, got.dtype) == (torch.device("cpu"), torch.float32)
     assert tg.detect_uniform_grid(np.sort(np.random.default_rng(0).random(20))) is None
     lg_j = jg.LazyGrid((jg.UniformGrid(0.0, 0.5, 3), np.array([1.0, 2.0])))
     lg_t = tg.LazyGrid((tg.UniformGrid(0.0, 0.5, 3), np.array([1.0, 2.0])))

@@ -171,14 +171,25 @@ def test_dispatch_structure_matches_reference(case, rng):
         j_explain(kj, jnp.asarray(pts)).split(" | ")[0]
 
 
-def test_dispatch_raises_for_unported_structure():
+def test_dispatch_raises_for_unported_structure(rng):
+    """Steps 4 and 8 no longer raise: an evenly spaced 1-D tensor gives a
+    Toeplitz operator and a SeparableProduct on a LazyGrid a Kronecker
+    operator, each of cfjax's type and with cfjax's MVM."""
+    from cfjax.utils.grids import LazyGrid as JLazyGrid
     from cfjax_torch.utils.grids import LazyGrid
 
-    with pytest.raises(NotImplementedError, match="Toeplitz"):
-        t_gramian(tk.EQ(), torch.linspace(0, 1, 50, dtype=torch.float64))
-    with pytest.raises(NotImplementedError, match="Kronecker"):
-        t_gramian(tk.separable("*", tk.EQ(), tk.EQ()),
-                  LazyGrid((np.linspace(0, 1, 4), np.linspace(0, 1, 3))))
+    xs = np.linspace(0, 1, 50)
+    axes = (np.linspace(0, 1, 4), np.linspace(0, 1, 3))
+    cases = ((tk.EQ(), jk.EQ(), torch.tensor(xs), jnp.asarray(xs)),
+             (tk.separable("*", tk.EQ(), tk.EQ()), jk.separable("*", jk.EQ(), jk.EQ()),
+              LazyGrid(axes), JLazyGrid(axes)))
+    for kt, kj, xt, xj in cases:
+        Gt, Gj = t_gramian(kt, xt), j_gramian(kj, xj)
+        assert type(Gt).__name__ == type(Gj).__name__
+        assert type(Gt).__name__ in ("ToeplitzOperator", "KroneckerOperator")
+        a = rng.standard_normal(Gt.shape[1])
+        np.testing.assert_allclose((Gt @ torch.tensor(a)).numpy(),
+                                   np.asarray(Gj @ jnp.asarray(a)), rtol=1e-10)
 
 
 def test_kernel_selection_on_cpu_and_explain(rng):
