@@ -23,6 +23,8 @@ import math
 import numpy as np
 import torch
 
+from ..config import default_device
+
 
 class BalancedTree:
     """Complete balanced tree in fixed arrays. `points`, `centers` and
@@ -88,9 +90,9 @@ def build_tree(y, leafsize: int = 16, method: str = "auto") -> BalancedTree:
     method: "median" — per-level median splits along the widest dimension
     (host numpy); "morton" — one Hilbert-curve sort, equal-count leaves
     sliced from the curve, boxes bottom-up (host numpy); "device" — the
-    Hilbert build in torch on y's device (d <= 4); "auto" — device for a
-    CUDA tensor at d <= 4, else morton for big low-d inputs, median
-    otherwise."""
+    Hilbert build in torch on y's device (d <= 4); "auto" — device for
+    points on a CUDA device at d <= 4, else morton for big low-d inputs,
+    median otherwise. numpy input is placed on the configured device."""
     is_tensor = isinstance(y, torch.Tensor)
     if y.ndim == 1:
         y = y[:, None]
@@ -101,16 +103,16 @@ def build_tree(y, leafsize: int = 16, method: str = "auto") -> BalancedTree:
     P = nleaf * ls
     pad = P - m
 
+    # numpy input goes to the configured device, as a tensor stays on its own
+    device = y.device if is_tensor else default_device()
     if method == "auto":
-        on_cuda = is_tensor and y.is_cuda
-        if on_cuda and d <= 4 and L > 0 and P >= (1 << 14):
+        if device.type == "cuda" and d <= 4 and L > 0 and P >= (1 << 14):
             method = "device"
         else:
             method = "morton" if (P >= (1 << 19) and d <= 8) else "median"
     if method == "device" and d <= 4 and L > 0:
-        return _build_tree_device(torch.as_tensor(y), d, L, ls, P, pad)
+        return _build_tree_device(torch.as_tensor(y, device=device), d, L, ls, P, pad)
 
-    device = y.device if is_tensor else torch.device("cpu")
     y = y.detach().cpu().numpy() if is_tensor else np.asarray(y)
     yp = np.concatenate([y, np.repeat(y[-1:], pad, axis=0)], axis=0) if pad else y
     if method == "morton" and d <= 16 and L > 0:

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 
 @dataclasses.dataclass(frozen=True)
 class Config:
@@ -37,9 +39,19 @@ class Config:
     # at d <= this, isotropic distance tiles use the exact unrolled
     # difference form (no matmul, no cancellation)
     direct_sqdist_max_d: int = 16
+    # where the port places input that carries no device (numpy arrays,
+    # lists, grids and lazy columns declared without one); a tensor keeps
+    # its own. JAX puts such input on its default device, the card here.
+    device: str = "cuda"
 
 
 DEFAULT = Config()
+
+
+def default_device(device=None) -> torch.device:
+    """`device` when given, else the configured default. Reads the
+    setting only: nothing is allocated, so it answers without a card."""
+    return torch.device(DEFAULT.device if device is None else device)
 
 
 def set_config(**kwargs):

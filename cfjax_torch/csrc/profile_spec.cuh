@@ -9,7 +9,10 @@
 //                    `profile_value`), V entries per decode;
 //   eval_jet<V>:     the second-order jet (f, f', f'') of a derivative
 //                    spec (compiled from `profile`, ProfileSpec.jet), V
-//                    entries per decode, three floats per stack slot.
+//                    entries per decode, three floats per stack slot;
+//   family_value<FAM, P>: the value of a one-leaf spec's family form
+//                    (ProfileSpec.family), with its folded constants, in
+//                    registers: no stack, no opcode reads.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -37,6 +40,21 @@ struct ProfileSpec {
     int op[MAX_OPS];
     int arg[MAX_OPS];
     float c[MAX_CONSTS];
+};
+
+// Families of one-leaf value specs (kernels/profile_spec.py FAMILY_*), and
+// their folded constants: c[0..] as the Python side documents them, and
+// the Constant factor, which multiplies the row sum.
+#define FAM_EQ 1
+#define FAM_MATERN 2
+#define FAM_RQ 3
+#define FAM_CAUCHY 4
+#define FAM_IMQ 5
+#define FAM_CONSTS 6
+
+struct FamilyConsts {
+    float c[FAM_CONSTS];
+    float scale;
 };
 
 // the value-path sqrt: s * rsqrt(max(s, 1e-18)), as profile_value computes it
@@ -136,6 +154,72 @@ __device__ __forceinline__ void eval_profile(const ProfileSpec& sp, float (&s)[V
     }
 #pragma unroll
     for (int v = 0; v < V; ++v) s[v] = st[0][v];
+}
+
+// The SFU's approximate functions, flushing subnormals (a profile value
+// below 2^-126 adds nothing to a float32 row sum). Relative error about
+// 2^-22 each (PTX ISA); each is one MUFU instruction.
+__device__ __forceinline__ float ex2_approx(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
+}
+__device__ __forceinline__ float lg2_approx(float x) {
+    float y;
+    asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
+}
+__device__ __forceinline__ float rsqrt_approx(float x) {
+    float y;
+    asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
+}
+__device__ __forceinline__ float rcp_approx(float x) {
+    float y;
+    asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
+}
+
+// exp2(u (c0 + c1)), c0 the float nearest the constant and c1 the rest.
+// Rounding u c0 to a float, and c0 itself, would shift the argument by up
+// to |u c| 2^-23: a relative error of 4e-7 at |u c| = 8, the same sign for
+// every entry (a slightly wrong lengthscale). The product's rounding error
+// (an FMA) and u c1 enter a first-order correction instead: 4 fp32
+// instructions for an argument exact to a float's rounding.
+__device__ __forceinline__ float ex2_split(float u, float c0, float c1) {
+    const float t = u * c0;
+    const float lo = fmaf(u, c1, fmaf(u, c0, -t));
+    const float e = ex2_approx(t);
+    return fmaf(e, lo * 0.693147180559945f, e);
+}
+
+// The family form of a one-leaf spec at s (ProfileSpec.evaluate(s,
+// family=True)), without the Constant factor. MaternP(p) with p = P
+// (Exp is P = 0): r = root(s), exp2(r (c0 + c1)) sum_j c[2 + j] r^j.
+template <int FAM, int P>
+__device__ __forceinline__ float family_value(float s, const FamilyConsts& f) {
+    if constexpr (FAM == FAM_EQ) {
+        return ex2_split(s, f.c[0], f.c[1]);
+    } else if constexpr (FAM == FAM_MATERN) {
+        const float sc = fmaxf(s, 1e-18f);
+        const float r = sc * rsqrt_approx(sc);
+        const float e = ex2_split(r, f.c[0], f.c[1]);
+        if constexpr (P == 0) {
+            return e;
+        } else {
+            float poly = f.c[2 + P];
+#pragma unroll
+            for (int j = P - 1; j >= 0; --j) poly = fmaf(poly, r, f.c[2 + j]);
+            return poly * e;
+        }
+    } else if constexpr (FAM == FAM_RQ) {
+        return ex2_approx(f.c[1] * lg2_approx(fmaf(s, f.c[0], 1.f)));
+    } else if constexpr (FAM == FAM_CAUCHY) {
+        return rcp_approx(fmaf(s, f.c[0], 1.f));
+    } else {
+        static_assert(FAM == FAM_IMQ, "unknown profile family");
+        return rsqrt_approx(fmaf(s, f.c[0], f.c[1]));
+    }
 }
 
 // Horner sum_j c[j] x^j over n coefficients (n >= 1)

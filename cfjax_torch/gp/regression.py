@@ -20,7 +20,7 @@ from ..operators.dispatch import gramian
 from ..operators.kronecker import KroneckerOperator
 from ..operators.solvers import cg, cg_columns, solve_with_info
 from ..operators.toeplitz import CirculantOperator
-from ..utils.grids import as_points
+from ..utils.grids import as_points, point_device
 
 
 @dataclasses.dataclass
@@ -68,7 +68,7 @@ def gp_condition(kernel, x, y, noise: float = 1e-6,
     K0 = gramian(kernel, x)
     K = K0.add_diagonal(noise)
     n = K.shape[0]
-    y = torch.as_tensor(y)
+    y = torch.as_tensor(y, device=point_device(x))
     if (precondition == "auto" and isinstance(K0, Gramian)
             and torch.as_tensor(noise).ndim == 0
             and n > _config.DEFAULT.max_cholesky_size):
@@ -103,7 +103,7 @@ def log_marginal_likelihood(kernel, x, y, noise: float = 1e-6, method: str = "au
     backward needs distinct factor eigenvalues)."""
     from .. import config as _config
 
-    y = torch.as_tensor(y)
+    y = torch.as_tensor(y, device=point_device(x))
     n = y.shape[0]
     K = gramian(kernel, x)
     mcs = _config.DEFAULT.max_cholesky_size

@@ -15,6 +15,17 @@ scaling. `to_spec(k)` returns `(spec, None)` or `(None, reason)`.
 `ProfileSpec.evaluate` is the plain torch evaluator of a program; it
 agrees with `k.profile_value` op for op.
 
+Families. A value spec whose kernel is one leaf — EQ, Exp, MaternP(p <= 3),
+RQ, Cauchy or InverseMultiQuadratic — under any chain of Lengthscale
+scalings, times at most one Constant, is also tagged with a family: an id,
+MaternP's p, the leaf's constants with every lengthscale folded in (the
+divisions by constants become multiplications, exp becomes exp2 of a
+prescaled argument) and the Constant as a factor of the row sum. K1 has
+an instance per family, evaluated in registers, where the program would
+be interpreted; `ProfileSpec.evaluate(s, family=True)` is the plain torch
+evaluator of the folded form. Other specs (sums, products, Power,
+GammaExp) keep the interpreter.
+
 Derivative specs. The gradient-block kernel needs f, f' and f'' of the
 profile. A value program cannot give them: ROOT and MATERNP clamp their
 argument at 1e-18, so their derivatives vanish at s = 0, where -2 f'(0) I
@@ -33,6 +44,7 @@ import dataclasses
 import math
 from fractions import Fraction
 
+import numpy as np
 import torch
 
 from .algebra import Power, Product, Sum
@@ -71,6 +83,20 @@ MATERNP_JET = 12  # MaternP.profile of s (derivative specs only); consts[arg] = 
 MAX_OPS = 64
 MAX_CONSTS = 64
 MAX_STACK = 8
+
+# families of one-leaf value specs; the same numbers are #defined in
+# csrc/profile_spec.cuh. Folded constants c (sigma = the product of 1/l^2);
+# an exp2 argument u c is taken as u (c0 + c1), c0 the float32 nearest to
+# the constant and c1 the rest, so that the kernel can form it exactly:
+FAMILY_NONE = 0    # interpreted
+FAMILY_EQ = 1      # exp2(s (c0 + c1)), c0 + c1 = -sigma / (2 ln 2)
+FAMILY_MATERN = 2  # r = root(s), exp2(r (c0 + c1)) sum_j c[2+j] r^j,
+                   # c0 + c1 = -sqrt((2p+1) sigma) / ln 2 (Exp is p = 0)
+FAMILY_RQ = 3      # exp2(c1 log2(1 + s c0)), c0 = sigma / (2 alpha), c1 = -alpha
+FAMILY_CAUCHY = 4  # 1 / (1 + s c0), c0 = sigma
+FAMILY_IMQ = 5     # rsqrt(s c0 + c1), c0 = sigma, c1 = c^2
+FAMILY_MAX_P = 3
+FAMILY_CONSTS = 6  # the largest folded table (MaternP(3): c0, c1 and 4 coefficients)
 
 _POP = {PUSH_S: -1, PUSH_C: -1, ADD: 1, MUL: 1, DIV: 1, POWC: 0, POWI: 0,
         NEG: 0, EXP: 0, SQRT: 0, ROOT: 0, MATERNP: 0, MATERNP_JET: 0}
@@ -129,6 +155,16 @@ def _maternp_jet(p, tab, s):
             torch.where(taylor, t2, c2))
 
 
+def _exp2_split(u, c0, c1):
+    """exp2(u (c0 + c1)) as K1 forms it: exp2 of the rounded product
+    t = u c0, times 1 + ln 2 (u (c0 + c1) - t), the product's rounding
+    error and u c1 taken in float64."""
+    t = u * c0
+    lo = (u.double() * c0 - t.double() + u.double() * c1).to(u.dtype)
+    e = torch.exp2(t)
+    return e + e * (lo * math.log(2.0))
+
+
 def _chain(u, g, g1, g2):
     """Jet of g(u) from the jet of u and g's derivatives at u."""
     return g, g1 * u[1], g2 * u[1] * u[1] + g1 * u[2]
@@ -168,6 +204,10 @@ class ProfileSpec:
     args: tuple
     consts: tuple
     jet: bool = False  # compiled from `profile` (derivative spec), not `profile_value`
+    family: int = FAMILY_NONE   # the one-leaf family, if any (see the module docstring)
+    family_p: int = 0           # MaternP's p in FAMILY_MATERN
+    family_consts: tuple = ()   # the folded constants c0, c1, ...
+    family_scale: float = 1.0   # the Constant factor
 
     @property
     def depth(self) -> int:
@@ -177,9 +217,13 @@ class ProfileSpec:
             top = max(top, d)
         return top
 
-    def evaluate(self, s):
-        """Plain torch evaluator of the program (elementwise over s)."""
+    def evaluate(self, s, family: bool = False):
+        """Plain torch evaluator of the program (elementwise over s); with
+        family=True, of the folded family form that K1's specialised
+        instances compute."""
         s = torch.as_tensor(s)
+        if family:
+            return self._evaluate_family(s)
         c = self.consts
         st = []
         for op, a in zip(self.ops, self.args):
@@ -220,6 +264,26 @@ class ProfileSpec:
                 raise ValueError(f"unknown opcode {op}")
         (out,) = st
         return out * torch.ones_like(s)
+
+    def _evaluate_family(self, s):
+        if self.family == FAMILY_NONE:
+            raise ValueError("this spec has no family: it is interpreted")
+        c = self.family_consts
+        if self.family == FAMILY_EQ:
+            f = _exp2_split(s, c[0], c[1])
+        elif self.family == FAMILY_MATERN:
+            sc = torch.clamp(s, min=RSQRT_CLAMP)
+            r = sc * torch.rsqrt(sc)
+            f = _horner(c[2:self.family_p + 3], r) * _exp2_split(r, c[0], c[1])
+        elif self.family == FAMILY_RQ:
+            f = torch.exp2(c[1] * torch.log2(1.0 + s * c[0]))
+        elif self.family == FAMILY_CAUCHY:
+            f = 1.0 / (1.0 + s * c[0])
+        elif self.family == FAMILY_IMQ:
+            f = torch.rsqrt(s * c[0] + c[1])
+        else:
+            raise ValueError(f"unknown family {self.family}")
+        return self.family_scale * f
 
     def evaluate_jet(self, s):
         """Plain torch second-order jet of the program: (f, f', f'') at s,
@@ -402,6 +466,46 @@ def _emit(k, b, push_s, jet: bool):
         raise _Decline(f"{type(k).__name__} has no profile spec")
 
 
+def _family(k):
+    """(family, p, folded constants, scale) of a one-leaf value spec, or
+    None (see the module docstring)."""
+    sigma, scale, constants = 1.0, 1.0, 0
+    while True:
+        if isinstance(k, Lengthscale):
+            sigma /= _scalar(k, "l") ** 2
+            k = k.k
+        elif isinstance(k, Product) and len(k.args) == 2 and constants == 0 \
+                and sum(isinstance(a, Constant) for a in k.args) == 1:
+            c, k = k.args if isinstance(k.args[0], Constant) else k.args[::-1]
+            scale *= _scalar(c, "c")
+            constants = 1
+        elif type(k).__name__ == "_EmbeddedPeriodic":
+            k = k.k
+        else:
+            break
+    ln2 = math.log(2.0)
+    split = lambda c: (float(np.float32(c)), c - float(np.float32(c)))
+    if isinstance(k, EQ):
+        return FAMILY_EQ, 0, split(-sigma / (2 * ln2)), scale
+    if isinstance(k, (Exp, MaternP)):
+        p = 0 if isinstance(k, Exp) else k.p
+        if p > FAMILY_MAX_P:
+            return None
+        poly = (1.0,) if isinstance(k, Exp) else k._poly
+        root = math.sqrt((2 * p + 1) * sigma)   # r = root * sqrt(s)
+        return (FAMILY_MATERN, p,
+                split(-root / ln2) + tuple(cj * (2 * root) ** j for j, cj in enumerate(poly)),
+                scale)
+    if isinstance(k, RQ):
+        a = _scalar(k, "alpha")
+        return FAMILY_RQ, 0, (sigma / (2 * a), -a), scale
+    if isinstance(k, Cauchy):
+        return FAMILY_CAUCHY, 0, (sigma,), scale
+    if isinstance(k, InverseMultiQuadratic):
+        return FAMILY_IMQ, 0, (sigma, _scalar(k, "c") ** 2), scale
+    return None
+
+
 def to_spec(k, derivative: bool = False):
     """(ProfileSpec, None) for a covered iso/dot kernel, else (None, reason).
     derivative=True compiles `k.profile` for `evaluate_jet` and the
@@ -415,8 +519,10 @@ def to_spec(k, derivative: bool = False):
         _emit(k, b, lambda: b.emit(PUSH_S), derivative)
     except _Decline as e:
         return None, str(e)
+    fam = None if derivative or trait != InputTrait.ISOTROPIC else _family(k)
     spec = ProfileSpec("iso" if trait == InputTrait.ISOTROPIC else "dot",
-                       tuple(b.ops), tuple(b.args), tuple(b.consts), derivative)
+                       tuple(b.ops), tuple(b.args), tuple(b.consts), derivative,
+                       *(fam or ()))
     if len(spec.ops) > MAX_OPS or len(spec.consts) > MAX_CONSTS:
         return None, (f"profile program too long ({len(spec.ops)} ops, "
                       f"{len(spec.consts)} constants; limits {MAX_OPS}, {MAX_CONSTS})")

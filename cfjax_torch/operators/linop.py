@@ -39,7 +39,9 @@ class LinearOperator:
 
     # -- public --------------------------------------------------------------
     def matvec(self, v):
-        v = torch.as_tensor(v)
+        # a vector without a device (numpy, a list) goes to the operator's
+        v = v if isinstance(v, torch.Tensor) else torch.as_tensor(
+            v, device=getattr(self, "device", None))
         if v.ndim == 1:
             return self._matvec(v)
         return self._matmat(v)

@@ -305,7 +305,8 @@ def solve_with_info(op, b, tol: float = None, maxiter: int = None, method: str =
     branches (a list of them for a 2-D b), else None."""
     if isinstance(op, (CholeskyFactorization, LowRankFactorization)):
         return op.solve(b), None
-    b = torch.as_tensor(b)
+    b = b if isinstance(b, torch.Tensor) else torch.as_tensor(b, device=getattr(op, "device",
+                                                                                  None))
     if method == "auto":
         if op.is_symmetric and op.is_psd:
             method = "cholesky" if op.shape[0] <= _config.DEFAULT.max_cholesky_size else "cg"

@@ -9,19 +9,27 @@ with cfjax's: the input vector is viewed as a2 = a.reshape(nt, 128)
 Blocks are grouped by collision depth K; each group holds off (int32) and
 val slabs of shape (B, K, nt, 128) with B a multiple of 8 (menu-quantized
 on the count-sorted build, cropped at MVM time), and `perm` maps sorted
-rows back, pad rows to the dump slot n. The MVM of a group is K4
-(`ops/tile_ell_mvm.slab_matvec`): the CUDA kernel on CUDA tensors, its
-plain version on the CPU. The transpose MVM is a plain `index_add_`
-scatter, as cfjax's is XLA.
+rows back, pad rows to the dump slot n.
+
+The MVM does not read the slabs: they are dense over column tiles, which
+cfjax's TPU gather needs, and 13.6 to 30 of their slots per nonzero are
+padding on the port's sparse paths. Every operator also holds its row
+slices (`row_slices`, built once from the groups on the operator's
+device, whatever built the groups): the count-sorted rows in slices of 32,
+each padded to its own longest row, about one slot per nonzero. `S @ a`
+is one K4 launch over them (`ops/tile_ell_mvm.rows_matvec`: the CUDA
+kernel on CUDA tensors, its plain version on the CPU). The slabs stay for
+`todense`, the transpose MVM (a plain `index_add_` scatter, as cfjax's is
+XLA) and the comparison with cfjax's packed arrays.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
-from ..ops.tile_ell_mvm import slab_matvec
+from ..config import default_device
+from ..ops.tile_ell_mvm import SLICE, RowSlices, rows_matvec
 from .linop import LinearOperator
 
 _LANES = 128
@@ -75,12 +83,14 @@ class TileEllOperator(LinearOperator):
         self.dtype = dtype if dtype is not None else (
             groups[0][3].dtype if groups else torch.get_default_dtype())
         self._sym = symmetric and n == m
+        self.rows = row_slices(groups, self.perm, n, m, self.dtype)
 
     @classmethod
     def from_reference(cls, groups, perm, n, m, nnz, symmetric=False, device=None):
         """The operator of cfjax's packed arrays (numpy): groups of
-        (row_start, row_stop, off, val), perm, shape and nnz."""
-        dev = lambda a: torch.tensor(np.asarray(a), device=device)
+        (row_start, row_stop, off, val), perm, shape and nnz, placed on
+        `device` (default: the configured device)."""
+        dev = lambda a: torch.tensor(np.asarray(a), device=default_device(device))
         return cls([(int(r0), int(r1), dev(off), dev(val)) for r0, r1, off, val in groups],
                    dev(perm), n, m, nnz, symmetric=symmetric)
 
@@ -117,8 +127,9 @@ class TileEllOperator(LinearOperator):
 
 def build_tile_ell(rows, cols, vals, n, m, dtype=None, max_groups: int = 6):
     """Pack COO (rows, cols, vals) into TileELL on the host (numpy); the
-    slabs land on the device of `vals` when it is a tensor."""
-    device = vals.device if isinstance(vals, torch.Tensor) else None
+    slabs land on the device of `vals` when it is a tensor, else on the
+    configured device."""
+    device = vals.device if isinstance(vals, torch.Tensor) else default_device()
     host = lambda a: a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
     rows, cols, vals = host(rows), host(cols), host(vals)
     dtype = torch.from_numpy(vals[:0]).dtype if dtype is None else dtype
@@ -313,23 +324,69 @@ def build_tile_ell_device(cols, vals, counts, n, m, max_groups: int = 6, symmetr
     return TileEllOperator(groups, out_perm, n, m, int(counts.sum()), symmetric=symmetric)
 
 
+def row_slices(groups, perm, n, m, dtype) -> RowSlices:
+    """The row-slice layout K4 reads (`ops/tile_ell_mvm.py`), built with
+    torch ops on perm's device from the groups' slabs: every slot whose
+    value is not 0, of every row whose perm is below n (dump and pad rows
+    go). Rows are taken in count-sorted order (stable, so the groups'
+    order where counts tie), cut into slices of 32 and padded to each
+    slice's longest row; a row's entries in ascending column order."""
+    dev = perm.device
+    L = _LANES
+    rows, cols, vals = [], [], []
+    for r0, r1, off, val in groups:
+        blocks = (r1 - r0) // L
+        off, val = off[:blocks].reshape(-1), val[:blocks]
+        K, nt = val.shape[1], val.shape[2]
+        val = val.reshape(-1)
+        flat = torch.nonzero(val != 0).squeeze(1)
+        lane = flat % L
+        rows.append(r0 + (flat // (K * nt * L)) * L + lane)
+        cols.append(((flat // L) % nt) * L + off[flat].long())
+        vals.append(val[flat])
+    zero = torch.zeros(0, dtype=torch.long, device=dev)
+    r = torch.cat(rows) if rows else zero
+    c = torch.cat(cols) if cols else zero
+    v = torch.cat(vals).to(dtype) if vals else torch.zeros(0, dtype=dtype, device=dev)
+    n_pad = perm.shape[0]
+    keep = (perm[r] < n) & (c < m)
+    r, c, v = r[keep], c[keep], v[keep]
+    order = torch.sort(r * max(m, 1) + c, stable=True).indices
+    r, c, v = r[order], c[order], v[order]
+
+    real = torch.nonzero(perm < n).squeeze(1)       # sorted rows that are output rows
+    if real.shape[0] != n:
+        raise ValueError(f"perm names {real.shape[0]} output rows below n = {n}")
+    cnt = torch.bincount(r, minlength=n_pad)
+    lay = real[torch.sort(-cnt[real], stable=True).indices]   # layout row -> sorted row
+    inv = torch.empty(n_pad, dtype=torch.long, device=dev)
+    inv[lay] = torch.arange(n, device=dev)
+    slices = -(-n // SLICE)
+    lay_cnt = torch.zeros(slices * SLICE, dtype=torch.long, device=dev)
+    lay_cnt[:n] = cnt[lay]
+    width = lay_cnt[::SLICE]                          # counts are descending
+    ptr = torch.zeros(slices + 1, dtype=torch.long, device=dev)
+    ptr[1:] = torch.cumsum(width * SLICE, 0)
+    total = int(ptr[-1])
+
+    i = inv[r]
+    start = torch.cumsum(cnt, 0) - cnt                # first entry of each sorted row
+    j = torch.arange(r.shape[0], device=dev) - start[r]
+    pos = ptr[i // SLICE] + j * SLICE + i % SLICE
+    col = torch.zeros(total, dtype=torch.int32, device=dev)
+    val = torch.zeros(total, dtype=dtype, device=dev)
+    col[pos] = c.to(torch.int32)
+    val[pos] = v
+    return RowSlices(col, val, ptr, perm[lay].to(torch.int32), m)
+
+
 def tile_ell_matvec(S: TileEllOperator, a):
-    """S @ a: one K4 launch per group (over the group's real row blocks),
-    then the sorted rows scattered back to the original order. A matrix
-    right-hand side goes through K4 column by column."""
+    """S @ a: one K4 launch over the operator's row slices, which writes
+    every output row in the original order. A matrix right-hand side goes
+    through K4 column by column."""
     if a.ndim == 2:
         return torch.stack([tile_ell_matvec(S, a[:, j]) for j in range(a.shape[1])], dim=1)
-    m = a.shape[0]
-    a2 = F.pad(a, (0, S.nt * _LANES - m)).reshape(S.nt, _LANES)
-    outs = []
-    for r0, r1, off, val in S.groups:
-        blocks = (r1 - r0) // _LANES
-        outs.append(slab_matvec(a2, off[:blocks], val[:blocks]).reshape(-1))
-    out_sorted = torch.cat(outs)
-    n_pad = S.perm.shape[0]
-    out = torch.zeros((n_pad,), dtype=out_sorted.dtype, device=out_sorted.device)
-    out[S.perm] = out_sorted[:n_pad]
-    return out[: S.shape[0]]
+    return rows_matvec(S.rows, a.contiguous())
 
 
 def tile_ell_rmatvec(S: TileEllOperator, a):

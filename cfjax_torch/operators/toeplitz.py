@@ -23,6 +23,7 @@ import math
 
 import torch
 
+from ..config import default_device
 from .linop import LinearOperator
 from .solvers import cg
 
@@ -94,7 +95,7 @@ class _Lazy1D(LinearOperator):
                     f"{type(self).__name__} with a callable column needs `num` (the size): "
                     "shape metadata must exist before the first column evaluation")
             self.dtype = torch.get_default_dtype() if dtype is None else dtype
-            self.device = torch.device("cpu" if device is None else device)
+            self.device = default_device(device)
             self.shape = (num, num)
             return src
         src = torch.as_tensor(src)

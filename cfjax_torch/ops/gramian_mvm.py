@@ -4,7 +4,10 @@ Two CUDA kernels for Hopper, in `cfjax_torch/csrc/gramian_mvm.cu`:
 
   * K1 `gramian_matvec_direct` (replaces `pallas_gramian_matvec_direct`):
     b = K a for isotropic kernels at d <= 16, with the exact
-    difference-form squared distance;
+    difference-form squared distance. A one-leaf profile (its spec's
+    `family`, `kernels/profile_spec.py`) runs an instance specialised for
+    its family, with register tiles and the profile in registers; any
+    other profile runs the interpreted instance;
   * K2 `gramian_matvec_expand` (replaces `pallas_gramian_matvec`): b = K a
     for isotropic kernels at any d through ||x||^2 + ||y||^2 - 2 x.y, and
     for dot-product kernels through x.y, in full fp32 ("highest" tier).
@@ -25,7 +28,8 @@ import functools
 
 import torch
 
-from ..kernels.profile_spec import MAX_CONSTS, MAX_OPS, ProfileSpec, to_spec
+from ..kernels.profile_spec import (FAMILY_CONSTS, FAMILY_NONE, MAX_CONSTS, MAX_OPS,
+                                    ProfileSpec, to_spec)
 from . import build as _build
 from .tiles import sqdist_tile, inner_tile, resolve_precision
 
@@ -34,6 +38,10 @@ DIRECT_MAX_D = 16
 # row / column tile sizes of the kernels, for the column split
 _K1_TM, _K1_TN = 64, 512
 _K2_BM, _K2_BN = 64, 64
+# K1's family instances: 128 rows per block; the staged tile's columns by
+# the instance's D (d rounded up to 1, 2, 3, 4, 8 or 16)
+_K1F_BM = 128
+_K1F_TN = {1: 512, 2: 512, 3: 512, 4: 256, 8: 128, 16: 128}
 
 LAUNCHES = {"direct": 0, "expand": 0, "grad": 0, "tile_ell": 0}
 
@@ -43,6 +51,19 @@ class _CSpec(ctypes.Structure):
                 ("op", ctypes.c_int * MAX_OPS),
                 ("arg", ctypes.c_int * MAX_OPS),
                 ("c", ctypes.c_float * MAX_CONSTS)]
+
+
+class _CFamily(ctypes.Structure):
+    _fields_ = [("c", ctypes.c_float * FAMILY_CONSTS), ("scale", ctypes.c_float)]
+
+
+@functools.lru_cache(maxsize=64)
+def _cfamily(spec: ProfileSpec) -> _CFamily:
+    cf = _CFamily()
+    for i, c in enumerate(spec.family_consts):
+        cf.c[i] = c
+    cf.scale = spec.family_scale
+    return cf
 
 
 @functools.lru_cache(maxsize=64)
@@ -65,6 +86,8 @@ def library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.k1_gramian_matvec_direct.argtypes = [p, p, p, p, p, i, i, i, i, i, _CSpec, p]
     lib.k1_gramian_matvec_direct.restype = i
+    lib.k1_gramian_matvec_family.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, _CFamily, p]
+    lib.k1_gramian_matvec_family.restype = i
     lib.k2_gramian_matvec_expand.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, _CSpec, p]
     lib.k2_gramian_matvec_expand.restype = i
     return lib
@@ -74,11 +97,18 @@ def _cdiv(a, b):
     return -(-a // b)
 
 
+@functools.cache
+def sm_count(index: int) -> int:
+    """The SMs of CUDA device `index` (read once: the wrappers ask on
+    every launch)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def column_split(n_row_blocks: int, m: int, tn: int, device) -> tuple:
     """(splits, columns per split): split the columns over gridDim.y so
     that about 4 blocks per SM are in flight, in whole column tiles."""
     col_tiles = _cdiv(m, tn)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    sms = sm_count(device.index)
     want = max(1, min(col_tiles, _cdiv(4 * sms, n_row_blocks)))
     per = _cdiv(col_tiles, want)
     return _cdiv(col_tiles, per), per * tn
@@ -113,7 +143,9 @@ def _check_inputs(k, x, y, a, spec, mode):
 
 
 def _launch(kind, fn, out, *args):
-    err = fn(*args, ctypes.c_void_p(torch.cuda.current_stream(out.device).cuda_stream))
+    # the current stream's raw handle, read without building a
+    # torch.cuda.Stream object on every launch
+    err = fn(*args, torch._C._cuda_getCurrentRawStream(out.device.index))
     if err != 0:
         raise RuntimeError(f"CUDA Gramian MVM kernel {kind!r} failed to launch: "
                            f"cudaError {err}")
@@ -122,7 +154,8 @@ def _launch(kind, fn, out, *args):
 
 
 def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr()) if t is not None else ctypes.c_void_p(None)
+    """A tensor's address for a `c_void_p` argument (None for NULL)."""
+    return t.data_ptr() if t is not None else None
 
 
 def _blocked(tile, k, x, y, a, block):
@@ -161,15 +194,22 @@ def gramian_matvec_direct(k, x, y, a, spec: ProfileSpec = None):
     m = y.shape[0]
     if not 1 <= d <= DIRECT_MAX_D:
         raise ValueError(f"the direct kernel takes 1 <= d <= {DIRECT_MAX_D}, got d={d}")
-    out = torch.empty((n,), dtype=torch.float32, device=x.device)
+    out = torch.empty(n, dtype=torch.float32, device=x.device)
     if n == 0 or m == 0:
         return out.zero_()
-    splits, per = column_split(_cdiv(n, _K1_TM), m, _K1_TN, x.device)
+    family = spec.family != FAMILY_NONE
+    if family:
+        tn = _K1F_TN[next(D for D in sorted(_K1F_TN) if D >= d)]
+        splits, per = column_split(_cdiv(n, _K1F_BM), m, tn, x.device)
+    else:
+        splits, per = column_split(_cdiv(n, _K1_TM), m, _K1_TN, x.device)
     partial = out if splits == 1 else torch.empty((splits, n), dtype=torch.float32,
                                                   device=x.device)
-    return _launch("direct", library().k1_gramian_matvec_direct, out,
-                   _ptr(x), _ptr(y), _ptr(a), _ptr(partial), _ptr(out), n, m, d,
-                   splits, per, _cspec(spec))
+    args = (_ptr(x), _ptr(y), _ptr(a), _ptr(partial), _ptr(out), n, m, d, splits, per)
+    if family:
+        return _launch("direct", library().k1_gramian_matvec_family, out, *args,
+                       spec.family, spec.family_p, _cfamily(spec))
+    return _launch("direct", library().k1_gramian_matvec_direct, out, *args, _cspec(spec))
 
 
 def gramian_matvec_expand(k, x, y, a, mode: str = "iso", precision=None,
@@ -185,7 +225,7 @@ def gramian_matvec_expand(k, x, y, a, mode: str = "iso", precision=None,
                          "only; the tf32 tiers are not ported yet")
     n, d = x.shape
     m = y.shape[0]
-    out = torch.empty((n,), dtype=torch.float32, device=x.device)
+    out = torch.empty(n, dtype=torch.float32, device=x.device)
     if n == 0 or m == 0:
         return out.zero_()
     x2 = torch.sum(x * x, dim=1) if mode == "iso" else None

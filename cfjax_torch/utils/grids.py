@@ -18,6 +18,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..config import default_device
+
 
 @dataclasses.dataclass(frozen=True)
 class UniformGrid:
@@ -31,7 +33,8 @@ class UniformGrid:
 
     def points(self):
         dtype = torch.get_default_dtype() if self.dtype is None else self.dtype
-        return self.start + self.step * torch.arange(self.num, dtype=dtype, device=self.device)
+        return self.start + self.step * torch.arange(self.num, dtype=dtype,
+                                                     device=default_device(self.device))
 
     def __len__(self):
         return self.num
@@ -71,7 +74,8 @@ class LazyGrid:
         a = self.axes[i]
         if isinstance(a, UniformGrid):
             return a.points()
-        return torch.as_tensor(a)
+        return a if isinstance(a, torch.Tensor) else torch.as_tensor(
+            a, device=default_device(self.device))
 
     def points(self):
         """Materialize the (prod n_i, d) point matrix, last axis fastest."""
@@ -85,9 +89,11 @@ class LazyGrid:
 
 def detect_uniform_grid(x, rtol: float = None):
     """Classify a 1-D array as a uniform grid; returns a UniformGrid or
-    None. The grid carries x's device and floating dtype. The tolerance is
-    dtype-aware: float32 grid positions carry rounding ~eps*|x[i]|, an
-    absolute (not step-relative) error."""
+    None. The grid carries x's device (the configured one for input that
+    carries none) and floating dtype. The tolerance is dtype-aware:
+    float32 grid positions carry rounding ~eps*|x[i]|, an absolute (not
+    step-relative) error."""
+    device = point_device(x)
     t = torch.as_tensor(x)
     x = t.detach().cpu().numpy().squeeze()
     if x.ndim != 1 or x.size < 2:
@@ -101,18 +107,32 @@ def detect_uniform_grid(x, rtol: float = None):
         rtol = max(1e-10, 4 * eps)
     atol = 8 * eps * float(np.max(np.abs(x))) + abs(step) * rtol
     if np.all(np.abs(d - step) <= atol):
-        return UniformGrid(float(x[0]), float(step), int(x.size), device=t.device,
+        return UniformGrid(float(x[0]), float(step), int(x.size), device=device,
                            dtype=t.dtype if t.is_floating_point() else None)
     return None
 
 
+def point_device(x) -> torch.device:
+    """The device of x's points, without making them: a tensor's own, a
+    grid's, else the configured device."""
+    if isinstance(x, torch.Tensor):
+        return x.device
+    if isinstance(x, UniformGrid):
+        return default_device(x.device)
+    if isinstance(x, LazyGrid):
+        return point_device(x.axes[0]) if x.device is None and x.axes else \
+            default_device(x.device)
+    return default_device()
+
+
 def as_points(x):
-    """Normalize any input container to an (n, d) point tensor."""
+    """Normalize any input container to an (n, d) point tensor. A tensor
+    keeps its device; other input goes to the configured device."""
     if isinstance(x, UniformGrid):
         return x.points()[:, None]
     if isinstance(x, LazyGrid):
         return x.points()
-    x = torch.as_tensor(x)
+    x = torch.as_tensor(x, device=point_device(x))
     if x.ndim == 1:
         return x[:, None]
     return x

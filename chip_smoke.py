@@ -25,10 +25,14 @@ card, then drives the paths a user runs:
     gradient) operators, at BASELINE config 2 (Exp, n = 65536), a periodic
     kernel at n = 65536 and BASELINE config 3 (separable EQ on 128^3);
     the posterior mean off the grid is a rectangular Gramian through K1.
-Phase 1 holds K1 and K2, phase 6 K3, phase 9 K4 against their float64
-plain versions; phase 5 times each kernel against its plain version (K4
-after phase 11, at its operator). One line per phase, then a JSON line of
-kernel results, the card's name and power limit, and a last JSON line
+Phase 1 holds K1 (its family instances and its interpreted one) and K2,
+phase 6 K3, phase 9 K4 against their float64 plain versions; phase 0
+reads the compiler's report (K1's family instances keep no stack frame);
+phase 5 times each kernel against its plain version and, for K4, against
+one PyTorch call that computes the same product (a CSR SpMV), and
+computes each kernel's bound, the least time the card could take for the
+same work. One line per phase, then a JSON line of kernel results, the
+card's name and power limit, and a last JSON line
 `{"ok": true, "device": {...}}`. Any failed check raises: the script then
 exits non-zero and prints no result. It needs a CUDA device and fails at
 once without one.
@@ -36,7 +40,9 @@ once without one.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -53,6 +59,33 @@ TOEPLITZ_BOUND = 1e-5   # float32 FFT MVMs of phases 12-13 vs float64 (relative 
 VARIANCE_BOUND = 1e-4   # float32 posterior variance vs float64 (absolute; prior variance 1)
 NOISE = 1e-2      # the GP's noise variance
 Y_NOISE = 0.01    # standard deviation of the noise in the observations y
+
+# The H100 SXM's peaks at its 1.98 GHz boost clock and 700 W: 132 SMs x 128
+# fp32 lanes (67 TFLOP/s counting an FMA as two), x 16 SFU lanes (MUFU:
+# rsqrt, ex2, lg2, rcp), and 3.35 TB/s of HBM3. A bound is the larger of
+# the operations over their pipe's rate and the bytes over the HBM rate.
+FP32_RATE = 132 * 128 * 1.98e9   # fp32 instructions per second
+SFU_RATE = 132 * 16 * 1.98e9     # SFU operations per second
+HBM_RATE = 3.35e12               # bytes per second
+
+
+def op_bound(pairs, fp32, sfu=0):
+    """(ms, what sets it) for `pairs` entries of fp32 and SFU operations each."""
+    t_fp32, t_sfu = pairs * fp32 / FP32_RATE * 1e3, pairs * sfu / SFU_RATE * 1e3
+    return (t_sfu, "operations (SFU)") if t_sfu > t_fp32 else (t_fp32, "operations (fp32)")
+
+
+def k1_ops(spec, d):
+    """(fp32, SFU) operations per entry of K1's family form at d: 2d for the
+    difference-form distance, the profile, one FFMA into the row sum. The
+    least work: without the 4 fp32 instructions per exp2 that K1 spends to
+    make its argument exact."""
+    p = spec.family_p
+    prof = {1: (1, 1),                                  # EQ: FMUL, ex2
+            2: (3 + p + (p > 0), 2),                    # MaternP: max, 2 FMUL, Horner, rsqrt, ex2
+            3: (2, 2),                                  # RQ: FFMA, FMUL, lg2, ex2
+            4: (1, 1), 5: (1, 1)}[spec.family]          # Cauchy, IMQ: FFMA, rcp / rsqrt
+    return 2 * d + prof[0] + 1, prof[1]
 
 
 def check(cond, msg):
@@ -88,13 +121,68 @@ def median_ms(fn, reps):
     return ts
 
 
+def graph_ms(fn, reps=20, replays=5):
+    """Device time of one call of fn: `reps` calls captured in a CUDA graph,
+    the graph replayed `replays` times between CUDA events; the per-call
+    times of the replays. No host time enters: the wrapper's Python runs
+    once, at capture."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ts = []
+    for _ in range(replays):
+        e0.record()
+        g.replay()
+        e1.record()
+        torch.cuda.synchronize()
+        ts.append(e0.elapsed_time(e1) / reps)
+    del g
+    return ts
+
+
+def kernel_times(kern, plain, reps=20):
+    """(ms of one call between CUDA events, the wrapper's host time
+    included, as the solvers' loops pay it; device ms of a call from CUDA
+    graphs; ms of one plain call), in turns: plain, call, graph, graph,
+    call, plain; medians."""
+    kern(), plain()   # warm-up
+    t = {"plain": [], "call": [], "graph": []}
+    for key in ("plain", "call", "graph", "graph", "call", "plain"):
+        t[key] += graph_ms(kern, reps) if key == "graph" else \
+            median_ms(plain if key == "plain" else kern, 10)
+    return tuple(float(np.median(t[key])) for key in ("call", "graph", "plain"))
+
+
 def phase1_kernels(tk, mvm):
-    """Each kernel vs its plain version (float64 from the same f32 inputs)."""
+    """Each kernel vs its plain version (float64 from the same f32 inputs).
+    K1: every family (Exp is MaternP's p = 0), under lengthscales and a
+    constant, through its specialised instance; a sum and MaternP(2) with
+    its family cleared through the interpreted instance; d = 5 runs the
+    D = 8 instance with zero coordinates."""
+    from cfjax_torch.kernels.profile_spec import to_spec
+
     rng = np.random.default_rng(1)
     k1_profiles = [tk.EQ(), tk.Exp(), tk.MaternP(0), tk.MaternP(1), tk.MaternP(2),
                    tk.MaternP(3), tk.Lengthscale(tk.MaternP(2), 0.5),
-                   2.0 * tk.EQ() + 0.5 * tk.MaternP(1), tk.RQ(1.5)]
-    res = {"direct": [0, 0.0, 0.0], "expand": [0, 0.0, 0.0]}   # cases, max rel, max abs
+                   2.0 * tk.EQ() + 0.5 * tk.MaternP(1), tk.RQ(1.5), tk.Cauchy(),
+                   tk.InverseMultiQuadratic(0.7), 3.0 * tk.Lengthscale(tk.EQ(), 0.7)]
+    k1_cases = [(k, to_spec(k)[0]) for k in k1_profiles]
+    interp = dataclasses.replace(to_spec(tk.MaternP(2))[0], family=0)
+    k1_cases.append((tk.MaternP(2), interp))
+    # cases, max rel, max abs
+    res = {"family": [0, 0.0, 0.0], "interpreted": [0, 0.0, 0.0], "expand": [0, 0.0, 0.0]}
 
     def record(kind, out, ref, bound, what):
         r = rel(out, ref)
@@ -105,15 +193,16 @@ def phase1_kernels(tk, mvm):
         c[1] = max(c[1], r)
         c[2] = max(c[2], float((out.double() - ref).abs().max()))
 
-    for d in (1, 3, 8, 16):
+    for d in (1, 3, 5, 8, 16):
         for n, m in ((5003, 3001), (7, 16384)):
             x = cuda_tensor(rng.standard_normal((n, d)))
             y = cuda_tensor(rng.standard_normal((m, d)))
             a = cuda_tensor(rng.standard_normal(m))
-            for k in k1_profiles:
-                out = mvm.gramian_matvec_direct(k, x, y, a)
+            for k, spec in k1_cases:
+                out = mvm.gramian_matvec_direct(k, x, y, a, spec=spec)
                 ref = mvm.gramian_matvec_direct_plain(k, x.double(), y.double(), a.double())
-                record("direct", out, ref, K1_BOUND, f"K1 d={d} {n}x{m} {k!r}")
+                record("family" if spec.family else "interpreted", out, ref, K1_BOUND,
+                       f"K1 d={d} {n}x{m} {k!r} family {spec.family}")
     # points scaled by 1/sqrt(d): distances and inner products O(1), so
     # the profiles neither underflow nor overflow in f32
     cases = [(tk.EQ(), "iso", d) for d in (17, 64, 257)]
@@ -127,8 +216,12 @@ def phase1_kernels(tk, mvm):
         ref = mvm.gramian_matvec_expand_plain(k, x.double(), y.double(), a.double(), mode)
         record("expand", out, ref, K2_BOUND, f"K2 {mode} d={d} {k!r}")
     torch.cuda.synchronize()
-    print(f"phase 1 kernels vs plain: K1 {res['direct'][0]} cases max rel "
-          f"{res['direct'][1]:.3e} (bound {K1_BOUND:.0e}) max abs {res['direct'][2]:.3e}; "
+    fam, itp = res["family"], res["interpreted"]
+    res["direct"] = [fam[0] + itp[0], max(fam[1], itp[1]), max(fam[2], itp[2])]
+    print(f"phase 1 kernels vs plain: K1 family instances {fam[0]} cases (EQ, Exp, MaternP "
+          f"0-3, RQ, Cauchy, IMQ, lengthscales, a constant; d in 1, 3, 5, 8, 16) max rel "
+          f"{fam[1]:.3e} max abs {fam[2]:.3e}; K1 interpreted {itp[0]} cases max rel "
+          f"{itp[1]:.3e} max abs {itp[2]:.3e} (bound {K1_BOUND:.0e}); "
           f"K2 {res['expand'][0]} cases max rel {res['expand'][1]:.3e} "
           f"(bound {K2_BOUND:.0e}) max abs {res['expand'][2]:.3e}", flush=True)
     return res
@@ -305,12 +398,14 @@ def phase8_readme_gradient(tk, ops, gmvm):
     return dict(residual=res, residual64=res64, wall_s=wall, row_err=row_err)
 
 
-def phase9_tile_kernel(tmvm, res, a2, off, val, what):
-    """K4 against its float64 plain version on one group, in float32 and in
-    the float64 instance; res[dtype] = [cases, max rel, max abs]."""
-    ref = tmvm.slab_matvec_plain(a2.double(), off, val.double())
+def phase9_rows_kernel(tmvm, res, S, a, what):
+    """K4 over S's row slices against the float64 slab product of S's
+    groups, in float32 and in the float64 instance (the same nonzeros);
+    res[dtype] = [cases, max rel, max abs]."""
+    ref = slab_plain64(S, tmvm, a)
     for dtype, bound in K4_BOUND.items():
-        out = tmvm.slab_matvec(a2.to(dtype), off, val.to(dtype))
+        rs = S.rows._replace(val=S.rows.val.to(dtype))
+        out = tmvm.rows_matvec(rs, a.to(dtype))
         r = rel(out, ref)
         check(torch.isfinite(out).all().item(), f"K4 {what} {dtype}: non-finite output")
         check(r <= bound, f"K4 {what} {dtype}: relative error {r:.3e} > {bound:.0e}")
@@ -318,11 +413,11 @@ def phase9_tile_kernel(tmvm, res, a2, off, val, what):
         res[dtype] = [c[0] + 1, max(c[1], r), max(c[2], float((out.double() - ref).abs().max()))]
 
 
-def phase9_synthetic(tmvm):
-    """K4 on synthetic groups: K in {1, 2, 8, 32, 128}, nt in {1, 2, 128,
-    256}, B in {8, 136}, offsets over the whole lane range, ~70% zero
-    values; groups above 2^28 slots are left out (memory of the float64
-    reference)."""
+def phase9_synthetic(tmvm, t_tile):
+    """K4 on synthetic TileELL groups as operators (rows in slab order):
+    K in {1, 2, 8, 32, 128}, nt in {1, 2, 128, 256}, B in {8, 136}, offsets
+    over the whole lane range, ~70% zero values; groups above 2^28 slots
+    are left out (memory of the float64 reference)."""
     g = torch.Generator(device="cuda").manual_seed(9)
     res = {dtype: [0, 0.0, 0.0] for dtype in K4_BOUND}
     skipped = 0
@@ -333,12 +428,15 @@ def phase9_synthetic(tmvm):
                 if B * K * nt * 128 > 1 << 28:
                     skipped += 1
                     continue
-                a2 = torch.randn((nt, 128), generator=g, device="cuda")
+                a = torch.randn(nt * 128, generator=g, device="cuda")
                 off = torch.randint(0, 128, shape, generator=g, device="cuda", dtype=torch.int32)
                 val = torch.randn(shape, generator=g, device="cuda")
                 val *= torch.rand(shape, generator=g, device="cuda") < 0.3
-                phase9_tile_kernel(tmvm, res, a2, off, val, f"B={B} K={K} nt={nt}")
-                del a2, off, val
+                S = t_tile.TileEllOperator([(0, B * 128, off, val)],
+                                           torch.arange(B * 128, device="cuda"), B * 128,
+                                           nt * 128, int(torch.count_nonzero(val)))
+                phase9_rows_kernel(tmvm, res, S, a, f"B={B} K={K} nt={nt}")
+                del a, off, val, S
     torch.cuda.synchronize()
     return res, skipped
 
@@ -366,17 +464,43 @@ def slab_stats(S):
     return groups, nbytes, slots
 
 
-def sparse_solve(ops, S, b, label):
-    """MINRES on (S + noise I) alpha = b, tol 1e-5, through `solve`."""
+def slice_warps(rs, tmvm):
+    """K4's warps per slice at these row slices on this card."""
+    return tmvm.slice_warps(rs.ptr.shape[0] - 1,
+                            torch.cuda.get_device_properties(0).multi_processor_count)
+
+
+def rows_stats(S, t_tile, tmvm):
+    """The row-slice layout K4 reads: (slots, col+val bytes, warps per
+    slice, seconds to build it again from the groups on the card)."""
+    rs, build_s = sync_time(lambda: t_tile.row_slices(S.groups, S.perm, *S.shape, S.dtype))
+    check(torch.equal(rs.col, S.rows.col) and torch.equal(rs.val, S.rows.val),
+          "the row slices built again differ from the operator's")
+    slots = int(rs.ptr[-1])
+    return slots, slots * (4 + rs.val.element_size()), slice_warps(rs, tmvm), build_s
+
+
+def sparse_launches(it, launches, label):
+    """MINRES makes one MVM for its first residual and one per iteration."""
+    check(launches == it + 1, f"{label}: {launches} K4 launches for {it} MINRES iterations "
+                              f"(one per iteration and one for the first residual)")
+
+
+def sparse_solve(ops, mvm, S, b, label):
+    """MINRES on (S + noise I) alpha = b, tol 1e-5, through `solve`; the K4
+    launches it made."""
     op = S.add_diagonal(NOISE)
+    before = mvm.LAUNCHES["tile_ell"]
     (alpha, info), wall = sync_time(lambda: ops.solve_with_info(op, b, tol=1e-5, maxiter=1000))
+    launches = mvm.LAUNCHES["tile_ell"] - before
     it = info[0]
     check(it < 1000, f"{label}: MINRES did not converge in 1000 iterations "
                      f"(residual {float(info[1]):.3e})")
-    return alpha, it, wall
+    sparse_launches(it, launches, label)
+    return alpha, it, wall, launches
 
 
-def phase10_reference_sparse(tk, ops, so, tmvm):
+def phase10_reference_sparse(tk, ops, so, tmvm, mvm, t_tile):
     """The reference's sparse configuration (benchmarks/run_baseline.py
     bench_sparse): sparse_gramian(EQ(), x, tol=1e-6), x ~ N(0, I), n = 16384,
     d = 32, float32 — the scan build."""
@@ -389,6 +513,7 @@ def phase10_reference_sparse(tk, ops, so, tmvm):
     (S, ratio), build_s = sync_time(lambda: so.sparse_gramian(k, x, tol=SPARSE_TOL))
     check(type(S).__name__ == "TileEllOperator", f"phase 10: got {type(S).__name__}")
     groups, nbytes, slots = slab_stats(S)
+    rslots, rbytes, warps, rows_s = rows_stats(S, t_tile, tmvm)
     # S @ a rows against the float64 dense rows, entries outside the decay
     # radius dropped
     r2 = so.decay_radius(k, SPARSE_TOL) ** 2
@@ -399,20 +524,23 @@ def phase10_reference_sparse(tk, ops, so, tmvm):
     row_err = rel((S @ a)[:256], ref)
     check(row_err <= 1e-5, f"phase 10: S @ a rows disagree with the dense rows ({row_err:.3e})")
     b = torch.sin(x[:, 0]) + Y_NOISE * cuda_tensor(rng.standard_normal(n))
-    alpha, it, wall = sparse_solve(ops, S, b, "phase 10")
+    alpha, it, wall, launches = sparse_solve(ops, mvm, S, b, "phase 10")
     res = residual(S @ alpha, alpha, b)
     res64 = residual(slab_plain64(S, tmvm, alpha), alpha, b)
     check(max(res, res64) <= 1e-4, f"phase 10: residual {res:.3e} / {res64:.3e} > 1e-4")
     print(f"phase 10 reference sparse config EQ d=32 n=16384 tol 1e-6 (scan build): build "
           f"{build_s:.3f} s, nnz {S.nnz} ratio {ratio:.6f}, nt {S.nt}, groups (K, B, B "
           f"allocated) {groups}, slabs {nbytes / 1e6:.1f} MB allocated, {slots / S.nnz:.1f} "
-          f"slots per nonzero; S @ a rows rel {row_err:.3e}; solve(S + 1e-2 I) MINRES {it} "
-          f"iterations {wall:.4f} s, residual {res:.3e} (K4) / {res64:.3e} float64 (bound 1e-4)",
-          flush=True)
-    return dict(S=S, iters=it, wall_s=wall, residual=res, residual64=res64, build_s=build_s)
+          f"slots per nonzero; row slices (what K4 reads) {rslots / S.nnz:.4f} slots per "
+          f"nonzero, {rbytes / 1e6:.2f} MB, {warps} warp(s) per slice, built from the groups "
+          f"in {rows_s:.4f} s; S @ a rows rel {row_err:.3e}; solve(S + 1e-2 I) MINRES {it} "
+          f"iterations {wall:.4f} s, {launches} K4 launches, residual {res:.3e} (K4) / "
+          f"{res64:.3e} float64 (bound 1e-4)", flush=True)
+    return dict(S=S, iters=it, wall_s=wall, residual=res, residual64=res64, build_s=build_s,
+                launches=launches)
 
 
-def phase11_spatial_sparse(tk, ops, so, tmvm, mvm):
+def phase11_spatial_sparse(tk, ops, so, tmvm, mvm, t_tile):
     """A spatial sparse GP at the tile format's widest m: Lengthscale(EQ,
     0.2), x uniform in [0, 20]^2, n = 32768, tol 1e-6, the tree build
     (nt = 256), MINRES on (S + 1e-2 I) alpha = sin(x0) + 0.01 eps."""
@@ -425,11 +553,11 @@ def phase11_spatial_sparse(tk, ops, so, tmvm, mvm):
     check(type(S).__name__ == "TileEllOperator" and S.nt == 256,
           f"phase 11: got {type(S).__name__} with nt {getattr(S, 'nt', None)}")
     groups, nbytes, slots = slab_stats(S)
+    rslots, rbytes, warps, rows_s = rows_stats(S, t_tile, tmvm)
+    check(rslots <= 1.15 * S.nnz, f"phase 11: the row slices hold {rslots / S.nnz:.3f} slots "
+                                  f"per nonzero, more than 1.15")
     b = torch.sin(x[:, 0]) + Y_NOISE * cuda_tensor(rng.standard_normal(n))
-    before = mvm.LAUNCHES["tile_ell"]
-    alpha, it, wall = sparse_solve(ops, S, b, "phase 11")
-    launches = mvm.LAUNCHES["tile_ell"] - before
-    check(launches >= it, f"phase 11: {launches} K4 launches < {it} MINRES iterations")
+    alpha, it, wall, launches = sparse_solve(ops, mvm, S, b, "phase 11")
     res = residual(S @ alpha, alpha, b)
     res64 = residual(slab_plain64(S, tmvm, alpha), alpha, b)
     check(max(res, res64) <= 1e-4, f"phase 11: residual {res:.3e} / {res64:.3e} > 1e-4")
@@ -443,7 +571,9 @@ def phase11_spatial_sparse(tk, ops, so, tmvm, mvm):
     print(f"phase 11 spatial sparse GP Lengthscale(EQ, 0.2) [0,20]^2 n=32768 tol 1e-6 (tree "
           f"build): build {build_s:.3f} s, nnz {S.nnz} ({S.nnz / n:.1f} per row) ratio "
           f"{ratio:.6f}, nt {S.nt}, groups (K, B, B allocated) {groups}, slabs "
-          f"{nbytes / 1e6:.1f} MB allocated, {slots / S.nnz:.1f} slots per nonzero; MINRES {it} "
+          f"{nbytes / 1e6:.1f} MB allocated, {slots / S.nnz:.1f} slots per nonzero; row slices "
+          f"(what K4 reads) {rslots / S.nnz:.4f} slots per nonzero, {rbytes / 1e6:.2f} MB, "
+          f"{warps} warp(s) per slice, built from the groups in {rows_s:.4f} s; MINRES {it} "
           f"iterations (tol 1e-5) {wall:.4f} s, {launches} K4 launches, residual {res:.3e} (K4) "
           f"/ {res64:.3e} float64 (bound 1e-4); lazy TreeSparseOperator build {lazy_s:.3f} s, "
           f"rel to S @ a {lazy_err:.3e}", flush=True)
@@ -451,22 +581,79 @@ def phase11_spatial_sparse(tk, ops, so, tmvm, mvm):
                 build_s=build_s, nbytes=nbytes)
 
 
-def k4_times(S, tmvm):
-    """K4 against its plain version on every group of S, plain / kernel /
-    kernel / plain, median of 20 each; and the bytes one MVM reads."""
+def csr_of(S):
+    """S's nonzeros as a torch CSR tensor with int32 indices, read from its
+    row slices: the yardstick of one PyTorch call (cuSPARSE SpMV) that
+    computes K4's product. The port never builds it."""
+    rs = S.rows
+    n, m = S.shape
+    width = torch.diff(rs.ptr) // 32
+    pos = torch.arange(rs.col.numel(), device="cuda")
+    lrow = torch.repeat_interleave(torch.arange(width.numel(), device="cuda") * 32, width * 32) \
+        + (pos - torch.repeat_interleave(rs.ptr[:-1], width * 32)) % 32
+    live = rs.val != 0
+    row, col, val = rs.out_row.long()[lrow[live]], rs.col[live].long(), rs.val[live]
+    order = torch.argsort(row * m + col)
+    row, col, val = row[order], col[order], val[order]
+    crow = torch.zeros(n + 1, dtype=torch.long, device="cuda")
+    crow[1:] = torch.cumsum(torch.bincount(row, minlength=n), 0)
+    return torch.sparse_csr_tensor(crow.int(), col.int(), val, size=(n, m),
+                                   check_invariants=False)
+
+
+def k4_times(S, S10, tmvm):
+    """K4 at S's operator against its plain version and a CSR SpMV over the
+    same nonzeros (`kernel_times`; the CSR call timed the same way, a call
+    and device); then each warps-per-slice count at S's and S10's
+    operators, device times in turns. The bound: nnz (4-byte column,
+    4-byte value) + a + out, over the HBM rate."""
     rng = np.random.default_rng(12)
     n, m = S.shape
-    a2 = torch.nn.functional.pad(cuda_tensor(rng.standard_normal(m)),
-                                 (0, S.nt * 128 - m)).reshape(S.nt, 128)
-    slabs = [(off[:(r1 - r0) // 128], val[:(r1 - r0) // 128]) for r0, r1, off, val in S.groups]
-    kern = lambda: [tmvm.slab_matvec(a2, off, val) for off, val in slabs]
-    plain = lambda: [tmvm.slab_matvec_plain(a2, off, val) for off, val in slabs]
-    kern(), plain()   # warm-up
-    t_plain = median_ms(plain, 10)
-    t_kern = median_ms(kern, 10) + median_ms(kern, 10)
-    t_plain += median_ms(plain, 10)
-    nbytes = sum(off.numel() * 4 + val.numel() * 4 for off, val in slabs) + a2.numel() * 4
-    return float(np.median(t_kern)), float(np.median(t_plain)), nbytes
+    a = cuda_tensor(rng.standard_normal(m))
+    rs = S.rows
+    csr = csr_of(S)
+    kern = lambda: tmvm.rows_matvec(rs, a)
+    lib = lambda: torch.mv(csr, a)
+    lib_err = rel(kern(), lib().double())
+    check(lib_err <= 1e-5, f"K4 and the CSR SpMV disagree ({lib_err:.3e})")
+    call_ms, ms, plain_ms = kernel_times(kern, lambda: tmvm.rows_matvec_plain(rs, a))
+    lib_call, lib_dev = [], []
+    for key in ("call", "graph", "graph", "call"):
+        (lib_call if key == "call" else lib_dev).extend(
+            median_ms(lib, 10) if key == "call" else graph_ms(lib))
+    a10 = cuda_tensor(rng.standard_normal(S10.shape[1]))
+    sweep = {}
+    for label, op, v in (("phase 11", S, a), ("phase 10", S10, a10)):
+        warps = {w: [] for w in (1, 2, 4, 8)}
+        for w in (1, 2, 4, 8, 8, 4, 2, 1):
+            warps[w] += graph_ms(lambda: tmvm.rows_matvec(op.rows, v, warps=w))
+        sweep[label] = (slice_warps(op.rows, tmvm), op.rows.ptr.shape[0] - 1,
+                        {w: float(np.median(t)) for w, t in warps.items()})
+    bound_bytes = S.nnz * (4 + 4) + (m + n) * 4
+    layout_bytes = int(rs.ptr[-1]) * (4 + rs.val.element_size())
+    return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                library_call_ms=float(np.median(lib_call)),
+                library_ms=float(np.median(lib_dev)), bound_bytes=bound_bytes,
+                bound_ms=bound_bytes / HBM_RATE * 1e3, layout_bytes=layout_bytes,
+                lib_err=lib_err, sweep=sweep)
+
+
+def ptxas_k1_family(build):
+    """K1's family instances in the compiler's report beside the K1/K2
+    library: (instances, largest stack frame, spill bytes, registers)."""
+    log = build.library_path("gramian_mvm").with_suffix(".log").read_text()
+    props = re.findall(r"Function properties for (\S*k1_family\S*)\s*\n\s*(\d+) bytes stack "
+                       r"frame, (\d+) bytes spill stores, (\d+) bytes spill loads", log)
+    regs = [int(r) for name, r in re.findall(
+        r"Compiling entry function '(\S*k1_family\S*)'[^\n]*\n(?:[^\n]*\n)*?"
+        r"[^\n]*Used (\d+) registers", log)]
+    check(len(props) == 48, f"ptxas reports {len(props)} K1 family instances, not 48")
+    stack = max(int(p[1]) for p in props)
+    spill = max(int(p[2]) + int(p[3]) for p in props)
+    check(stack == 0 and spill == 0, f"K1 family instances keep a stack frame of up to "
+                                     f"{stack} bytes and spill {spill} bytes: "
+                                     f"{[p for p in props if int(p[1]) or int(p[2])]}")
+    return len(props), stack, spill, (min(regs), max(regs)) if regs else None
 
 
 def rows64(k, x, y, a):
@@ -746,6 +933,29 @@ def phase14_kronecker(tk, ops, gp):
     return dict(mvm_ms=mvm_ms, cg_it=cg_it, cond_s=cond_s)
 
 
+def time_k1(mvm, tk, xh, ah, x17, a17):
+    """K1 at the headline (MaternP(2), d = 3, n = 16384): the family
+    instance and the interpreted instance on the same spec with its family
+    cleared (`kernel_times`), and the family instance at n = 2^17 (phase
+    3's shape; a call, median of 3, and device time from a graph of 3
+    calls)."""
+    from cfjax_torch.kernels.profile_spec import to_spec
+
+    k = tk.MaternP(2)
+    spec = to_spec(k)[0]
+    interp = dataclasses.replace(spec, family=0)
+    plain = lambda: mvm.gramian_matvec_direct_plain(k, xh, xh, ah)
+    fam = kernel_times(lambda: mvm.gramian_matvec_direct(k, xh, xh, ah, spec=spec), plain)
+    itp = kernel_times(lambda: mvm.gramian_matvec_direct(k, xh, xh, ah, spec=interp), plain)
+    k17 = lambda: mvm.gramian_matvec_direct(k, x17, x17, a17, spec=spec)
+    ms17 = float(np.median(graph_ms(k17, 3, 3)))
+    call17 = float(np.median(median_ms(k17, 3)))
+    fp32, sfu = k1_ops(spec, 3)
+    return dict(ms=fam[1], call_ms=fam[0], plain_ms=fam[2], interp_ms=itp[1],
+                interp_call_ms=itp[0], ms17=ms17, call17=call17, bound=op_bound(16384 ** 2, fp32, sfu),
+                bound17=op_bound(131072 ** 2, fp32, sfu))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -755,6 +965,7 @@ def main():
     import cfjax_torch.operators as ops
     from cfjax_torch.ops import build
     from cfjax_torch.operators import sparse_op as so
+    from cfjax_torch.operators import tile_ell as t_tile
     from cfjax_torch.ops import grad_mvm as gmvm
     from cfjax_torch.ops import gramian_mvm as mvm
     from cfjax_torch.ops import tile_ell_mvm as tmvm
@@ -765,9 +976,12 @@ def main():
     t0 = time.perf_counter()
     build.build()
     mvm.library(), gmvm.library(), tmvm.library()
+    built_s = time.perf_counter() - t0
+    fam_n, fam_stack, fam_spill, fam_regs = ptxas_k1_family(build)
     print(f"phase 0 card: {smi} | torch {torch.__version__} cuda {torch.version.cuda} | "
-          f"kernel libraries {', '.join(build.LIBRARIES)} built in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f"kernel libraries {', '.join(build.LIBRARIES)} built in {built_s:.1f} s | ptxas: "
+          f"{fam_n} K1 family instances, stack frame {fam_stack} bytes, spills {fam_spill} "
+          f"bytes, registers {fam_regs}", flush=True)
 
     p1 = phase1_kernels(tk, mvm)
 
@@ -804,17 +1018,18 @@ def main():
     xh = cuda_tensor(rng.standard_normal((16384, 3)))
     ah = cuda_tensor(rng.standard_normal(16384))
     x64 = cuda_tensor(rng.standard_normal((16384, 64)))
-    k1, k2 = tk.MaternP(2), tk.Lengthscale(tk.EQ(), 4.0)
+    k2 = tk.Lengthscale(tk.EQ(), 4.0)
     # K3 at the shapes of phase 7 (EQ, n = 4096, d = 16, x = 0.5 N(0, I))
     # and phase 8 (MaternP(2), n = d = 1024, x = N(0, I))
     xg7 = cuda_tensor(0.5 * rng.standard_normal((4096, 16)))
     ag7 = cuda_tensor(rng.standard_normal((4096, 16)))
     xg8 = cuda_tensor(rng.standard_normal((1024, 1024)))
     ag8 = cuda_tensor(rng.standard_normal((1024, 1024)))
+    x17 = cuda_tensor(rng.standard_normal((131072, 3)))
+    a17 = cuda_tensor(rng.standard_normal(131072))
     keq, km2 = tk.EQ(), tk.MaternP(2)
+    k1t = time_k1(mvm, tk, xh, ah, x17, a17)
     runs = {
-        "direct": (lambda: mvm.gramian_matvec_direct(k1, xh, xh, ah),
-                   lambda: mvm.gramian_matvec_direct_plain(k1, xh, xh, ah)),
         "expand": (lambda: mvm.gramian_matvec_expand(k2, x64, x64, ah),
                    lambda: mvm.gramian_matvec_expand_plain(k2, x64, x64, ah)),
         "grad": (lambda: gmvm.grad_matvec(keq, xg7, xg7, ag7),
@@ -822,21 +1037,33 @@ def main():
         "grad8": (lambda: gmvm.grad_matvec(km2, xg8, xg8, ag8),
                   lambda: gmvm.grad_matvec_plain(km2, xg8, xg8, ag8)),
     }
-    times = {}
+    # (ms of one call with the wrapper's host time, device ms, plain ms)
+    times = {"direct": (k1t["call_ms"], k1t["ms"], k1t["plain_ms"])}
     for key, (kern, plain) in runs.items():
-        kern(), plain()   # warm-up
-        t_plain = median_ms(plain, 10)
-        t_kern = median_ms(kern, 10) + median_ms(kern, 10)
-        t_plain += median_ms(plain, 10)
-        times[key] = (float(np.median(t_kern)), float(np.median(t_plain)))
-    print(f"phase 5 times (median of 20, CUDA events): K1 MaternP(2) n=16384 d=3 "
-          f"{times['direct'][0]:.4f} ms vs plain {times['direct'][1]:.4f} ms; K2 "
-          f"Lengthscale(EQ, 4) n=16384 d=64 {times['expand'][0]:.4f} ms vs plain "
-          f"{times['expand'][1]:.4f} ms; K3 EQ n=4096 d=16 {times['grad'][0]:.4f} ms vs "
-          f"plain {times['grad'][1]:.4f} ms; K3 MaternP(2) n=1024 d=1024 "
-          f"{times['grad8'][0]:.4f} ms vs plain {times['grad8'][1]:.4f} ms | phase walls: "
-          f"2 {p2['wall_s']:.3f} s, 3 {p3['wall_s']:.3f} s ({p3['cg_iters']} CG iterations), "
-          f"4 {p4['wall_s']:.3f} s", flush=True)
+        times[key] = kernel_times(kern, plain)
+    # bounds: K1 by its family's operations; K2: d FFMA for x.y, the
+    # expansion (FADD, FFMA, FMNMX), EQ (FMUL, ex2) and the row sum; K3: 9 d
+    # flops per pair (cfjax's count), 4.5 d fp32 instructions
+    bounds = {"direct": k1t["bound"], "expand": op_bound(16384 ** 2, 64 + 5, 1),
+              "grad": op_bound(4096 ** 2, 4.5 * 16), "grad8": op_bound(1024 ** 2, 4.5 * 1024)}
+    share = lambda key, i: 100 * bounds[key][0] / times[key][i]
+    line = lambda key: (f"{times[key][0]:.4f} ms a call ({times[key][1]:.4f} ms device) vs "
+                        f"plain {times[key][2]:.4f} ms, bound {bounds[key][0]:.4f} ms "
+                        f"({bounds[key][1]}) = {share(key, 0):.1f}% of a call "
+                        f"({share(key, 1):.1f}% of device)")
+    print(f"phase 5 times (a call: CUDA events around one call, the wrapper's host time "
+          f"included, median of 20; device: CUDA graphs of 20 calls, median of 10 replays; "
+          f"plain: as a call, median of 20) and bounds: K1 MaternP(2) n=16384 d=3 family "
+          f"instance {line('direct')}; interpreted instance {k1t['interp_call_ms']:.4f} ms a "
+          f"call ({k1t['interp_ms']:.4f} ms device); K1 n=131072 d=3 (phase 3's shape) "
+          f"{k1t['call17']:.3f} ms a call ({k1t['ms17']:.3f} ms device), bound "
+          f"{k1t['bound17'][0]:.3f} ms = {100 * k1t['bound17'][0] / k1t['call17']:.1f}% of a "
+          f"call ({100 * k1t['bound17'][0] / k1t['ms17']:.1f}% of device); K2 Lengthscale(EQ, 4) n=16384 "
+          f"d=64 {line('expand')}; K3 EQ n=4096 d=16 {line('grad')}; K3 MaternP(2) n=1024 "
+          f"d=1024 {line('grad8')}; library call: none for K1-K3 (one PyTorch call would "
+          f"form the n x m matrix) | phase walls: 2 {p2['wall_s']:.3f} s, 3 "
+          f"{p3['wall_s']:.3f} s ({p3['cg_iters']} CG iterations, {p3['launches']} K1 "
+          f"launches), 4 {p4['wall_s']:.3f} s", flush=True)
 
     p6 = phase6_grad_kernel(tk, gmvm)
 
@@ -851,43 +1078,49 @@ def main():
           f"phase 7: {p7['launches']} K3 launches < {p7['cg_iters']} CG iterations")
     launches["grad"] = grad_launches
 
-    p9, p9_skipped = phase9_synthetic(tmvm)
+    p9, p9_skipped = phase9_synthetic(tmvm, t_tile)
 
     # ---- the sparsify-then-solve path: counts from here to the end of phase 11 ----
     for key in mvm.LAUNCHES:
         mvm.LAUNCHES[key] = 0
-    p10 = phase10_reference_sparse(tk, ops, so, tmvm)
-    p11 = phase11_spatial_sparse(tk, ops, so, tmvm, mvm)
+    p10 = phase10_reference_sparse(tk, ops, so, tmvm, mvm, t_tile)
+    p11 = phase11_spatial_sparse(tk, ops, so, tmvm, mvm, t_tile)
     launches["tile_ell"] = mvm.LAUNCHES["tile_ell"]
     check(launches["tile_ell"] > 0, "kernel 'tile_ell' was not launched on the sparse path")
 
-    # ---- phase 9 (continued): K4 on the groups of the phase-10 and phase-11 operators ----
+    # ---- phase 9 (continued): K4 on the operators of phases 10 and 11 ----
     rng = np.random.default_rng(9)
     for label, S in (("phase 10", p10["S"]), ("phase 11", p11["S"])):
-        a2 = torch.nn.functional.pad(cuda_tensor(rng.standard_normal(S.shape[1])),
-                                     (0, S.nt * 128 - S.shape[1])).reshape(S.nt, 128)
-        for gi, (r0, r1, off, val) in enumerate(S.groups):
-            blocks = (r1 - r0) // 128
-            phase9_tile_kernel(tmvm, p9, a2, off[:blocks], val[:blocks],
-                               f"{label} group {gi} K={off.shape[1]} B={blocks}")
+        phase9_rows_kernel(tmvm, p9, S, cuda_tensor(rng.standard_normal(S.shape[1])),
+                           f"{label} operator")
     torch.cuda.synchronize()
     f32, f64 = p9[torch.float32], p9[torch.float64]
-    synthetic = f32[0] - len(p10["S"].groups) - len(p11["S"].groups)
-    print(f"phase 9 K4 vs float64 plain: {f32[0]} groups ({synthetic} synthetic, "
-          f"{p9_skipped} over 2^28 slots left out, and the groups of phases 10 and "
-          f"11): float32 max rel {f32[1]:.3e} (bound {K4_BOUND[torch.float32]:.0e}) max abs "
-          f"{f32[2]:.3e}; float64 instance max rel {f64[1]:.3e} (bound "
+    print(f"phase 9 K4 vs the float64 slab product: {f32[0]} operators ({f32[0] - 2} synthetic "
+          f"TileELL groups, {p9_skipped} over 2^28 slots left out, and the operators of phases "
+          f"10 and 11): float32 max rel {f32[1]:.3e} (bound {K4_BOUND[torch.float32]:.0e}) max "
+          f"abs {f32[2]:.3e}; float64 instance max rel {f64[1]:.3e} (bound "
           f"{K4_BOUND[torch.float64]:.0e}) max abs {f64[2]:.3e}", flush=True)
 
     # ---- phase 5 (K4): at phase 11's operator ----
-    k4_ms, k4_plain_ms, k4_bytes = k4_times(p11["S"], tmvm)
-    times["tile_ell"] = (k4_ms, k4_plain_ms)
-    gbs = k4_bytes / k4_ms / 1e6
-    print(f"phase 5 (K4) times (median of 20, CUDA events) at phase 11's operator (all groups): "
-          f"K4 {k4_ms:.4f} ms vs plain {k4_plain_ms:.4f} ms; {k4_bytes / 1e6:.1f} MB of off+val+a "
-          f"read per MVM, {gbs:.1f} GB/s = {100 * gbs / 3350:.1f}% of the H100 SXM's 3350 GB/s; "
-          f"one MINRES solve {p11['wall_s']:.4f} s ({p11['iters']} "
-          f"iterations), phase 10's {p10['wall_s']:.4f} s ({p10['iters']} iterations)", flush=True)
+    k4 = k4_times(p11["S"], p10["S"], tmvm)
+    times["tile_ell"] = (k4["call_ms"], k4["ms"], k4["plain_ms"])
+    bounds["tile_ell"] = (k4["bound_ms"], "bytes")
+    gbs = k4["bound_bytes"] / k4["ms"] / 1e6
+    sweep = "; ".join(f"{label} ({slices} slices, {w} by the rule): " + " / ".join(
+        f"{t[v]:.4f}" for v in (1, 2, 4, 8)) + " ms device"
+        for label, (w, slices, t) in k4["sweep"].items())
+    print(f"phase 5 (K4) at phase 11's operator (nnz {p11['S'].nnz}; timed as above): K4 "
+          f"{k4['call_ms']:.4f} ms a call ({k4['ms']:.4f} ms device) vs plain "
+          f"{k4['plain_ms']:.4f} ms vs CSR SpMV (torch.mv, cuSPARSE, int32 indices) "
+          f"{k4['library_call_ms']:.4f} ms a call ({k4['library_ms']:.4f} ms device; rel "
+          f"{k4['lib_err']:.2e}); warps per slice 1 / 2 / 4 / 8: {sweep}; bound "
+          f"{k4['bound_ms']:.4f} ms ({k4['bound_bytes'] / 1e6:.1f} MB: nnz x 8 B + a + out, "
+          f"over 3.35 TB/s) = {100 * k4['bound_ms'] / k4['call_ms']:.1f}% of a call "
+          f"({100 * k4['bound_ms'] / k4['ms']:.1f}% of device, {gbs:.1f} GB/s); the layout "
+          f"read per MVM {k4['layout_bytes'] / 1e6:.1f} MB = "
+          f"{k4['layout_bytes'] / (8 * p11['S'].nnz):.4f} x nnz x 8 B; MINRES solves "
+          f"{p11['wall_s']:.4f} s ({p11['iters']} iterations, {p11['launches']} K4 launches) "
+          f"and {p10['wall_s']:.4f} s ({p10['iters']} iterations)", flush=True)
 
     # ---- the structured path: counts from here to the end of phase 14 ----
     for key in mvm.LAUNCHES:
@@ -904,17 +1137,34 @@ def main():
           f"{p12['lev_ms']:.1f} ms; K1 launches {mvm.LAUNCHES['direct']}", flush=True)
 
     meta = {"direct": ("K1 gramian_matvec_direct", "cfjax_torch/csrc/gramian_mvm.cu",
-                       "cfjax/ops/pallas_mvm.py:253", p1["direct"][2]),
+                       "cfjax/ops/pallas_mvm.py:253", p1["direct"][2], None),
             "expand": ("K2 gramian_matvec_expand", "cfjax_torch/csrc/gramian_mvm.cu",
-                       "cfjax/ops/pallas_mvm.py:152", p1["expand"][2]),
+                       "cfjax/ops/pallas_mvm.py:152", p1["expand"][2], None),
             "grad": ("K3 grad_matvec", "cfjax_torch/csrc/grad_mvm.cu",
-                     "cfjax/ops/pallas_mvm.py:374", p6[2]),
-            "tile_ell": ("K4 slab_matvec", "cfjax_torch/csrc/tile_ell_mvm.cu",
-                         "cfjax/operators/tile_ell.py:344", f32[2])}
+                     "cfjax/ops/pallas_mvm.py:374", p6[2], None),
+            "tile_ell": ("K4 rows_matvec", "cfjax_torch/csrc/tile_ell_mvm.cu",
+                         "cfjax/operators/tile_ell.py:344", f32[2],
+                         (k4["library_call_ms"], k4["library_ms"]))}
+    lib_ms = lambda key: "none" if meta[key][4] is None else \
+        f"{meta[key][4][0]:.4f} ms ({meta[key][4][1]:.4f} device)"
+    print("phase 5 kernel table (ms a call and device, bound ms and what sets it, share of "
+          "the bound a call and device, launches on the path's run, library call ms a call "
+          "and device): " + "; ".join(
+              f"{meta[key][0].split()[0]} {times[key][0]:.4f} ms ({times[key][1]:.4f} device), "
+              f"bound {bounds[key][0]:.4f} ms ({bounds[key][1]}), {share(key, 0):.1f}% "
+              f"({share(key, 1):.1f}%), {launches[key]} launches, library {lib_ms(key)}"
+              for key in meta), flush=True)
+    # ms, plain_ms and library_ms: one call between CUDA events, host time
+    # included; device_ms and library_device_ms: from CUDA graphs
     print(json.dumps({"kernels": [
         {"name": meta[key][0], "route": "cuda", "source": meta[key][1],
          "replaces": meta[key][2], "launches": launches[key], "max_abs_err": meta[key][3],
-         "ms": times[key][0], "plain_ms": times[key][1]} for key in meta]}))
+         "ms": times[key][0], "device_ms": times[key][1], "plain_ms": times[key][2],
+         "bound_ms": bounds[key][0],
+         "bound_by": "bytes" if bounds[key][1] == "bytes" else "operations",
+         "library_ms": None if meta[key][4] is None else meta[key][4][0],
+         "library_device_ms": None if meta[key][4] is None else meta[key][4][1]}
+        for key in meta]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -5,6 +5,7 @@ torch versions on a CUDA device; they skip where there is none (the skip is
 decided when the test runs, not when the module is imported). The two
 import checks run everywhere: the port package never imports jax."""
 
+import dataclasses
 import re
 import subprocess
 import sys
@@ -61,11 +62,23 @@ def _cuda_data(n, m, d, scale=1.0, seed=0):
                                           device="cuda")
 
 
+# every K1 family (Exp is MaternP's p = 0), under lengthscales and a
+# constant, and one interpreted spec (SumScaled)
+K1_KERNELS = {
+    "MaternP2": tk.MaternP(2), "Exp": tk.Exp(), "SumScaled": 2.0 * tk.EQ() + 0.5 * tk.MaternP(1),
+    "EQ": tk.EQ(), "MaternP0": tk.MaternP(0), "MaternP1": tk.MaternP(1),
+    "MaternP3": tk.MaternP(3), "RQ": tk.RQ(1.5), "Cauchy": tk.Cauchy(),
+    "IMQ": tk.InverseMultiQuadratic(0.7),
+    "LengthscaleScaledMaternP2": 3.0 * tk.Lengthscale(tk.MaternP(2), 0.5),
+    "LengthscaleEQ": tk.Lengthscale(tk.Lengthscale(tk.EQ(), 2.0), 0.7)}
+
+
 @needs_gpu
-@pytest.mark.parametrize("d", [1, 3, 16])
-@pytest.mark.parametrize("k", [tk.MaternP(2), tk.Exp(), 2.0 * tk.EQ() + 0.5 * tk.MaternP(1)],
-                         ids=["MaternP2", "Exp", "SumScaled"])
-def test_direct_kernel_matches_plain(d, k):
+@pytest.mark.parametrize("d", [1, 3, 5, 16])
+@pytest.mark.parametrize("name", list(K1_KERNELS))
+def test_direct_kernel_matches_plain(d, name):
+    k = K1_KERNELS[name]
+    assert (to_spec(k)[0].family == 0) == (name == "SumScaled")
     x, y, a = _cuda_data(1003, 701, d)
     before = mvm.LAUNCHES["direct"]
     out = mvm.gramian_matvec_direct(k, x, y, a)
@@ -73,6 +86,29 @@ def test_direct_kernel_matches_plain(d, k):
     assert mvm.LAUNCHES["direct"] == before + 1
     ref = mvm.gramian_matvec_direct_plain(k, x.double(), y.double(), a.double())
     assert _rel(out, ref) <= 1e-5
+    # the columns are split over blocks and added in a fixed order
+    assert torch.equal(out, mvm.gramian_matvec_direct(k, x, y, a))
+
+
+@needs_gpu
+@pytest.mark.parametrize("n,m", [(1, 1), (129, 513), (5000, 3)])
+def test_direct_family_and_interpreter_agree(n, m):
+    """One spec through its family instance and through the interpreted
+    one, at ragged shapes. IMQ with c = 0 at a point x = 0 is finite
+    against every real column, but infinite against the zero-filled
+    columns past m in a ragged tile, which the kernel must drop."""
+    x, y, a = _cuda_data(n, m, 3)
+    spec = to_spec(tk.MaternP(2))[0]
+    interp = dataclasses.replace(spec, family=0)
+    ref = mvm.gramian_matvec_direct_plain(tk.MaternP(2), x.double(), y.double(), a.double())
+    for sp in (spec, interp):
+        assert _rel(mvm.gramian_matvec_direct(tk.MaternP(2), x, y, a, spec=sp), ref) <= 1e-5
+    k0 = tk.InverseMultiQuadratic(0.0)
+    x[0] = 0.0
+    out = mvm.gramian_matvec_direct(k0, x, y, a)
+    assert torch.isfinite(out).all()
+    assert _rel(out, mvm.gramian_matvec_direct_plain(k0, x.double(), y.double(),
+                                                     a.double())) <= 1e-5
 
 
 @needs_gpu
@@ -213,50 +249,77 @@ def _slab_data(B, K, nt, dtype, seed=0):
     return a2, off, val
 
 
+def _slab_operator(B, K, nt, dtype, seed=0):
+    """The synthetic group as an operator (rows in slab order), its vector,
+    and the float64 slab product as the reference."""
+    a2, off, val = _slab_data(B, K, nt, dtype, seed)
+    S = TileEllOperator([(0, B * 128, off, val)], torch.arange(B * 128, device="cuda"),
+                        B * 128, nt * 128, int(torch.count_nonzero(val)))
+    ref = tile_ell_mvm.slab_matvec_plain(a2.double(), off, val.double()).reshape(-1)
+    return S, a2.reshape(-1), ref
+
+
 @needs_gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 @pytest.mark.parametrize("B,K,nt", [(8, 1, 1), (8, 2, 2), (136, 8, 128), (8, 32, 256),
                                     (16, 128, 2), (136, 1, 256), (24, 4, 1)])
 def test_tile_ell_kernel_matches_plain(B, K, nt, dtype):
-    a2, off, val = _slab_data(B, K, nt, dtype)
+    """K4 over the row slices of synthetic TileELL groups against the
+    float64 slab product; every warps-per-slice count gives the same."""
+    S, a, ref = _slab_operator(B, K, nt, dtype)
     before = mvm.LAUNCHES["tile_ell"]
-    out = tile_ell_mvm.slab_matvec(a2, off, val)
+    out = tile_ell_mvm.rows_matvec(S.rows, a)
     torch.cuda.synchronize()
     assert mvm.LAUNCHES["tile_ell"] == before + 1
-    assert out.dtype == dtype and tuple(out.shape) == (B, 128)
-    ref = tile_ell_mvm.slab_matvec_plain(a2.double(), off, val.double())
-    assert _rel(out, ref) <= (1e-5 if dtype == torch.float32 else 1e-12)
-    # the chunks are added in a fixed order: a second launch repeats bit for bit
-    assert torch.equal(out, tile_ell_mvm.slab_matvec(a2, off, val))
+    assert out.dtype == dtype and tuple(out.shape) == (B * 128,)
+    bound = 1e-5 if dtype == torch.float32 else 1e-12
+    assert _rel(out, ref) <= bound
+    # no atomics: a second launch repeats bit for bit
+    assert torch.equal(out, tile_ell_mvm.rows_matvec(S.rows, a))
+    for warps in (1, 2, 8):
+        assert _rel(tile_ell_mvm.rows_matvec(S.rows, a, warps=warps), ref) <= bound
+    assert _rel(tile_ell_mvm.rows_matvec_plain(S.rows, a), ref) <= bound
 
 
 @needs_gpu
 def test_tile_ell_kernel_refuses_wrong_inputs():
-    a2, off, val = _slab_data(8, 2, 3, torch.float32)
+    S, a, _ = _slab_operator(8, 2, 3, torch.float32)
+    rs = S.rows
     with pytest.raises(TypeError):
-        tile_ell_mvm.slab_matvec(a2.half(), off, val.half())
+        tile_ell_mvm.rows_matvec(rs._replace(val=rs.val.half()), a.half())
     with pytest.raises(TypeError):
-        tile_ell_mvm.slab_matvec(a2.double(), off, val)
+        tile_ell_mvm.rows_matvec(rs, a.double())
     with pytest.raises(TypeError):
-        tile_ell_mvm.slab_matvec(a2, off.long(), val)
+        tile_ell_mvm.rows_matvec(rs._replace(col=rs.col.long()), a)
     with pytest.raises(ValueError, match="one CUDA device"):
-        tile_ell_mvm.slab_matvec(a2, off.cpu(), val)
+        tile_ell_mvm.rows_matvec(rs._replace(col=rs.col.cpu()), a)
     with pytest.raises(ValueError, match="shapes"):
-        tile_ell_mvm.slab_matvec(a2[:2].contiguous(), off, val)
+        tile_ell_mvm.rows_matvec(rs._replace(col=rs.col[:-1]), a)
     strided = lambda t: torch.stack([t, t], dim=-1)[..., 0]   # same shape, not contiguous
     with pytest.raises(ValueError, match="contiguous"):
-        tile_ell_mvm.slab_matvec(a2, strided(off), strided(val))
+        tile_ell_mvm.rows_matvec(rs._replace(col=strided(rs.col), val=strided(rs.val)), a)
+    with pytest.raises(ValueError, match="warps"):
+        tile_ell_mvm.rows_matvec(rs, a, warps=16)
+    # a vector shorter or longer than the operator's m: the kernel would
+    # gather past its end, so it is refused before the launch
+    before = mvm.LAUNCHES["tile_ell"]
+    for wrong in (a[:-1].contiguous(), torch.cat([a, a[:5]])):
+        with pytest.raises(ValueError, match="operator takes"):
+            tile_ell_mvm.rows_matvec(rs, wrong)
+        with pytest.raises(ValueError, match="operator takes"):
+            S @ wrong
+    assert mvm.LAUNCHES["tile_ell"] == before
     with pytest.raises(RuntimeError, match="forward-only"):
-        tile_ell_mvm.slab_matvec(a2, off, val.clone().requires_grad_(True))
+        tile_ell_mvm.rows_matvec(rs, a.clone().requires_grad_(True))
 
 
 @needs_gpu
 @pytest.mark.parametrize("method", ["scan", "tree"])
 def test_sparse_gramian_on_cuda_launches_k4(method):
     """The sparsified Gramian of CUDA points is a TileELL operator whose
-    MVM launches K4 once per group (a matrix right-hand side once per group
-    and column), agrees with the port's own build on the CPU, and solves
-    through MINRES."""
+    MVM launches K4 once (a matrix right-hand side once per column),
+    agrees with the port's own build on the CPU and, in float64, with the
+    slab product to 1e-12, and solves through MINRES."""
     rng = np.random.default_rng(3)
     xs = rng.uniform(0, 12, (20000, 2))
     k = tk.Lengthscale(tk.EQ(), 0.2)
@@ -268,11 +331,21 @@ def test_sparse_gramian_on_cuda_launches_k4(method):
     a = torch.tensor(rng.standard_normal(20000), dtype=torch.float32, device="cuda")
     before = mvm.LAUNCHES["tile_ell"]
     out = S @ a
-    assert mvm.LAUNCHES["tile_ell"] == before + len(S.groups)
+    assert mvm.LAUNCHES["tile_ell"] == before + 1
     assert _rel(out, (S_cpu @ a.cpu()).double().cuda()) <= 1e-5
     out2 = S @ torch.stack([a, 2 * a], dim=1)
-    assert mvm.LAUNCHES["tile_ell"] == before + 3 * len(S.groups)
+    assert mvm.LAUNCHES["tile_ell"] == before + 3
     assert torch.equal(out2[:, 0], out)
+    assert int(S.rows.ptr[-1]) <= 1.15 * S.nnz
+    S64, _ = sparse_gramian(k, x.double(), tol=1e-6, method=method)
+    a64 = a.double()
+    a2 = torch.nn.functional.pad(a64, (0, S64.nt * 128 - 20000)).reshape(S64.nt, 128)
+    slabs = torch.cat([tile_ell_mvm.slab_matvec_plain(a2, off[:(r1 - r0) // 128],
+                                                      val[:(r1 - r0) // 128]).reshape(-1)
+                       for r0, r1, off, val in S64.groups])
+    ref = torch.zeros(S64.perm.shape[0] + 1, dtype=torch.float64, device="cuda")
+    ref[S64.perm] = slabs[:S64.perm.shape[0]]
+    assert _rel(S64 @ a64, ref[:20000]) <= 1e-12
     op = S.add_diagonal(1e-1)
     b = torch.sin(x[:, 0])
     before = mvm.LAUNCHES["tile_ell"]
@@ -280,6 +353,26 @@ def test_sparse_gramian_on_cuda_launches_k4(method):
     assert 0 < it < 1000 and mvm.LAUNCHES["tile_ell"] - before >= it
     res = torch.linalg.norm((op @ alpha).double() - b.double()) / torch.linalg.norm(b.double())
     assert float(res) <= 1e-4
+
+
+@needs_gpu
+def test_input_without_a_device_runs_on_the_card():
+    """numpy points, observations and vectors go to the configured device,
+    the card: the GP path runs K1 there."""
+    from cfjax_torch.gp import gp_condition
+
+    from cfjax_torch import config
+
+    assert config.DEFAULT.device == config.Config.device == "cuda"
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((3000, 3)).astype(np.float32)
+    y = np.sin(x[:, 0])
+    G = gramian(tk.MaternP(2), x)
+    before = mvm.LAUNCHES["direct"]
+    out = G @ rng.standard_normal(3000).astype(np.float32)
+    assert out.is_cuda and mvm.LAUNCHES["direct"] == before + 1
+    post = gp_condition(tk.MaternP(2), x, y, noise=1e-2)
+    assert post.alpha.is_cuda and post.mean(x[:5]).is_cuda
 
 
 def _grid(n, dtype=torch.float32, start=0.0):

@@ -52,6 +52,18 @@ from cfjax_torch.operators.dispatch import gramian as t_gramian
 from cfjax_torch.utils.linalg import nth_derivatives
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _cpu_device():
+    """Input without a device goes to the CPU in this module's tests; the
+    configured device is restored after them."""
+    shipped = cfjax_torch.config.DEFAULT.device
+    cfjax_torch.set_config(device="cpu")
+    yield
+    cfjax_torch.set_config(device=shipped)
+
+
 mpmath.mp.dps = 50
 
 RTOL, ATOL = 1e-9, 1e-12

@@ -35,6 +35,17 @@ from cfjax_torch.operators.preconditioner import nystrom_preconditioner as t_nys
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _cpu_device():
+    """Input without a device goes to the CPU in this module's tests; the
+    configured device is restored after them."""
+    shipped = cfjax_torch.config.DEFAULT.device
+    cfjax_torch.set_config(device="cpu")
+    yield
+    cfjax_torch.set_config(device=shipped)
+
+
 N, D, NOISE = 500, 3, 1e-2
 
 

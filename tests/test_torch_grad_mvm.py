@@ -15,6 +15,7 @@ import pytest
 import torch
 
 import cfjax.kernels as jk
+import cfjax_torch
 import cfjax_torch.kernels as tk
 from cfjax.derivative.gradient import grad_matvec_dot, grad_matvec_iso
 from cfjax.ops.pallas_mvm import pallas_grad_matvec
@@ -25,6 +26,16 @@ from cfjax_torch.ops import gramian_mvm as mvm
 from cfjax_torch.ops.grad_mvm import grad_matvec, grad_matvec_plain
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _cpu_device():
+    """Input without a device goes to the CPU in this module's tests; the
+    configured device is restored after them."""
+    shipped = cfjax_torch.config.DEFAULT.device
+    cfjax_torch.set_config(device="cpu")
+    yield
+    cfjax_torch.set_config(device=shipped)
 
 
 @pytest.mark.parametrize("name,mode", [("EQ", "iso"), ("MaternP2", "iso"), ("Dot2", "dot")])

@@ -11,12 +11,24 @@ import pytest
 import torch
 
 import cfjax.kernels as jk
+import cfjax_torch
 import cfjax_torch.kernels as tk
 from cfjax.utils.testing import pairwise as j_pairwise
 from cfjax_torch.kernels.profile_spec import to_spec
 from cfjax_torch.utils.testing import pairwise as t_pairwise
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _cpu_device():
+    """Input without a device goes to the CPU in this module's tests; the
+    configured device is restored after them."""
+    shipped = cfjax_torch.config.DEFAULT.device
+    cfjax_torch.set_config(device="cpu")
+    yield
+    cfjax_torch.set_config(device=shipped)
+
 
 RTOL = 1e-12
 
@@ -199,7 +211,8 @@ def test_config_and_grids_match_reference():
 
     jf = {f.name for f in dataclasses.fields(jc.Config)}
     tf = {f.name for f in dataclasses.fields(tc.Config)}
-    assert jf - tf == {"cg_chunk_iters", "cg_chunk_min_n"} and tf <= jf
+    # the port adds where input without a device goes (JAX has a default device)
+    assert jf - tf == {"cg_chunk_iters", "cg_chunk_min_n"} and tf - jf == {"device"}
     x = np.linspace(-1.0, 2.0, 33).astype(np.float32)
     # the port's grid also carries the tensor's device and dtype
     got = tg.detect_uniform_grid(torch.tensor(x))

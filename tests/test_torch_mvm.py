@@ -14,6 +14,7 @@ import pytest
 import torch
 
 import cfjax.kernels as jk
+import cfjax_torch
 import cfjax_torch.kernels as tk
 from cfjax.operators.dispatch import explain as j_explain
 from cfjax.operators.dispatch import gramian as j_gramian
@@ -27,6 +28,17 @@ from cfjax_torch.ops import gramian_mvm as mvm
 from cfjax_torch.ops.tiles import inner_tile, matmul_p, sqdist_tile
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _cpu_device():
+    """Input without a device goes to the CPU in this module's tests; the
+    configured device is restored after them."""
+    shipped = cfjax_torch.config.DEFAULT.device
+    cfjax_torch.set_config(device="cpu")
+    yield
+    cfjax_torch.set_config(device=shipped)
+
 
 ISO = {"MaternP2": lambda: jk.MaternP(2), "EQ": lambda: jk.EQ(), "Exp": lambda: jk.Exp(),
        "RQ": lambda: jk.RQ(1.5),

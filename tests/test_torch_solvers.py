@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import cfjax.kernels as jk
+import cfjax_torch
 import cfjax_torch.kernels as tk
 from cfjax.operators.solvers import gmres as j_gmres
 from cfjax.operators.solvers import minres as j_minres
@@ -20,6 +21,16 @@ from cfjax_torch.operators import cg, gmres, minres, solve, solve_with_info
 from cfjax_torch.operators.sparse_op import sparse_gramian
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _cpu_device():
+    """Input without a device goes to the CPU in this module's tests; the
+    configured device is restored after them."""
+    shipped = cfjax_torch.config.DEFAULT.device
+    cfjax_torch.set_config(device="cpu")
+    yield
+    cfjax_torch.set_config(device=shipped)
 
 
 def _indefinite(rng, n, neg):

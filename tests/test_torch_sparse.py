@@ -15,6 +15,7 @@ import pytest
 import torch
 
 import cfjax.kernels as jk
+import cfjax_torch
 import cfjax_torch.kernels as tk
 from cfjax.operators import tile_ell as j_tile
 from cfjax.operators.sparse_op import _width_tiers as j_width_tiers
@@ -22,9 +23,20 @@ from cfjax.operators.sparse_op import decay_radius as j_decay_radius
 from cfjax.operators.sparse_op import sparse_gramian as j_sparse_gramian
 from cfjax_torch.operators import tile_ell as t_tile
 from cfjax_torch.operators.sparse_op import _width_tiers, decay_radius, sparse_gramian
-from cfjax_torch.ops.tile_ell_mvm import slab_matvec, slab_matvec_plain
+from cfjax_torch.ops.tile_ell_mvm import rows_matvec, slab_matvec_plain
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _cpu_device():
+    """Input without a device goes to the CPU in this module's tests; the
+    configured device is restored after them."""
+    shipped = cfjax_torch.config.DEFAULT.device
+    cfjax_torch.set_config(device="cpu")
+    yield
+    cfjax_torch.set_config(device=shipped)
+
 
 TOL = dict(rtol=1e-12, atol=1e-12)
 
@@ -169,8 +181,12 @@ def test_slab_matvec_plain_matches_xla(B, K, nt, rng):
                                              jnp.asarray(val)))
     ta, to, tv = torch.tensor(a2), torch.tensor(off), torch.tensor(val)
     np.testing.assert_allclose(slab_matvec_plain(ta, to, tv).numpy(), ref, **TOL)
-    # on CPU tensors the wrapper takes the plain version
-    np.testing.assert_allclose(slab_matvec(ta, to, tv).numpy(), ref, **TOL)
+    # the group as an operator: its row slices give the same through K4's
+    # wrapper, which takes the plain version on CPU tensors
+    S = t_tile.TileEllOperator([(0, B * 128, to, tv)], torch.arange(B * 128), B * 128,
+                               nt * 128, int(np.count_nonzero(val)))
+    np.testing.assert_allclose(rows_matvec(S.rows, ta.reshape(-1)).numpy(), ref.reshape(-1),
+                               **TOL)
 
 
 def test_operator_from_reference_arrays(rng):

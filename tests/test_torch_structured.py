@@ -54,6 +54,17 @@ from cfjax_torch.utils.testing import pairwise
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _cpu_device():
+    """Input without a device goes to the CPU in this module's tests; the
+    configured device is restored after them."""
+    shipped = cfjax_torch.config.DEFAULT.device
+    cfjax_torch.set_config(device="cpu")
+    yield
+    cfjax_torch.set_config(device=shipped)
+
+
 F64 = torch.float64
 
 

@@ -12,7 +12,19 @@ import pytest
 import torch
 
 from cfjax.barneshut import build_tree as j_build_tree
+import cfjax_torch
 from cfjax_torch.barneshut import BalancedTree, build_tree
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _cpu_device():
+    """Input without a device goes to the CPU in this module's tests; the
+    configured device is restored after them."""
+    shipped = cfjax_torch.config.DEFAULT.device
+    cfjax_torch.set_config(device="cpu")
+    yield
+    cfjax_torch.set_config(device=shipped)
+
 
 SHAPES = [(100, 2), (5000, 3), (3001, 1), (2000, 4), (700, 9)]
 
