@@ -1,214 +1,339 @@
-// K3: the gradient-gramian block MVM for NVIDIA Hopper (sm_90a). Plain C
-// interface, loaded with ctypes by cfjax_torch/ops/grad_mvm.py, which
-// also holds its plain torch version `grad_matvec_plain`.
+// K3: the gradient-gramian block MVM for NVIDIA Hopper (sm_90a), on the
+// tensor cores. Plain C interface, loaded with ctypes by
+// cfjax_torch/ops/grad_mvm.py, which also holds its plain torch version
+// `grad_matvec_plain`.
 //
 // Replaces cfjax/ops/pallas_mvm.py `pallas_grad_matvec` (body
 // `_grad_mvm_kernel`, derivatives by `_tile_d2`). For x (n, d), y (m, d)
 // and A (m, d) it computes out (n, d), out_i = sum_j B_ij A_j with the
 // d x d block B_ij = grad_x grad_y^T k(x_i, y_j) in closed form:
-//   iso (s = |r|^2, r = x_i - y_j):
-//     out_i = sum_j [-2 f'(s) A_j - 4 f''(s) <r, A_j> r]
+//   iso (s = |r|^2, r = x_i - y_j, w = <r, A_j>):
+//     out_i = sum_j [-2 f'(s) A_j - 4 f''(s) w r]
 //           = sum_j alpha_ij A_j + sum_j beta_ij y_j - (sum_j beta_ij) x_i,
-//     alpha = -2 f', beta = 4 f'' <r, A_j>;
-//   dot (s = <x_i, y_j>):
-//     out_i = sum_j [f'(s) A_j + f''(s) <x_i, A_j> y_j],
-//     alpha = f', beta = f'' <x_i, A_j>.
-// f' and f'' come from the second-order jet of a derivative spec
-// (profile_spec.cuh `eval_jet`), compiled from `k.profile` as the Pallas
-// kernel differentiates `k.profile` by nested jvp.
-//
-// Nothing O(n m) touches device memory. A block owns K3_TM rows and a
-// slice of the columns (gridDim.y splits them, as K1 and K2 do). For each
-// tile of K3_TN columns:
-//   A. s_ij and <r_ij, A_j> (iso) or <x_i, A_j> (dot), reduced over d in
-//      slabs of K3_BK staged in shared memory, register-blocked 2 x 4 per
-//      thread. The slab sums are added with Kahan compensation, so one
-//      thread's d-long sum at d = 1024 keeps full precision;
-//   B. the jet of the profile on the tile -> alpha, beta in shared memory;
-//   C. out[rows, :] += alpha @ A_tile + beta @ y_tile - rowsum(beta) x_i,
-//      in chunks of K3_DC output columns staged in shared memory. The
-//      output row is d wide (d = 1024 at the README's configuration), so
-//      it cannot stay in registers across tiles: each chunk's tile sum (64
-//      terms, in registers) is added into the block's own rows of its
-//      split's partial output in device memory. Only this block writes
-//      those rows, so no atomics; a split covers at most 64 column tiles
-//      (ops/grad_mvm.py), which bounds that sum's length.
+//     alpha = -2 f', beta = 4 f'' w;
+//   dot (s = <x_i, y_j>, w = <x_i, A_j>):
+//     out_i = sum_j [f'(s) A_j + f''(s) w y_j],  alpha = f', beta = f'' w.
+// Four GEMM-shaped products per tile, as in the Pallas kernel, all on the
+// tensor cores (mma.sync m16n8k8 tf32, tc_tile.cuh), at the tier's passes
+// (ops/tiles.py TIER_PASSES: 1 for "default", 3 for "high" and "highest"):
+//   A. S = X Y^T and Q = X A^T over d (`tc_tile`), for a block of 128 rows
+//      (16 a warp) and a tile of 64 columns; iso: s = |x|^2 + |y|^2 - 2 S,
+//      w = Q - <y_j, A_j> (the norms come from the wrapper). Each tile's
+//      first chunk is staged during the previous tile's phases B and C;
+//   B. f', f'' of s in registers: the family instances (`family_jet`,
+//      one-leaf EQ, MaternP(1..3), RQ, Cauchy, IMQ) or the interpreter
+//      (`eval_jet`) for any other derivative spec; alpha and beta go to the
+//      warp's rows in shared memory;
+//   C. out[rows, :] += [alpha | beta] [A_tile; Y_tile] - rowsum(beta) x_i,
+//      in chunks of 32 output columns staged in shared memory (double
+//      buffered; the first chunk lands during phase B). A chunk's sum is
+//      added into the block's own rows of its split's partial output in
+//      device memory (one writer, no atomics).
+// Near-coincident pairs. The expansion |x|^2 + |y|^2 - 2 x.y cancels where
+// s << |x|^2 + |y|^2 (at s = 0 it leaves ~eps |x|^2, and -2 f'(0) I is the
+// whole diagonal block: at the README's configuration, MaternP(2) with
+// n = d = 1024 standard normal points, the off-diagonal blocks underflow
+// and that error was the whole error, 1.4e-4 with full fp32 products), and
+// so do w = Q - <y, A> and beta y - rowsum(beta) x. Every pair with
+// s <= tau (|x_i|^2 + |y_j|^2), tau = 2^-6, leaves the GEMMs (alpha = beta
+// = 0) and its s, w and whole contribution are recomputed in difference
+// form on the CUDA cores by its warp, after the tile's phase C, in a fixed
+// order. Elsewhere the relative error of s is below ~2^-11 / tau (one
+// pass) or 2^-22 / tau (three), and of w below its square root.
 // A second kernel adds the splits' partial outputs in a fixed order with
 // Kahan compensation: the result repeats bit for bit from run to run.
-// Every product above is written out as FMAs here: no library GEMM.
 //
-// Form of s and <r, A>, iso: the difference form at every d,
-// s = sum_k (x_ik - y_jk)^2 and <r, A_j> = sum_k (x_ik - y_jk) A_jk, exact
-// when x_i = y_j. The expansion ||x||^2 + ||y||^2 - 2 x.y (cfjax's form,
-// and the plain version's above config.direct_sqdist_max_d) leaves
-// s ~ eps ||x||^2 there instead of 0, and f'(s) then misses f'(0) by about
-// eps ||x||^2 f''/f' relative. -2 f'(0) I is the whole diagonal block, and
-// at the README's configuration (MaternP(2), n = d = 1024, standard normal
-// points, ||x||^2 ~ 1024) the off-diagonal blocks underflow in float32, so
-// that error was the whole error of the product: 1.4e-4 relative against
-// the float64 plain version on an H100 in float32, where the difference
-// form is exact. The price is one subtraction per (i, j, k) in phase A.
-// dot: s = <x_i, y_j> and <x_i, A_j>, two FMAs per (i, j, k).
-//
-// Bounds on this card: per entry, 3d flops in phase A (iso) or 2d FMAs
-// (dot), the jet program, and 2d FMAs in phase C: fp32 throughput at
-// large d, the jet interpreter (a 384-byte local-memory stack per thread:
-// 8 slots x 4 entries x 3 floats) at small d. Tensor cores, TMA and
-// tuning are later work; this kernel computes the "highest" (full fp32)
-// tier only.
+// Bounds on this card: 8 d flops per pair in the four products, over the
+// tensor cores' 495 TFLOP/s dense tf32 times the tier's passes, against
+// the per-pair fp32 work (expansion, jet, alpha / beta, the tau test) over
+// 33.45 T instructions/s and the jet's SFU operations over 4.18 T/s. No
+// library GEMM: the products are mma.sync instructions in this file.
 
 #include "profile_spec.cuh"
+#include "tc_tile.cuh"
 
-constexpr int K3_THREADS = 256;
-constexpr int K3_TM = 32;   // rows per block
-constexpr int K3_TN = 64;   // columns per tile
-constexpr int K3_BK = 16;   // depth per staged slab in phase A
-constexpr int K3_DC = 32;   // output columns per pass of phase C
-constexpr int K3_PAD = 4;   // keeps float4 rows aligned
+constexpr int K3_WARPS = 8;
+constexpr int K3_THREADS = 32 * K3_WARPS;
+constexpr int K3_TM = 16 * K3_WARPS;   // rows per block
+constexpr int K3_TN = 64;              // columns per tile
+constexpr int K3_NT = K3_TN / 8;       // their n-tiles
+constexpr int K3_DC = 32;              // output columns per phase-C chunk
+constexpr int K3_NC = K3_DC / 8;       // their n-tiles
+constexpr int K3_SC = K3_DC + 8;       // staged row stride: lanes' words 40 t + g, 32 banks
+constexpr int K3_SA = K3_TN + 4;       // coefficient row stride: words 68 g + t, 32 banks
+constexpr float K3_TAU = 1.f / 64.f;   // the near-coincident threshold
 
-struct K3StageA {
-    float xs[K3_BK][K3_TM + K3_PAD];
-    float ys[K3_BK][K3_TN + K3_PAD];
-    float as[K3_BK][K3_TN + K3_PAD];
+struct K3Coef {   // two buffers of A and y columns for phase C
+    float Ac[2][K3_TN][K3_SC];
+    float Yc[2][K3_TN][K3_SC];
 };
-struct K3StageC {
-    float Ac[K3_TN][K3_DC];
-    float Yc[K3_TN][K3_DC];
-};
-union K3Stage {
-    K3StageA a;
-    K3StageC c;
+// the block's shared memory (dynamic, 153 KB): the phase-A stage and the
+// phase-C buffers apart, so that each can fill while the other is read;
+// each warp's alpha and beta (16 rows x 64 columns each), the A operand of
+// phase C (in registers they and phase C's fragments spilled)
+struct K3Shared {
+    TcStage<K3_TM, K3_TN, 2> st;
+    K3Coef cf;
+    float coef[K3_WARPS][2][16][K3_SA];
+    ProfileSpec sp;
+    float x2s[K3_TM], y2s[K3_TN], yas[K3_TN];
 };
 
-// Phase A/B: thread (ty, tx) = (tid / 16, tid % 16) owns rows 2 ty + {0, 1}
-// and columns 4 tx + {0..3} of the tile. Phase C: thread (cr, cq) =
-// (tid / 8, tid % 8) owns row cr and output columns 4 cq + {0..3} of a
-// chunk; the 8 threads of a row read alpha[cr][jj] as a broadcast.
-template <bool ISO>
-__global__ void __launch_bounds__(K3_THREADS)
-k3_grad(const float* __restrict__ x, const float* __restrict__ y,
-        const float* __restrict__ A, float* __restrict__ partial, int n, int m, int d,
-        int cols_per_split, const __grid_constant__ ProfileSpec spec) {
-    __shared__ ProfileSpec sp;
-    __shared__ float alpha[K3_TM][K3_TN + 1];
-    __shared__ float beta[K3_TM][K3_TN + 1];
-    __shared__ __align__(16) K3Stage st;
+// f', f'' of V arguments: the family in registers, or the interpreter one
+// argument at a time in a loop (one inlined copy of the interpreter: wider
+// or unrolled decodes took more registers than the tile left)
+template <int FAM, int P, int V>
+__device__ __forceinline__ void k3_jet(const ProfileSpec& sp, const JetConsts& jc,
+                                       const float (&s)[V], float (&f1)[V], float (&f2)[V]) {
+    if constexpr (FAM == 0) {
+#pragma unroll 1
+        for (int h = 0; h < V; ++h) {
+            const float sh[1] = {s[h]};
+            float g1[1], g2[1];
+            eval_jet<1>(sp, sh, g1, g2);
+            f1[h] = g1[0];
+            f2[h] = g2[0];
+        }
+    } else {
+#pragma unroll
+        for (int v = 0; v < V; ++v) family_jet<FAM, P>(s[v], jc, f1[v], f2[v]);
+    }
+}
 
-    load_spec(sp, spec);
-    const int tid = threadIdx.x;
-    const int tx = tid % 16, ty = tid / 16;
-    const int cr = tid / 8, cq = tid % 8;
+// stage columns c0 .. c0 + K3_DC of the tile's A and y rows into buffer b
+__device__ __forceinline__ void k3_stage_c(K3Coef& sc, int b, const float* y, const float* A,
+                                           int d, int j0, int cnt, int c0, bool vec4) {
+    stage_rows<K3_TN, K3_DC, K3_SC, K3_THREADS>(&sc.Ac[b][0][0], A, j0 + cnt, d, j0, c0, vec4);
+    stage_rows<K3_TN, K3_DC, K3_SC, K3_THREADS>(&sc.Yc[b][0][0], y, j0 + cnt, d, j0, c0, vec4);
+    cp_async_commit();
+}
+
+template <bool ISO, int FAM, int P, int PASSES>
+__global__ void __launch_bounds__(K3_THREADS, 1)
+k3_tc(const float* __restrict__ x, const float* __restrict__ y, const float* __restrict__ A,
+      const float* __restrict__ x2, const float* __restrict__ y2, const float* __restrict__ ya,
+      float* __restrict__ partial, int n, int m, int d, int cols_per_split, int vec4,
+      const __grid_constant__ ProfileSpec spec, const __grid_constant__ JetConsts jc) {
+    constexpr int NP = tc_pieces(PASSES);
+    constexpr unsigned FULL = 0xffffffffu;
+    extern __shared__ __align__(16) unsigned char k3_smem[];
+    K3Shared& sh = *reinterpret_cast<K3Shared*>(k3_smem);
+    auto& st = sh.st;
+    auto& cf = sh.cf;
+    auto& sp = sh.sp;
+    float(*coef)[16][K3_SA] = sh.coef[threadIdx.x >> 5];   // this warp's alpha, beta
+    float* x2s = sh.x2s;
+    float* y2s = sh.y2s;
+    float* yas = sh.yas;
+
+    if constexpr (FAM == 0) load_spec(sp, spec);
+    const int w = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
     const int row0 = blockIdx.x * K3_TM;
-    const int ci = row0 + cr;
+    const int ra = 16 * w + g, rb = ra + 8;   // this thread's rows in the block
     float* out = partial + (size_t)blockIdx.y * n * d;
+    if (ISO)
+        for (int r = threadIdx.x; r < K3_TM; r += K3_THREADS)
+            x2s[r] = row0 + r < n ? x2[row0 + r] : 0.f;
 
     const int j_begin = blockIdx.y * cols_per_split;
     const int j_end = min(m, j_begin + cols_per_split);
+    int q = 0;   // the staged chunks' counter (tc_tile)
     for (int j0 = j_begin; j0 < j_end; j0 += K3_TN) {
         const int cnt = min(K3_TN, j_end - j0);
+        const int next = j0 + K3_TN, next_cnt = next < j_end ? min(K3_TN, j_end - next) : 0;
+        // the previous tile read these before its phase C's barriers
+        if (ISO)
+            for (int r = threadIdx.x; r < K3_TN; r += K3_THREADS) {
+                y2s[r] = r < cnt ? y2[j0 + r] : 0.f;
+                yas[r] = r < cnt ? ya[j0 + r] : 0.f;
+            }
 
-        // ---- A: s and w = <r, A> (iso) / <x, A> (dot), over d ----
-        float s[2][4], cs[2][4], w[2][4], cw[2][4];
+        // ---- A: S = X Y^T, Q = X A^T; the next tile's first chunk in flight ----
+        float S[2][K3_NT][4];
+        tc_tile<K3_TM, K3_TN, 2, K3_THREADS, PASSES>(st, q, j0 != j_begin, x, y, A, n, d, row0,
+                                                     j0, cnt, next, next_cnt, vec4, S);
+        k3_stage_c(cf, 0, y, A, d, j0, cnt, 0, vec4);   // phase C's first chunk
+
+        // ---- B: alpha and beta, one n-tile at a time, in the warp's shared
+        //      memory (S and Q go there first: the n-tiles' jets unrolled
+        //      together took every register); near pairs flagged ----
 #pragma unroll
-        for (int r = 0; r < 2; ++r)
+        for (int m = 0; m < 2; ++m)
 #pragma unroll
-            for (int c = 0; c < 4; ++c) s[r][c] = cs[r][c] = w[r][c] = cw[r][c] = 0.f;
-        for (int k0 = 0; k0 < d; k0 += K3_BK) {
-            __syncthreads();  // the previous slab / chunk / coefficient tile is consumed
-            for (int e = tid; e < K3_BK * K3_TM; e += K3_THREADS) {
-                const int r = e / K3_BK, kk = e % K3_BK, i = row0 + r, k = k0 + kk;
-                st.a.xs[kk][r] = (i < n && k < d) ? x[(size_t)i * d + k] : 0.f;
+            for (int nt = 0; nt < K3_NT; ++nt) {
+                *reinterpret_cast<float2*>(&coef[m][g][8 * nt + 2 * t]) =
+                    make_float2(S[m][nt][0], S[m][nt][1]);
+                *reinterpret_cast<float2*>(&coef[m][g + 8][8 * nt + 2 * t]) =
+                    make_float2(S[m][nt][2], S[m][nt][3]);
             }
-            for (int e = tid; e < K3_BK * K3_TN; e += K3_THREADS) {
-                const int r = e / K3_BK, kk = e % K3_BK, k = k0 + kk;
-                const bool ok = r < cnt && k < d;
-                const size_t o = (size_t)(j0 + r) * d + k;
-                st.a.ys[kk][r] = ok ? y[o] : 0.f;
-                st.a.as[kk][r] = ok ? A[o] : 0.f;
+        __syncwarp();
+        uint32_t near = 0;
+        float gsa = 0.f, gsb = 0.f;   // this thread's share of rowsum(beta), rows ra, rb
+#pragma unroll 1
+        for (int nt = 0; nt < K3_NT; ++nt) {
+            float2* cs[2][2] = {{reinterpret_cast<float2*>(&coef[0][g][8 * nt + 2 * t]),
+                                 reinterpret_cast<float2*>(&coef[0][g + 8][8 * nt + 2 * t])},
+                                {reinterpret_cast<float2*>(&coef[1][g][8 * nt + 2 * t]),
+                                 reinterpret_cast<float2*>(&coef[1][g + 8][8 * nt + 2 * t])}};
+            const float2 sa = *cs[0][0], sb = *cs[0][1], qa = *cs[1][0], qb = *cs[1][1];
+            const float sv[4] = {sa.x, sa.y, sb.x, sb.y}, qv[4] = {qa.x, qa.y, qb.x, qb.y};
+            float s[4], wv[4], f1[4], f2[4], al[4], be[4];
+            bool ok[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int r = e < 2 ? ra : rb, j = 8 * nt + 2 * t + (e & 1);
+                ok[e] = row0 + r < n && j < cnt;
+                if (ISO) {
+                    const float q = x2s[r] + y2s[j];
+                    const float se = q - 2.f * sv[e];
+                    if (ok[e] && se <= K3_TAU * q) {
+                        near |= 1u << (4 * nt + e);
+                        ok[e] = false;
+                    }
+                    s[e] = fmaxf(se, 0.f);
+                    wv[e] = qv[e] - yas[j];
+                } else {
+                    s[e] = sv[e];
+                    wv[e] = qv[e];
+                }
             }
-            __syncthreads();
-            float sl[2][4] = {}, wl[2][4] = {};
+            k3_jet<FAM, P, 4>(sp, jc, s, f1, f2);
 #pragma unroll
-            for (int kk = 0; kk < K3_BK; ++kk) {
-                const float2 xv = *reinterpret_cast<const float2*>(&st.a.xs[kk][ty * 2]);
-                const float4 yv = *reinterpret_cast<const float4*>(&st.a.ys[kk][tx * 4]);
-                const float4 av = *reinterpret_cast<const float4*>(&st.a.as[kk][tx * 4]);
-                const float xr[2] = {xv.x, xv.y};
-                const float yc[4] = {yv.x, yv.y, yv.z, yv.w};
-                const float ac[4] = {av.x, av.y, av.z, av.w};
+            for (int e = 0; e < 4; ++e) {
+                al[e] = ok[e] ? (ISO ? -2.f * f1[e] : f1[e]) : 0.f;
+                be[e] = ok[e] ? (ISO ? 4.f : 1.f) * f2[e] * wv[e] : 0.f;
+            }
+            gsa += be[0] + be[1];
+            gsb += be[2] + be[3];
+            *cs[0][0] = make_float2(al[0], al[1]);
+            *cs[0][1] = make_float2(al[2], al[3]);
+            *cs[1][0] = make_float2(be[0], be[1]);
+            *cs[1][1] = make_float2(be[2], be[3]);
+        }
+        __syncwarp();   // the warp reads back only its own rows
+        if (ISO) {   // the row sums over the quad's four lanes (same rows)
+            gsa += __shfl_xor_sync(FULL, gsa, 1);
+            gsb += __shfl_xor_sync(FULL, gsb, 1);
+            gsa += __shfl_xor_sync(FULL, gsa, 2);
+            gsb += __shfl_xor_sync(FULL, gsb, 2);
+        }
+
+        // ---- C: out += alpha A + beta Y - rowsum(beta) x, 32 columns at a time,
+        //      the next chunk in flight while one is consumed ----
+        for (int c0 = 0, cb = 0; c0 < d; c0 += K3_DC, cb ^= 1) {
+            float acc[K3_NC][4];
 #pragma unroll
-                for (int r = 0; r < 2; ++r)
+            for (int nc = 0; nc < K3_NC; ++nc)
 #pragma unroll
-                    for (int c = 0; c < 4; ++c) {
-                        if (ISO) {
-                            const float df = xr[r] - yc[c];
-                            sl[r][c] = fmaf(df, df, sl[r][c]);
-                            wl[r][c] = fmaf(df, ac[c], wl[r][c]);
-                        } else {
-                            sl[r][c] = fmaf(xr[r], yc[c], sl[r][c]);
-                            wl[r][c] = fmaf(xr[r], ac[c], wl[r][c]);
+                for (int e = 0; e < 4; ++e) {
+                    const int i = row0 + (e < 2 ? ra : rb), k = c0 + 8 * nc + 2 * t + (e & 1);
+                    acc[nc][e] = (ISO && i < n && k < d)
+                                     ? -(e < 2 ? gsa : gsb) * x[(size_t)i * d + k] : 0.f;
+                }
+            if (c0 + K3_DC < d) {
+                k3_stage_c(cf, cb ^ 1, y, A, d, j0, cnt, c0 + K3_DC, vec4);
+                cp_async_wait<1>();
+            } else {
+                cp_async_wait<0>();
+            }
+            __syncthreads();   // the chunk has landed
+#pragma unroll
+            for (int ks = 0; ks < 2 * K3_NT; ++ks) {
+                // columns 8 (ks % 8) .. + 7 of alpha (ks < 8) or beta, as an A fragment
+                float v[4];
+                load_a_rowmajor(&coef[ks / K3_NT][0][8 * (ks % K3_NT)], K3_SA, v);
+                uint32_t a[NP * 4];
+                split_a<NP>(v, a);
+                const float(*B)[K3_SC] = ks < K3_NT ? cf.Ac[cb] : cf.Yc[cb];
+                const int kb = 8 * (ks % K3_NT) + t;   // b0 (t, g) = B[kb][8 nc + g]
+#pragma unroll
+                for (int nc = 0; nc < K3_NC; ++nc) {
+                    if (c0 + 8 * nc < d) {   // warp-uniform: n-tiles past d are skipped
+                        uint32_t bf[NP * 2];
+                        split_b<NP>(B[kb][8 * nc + g], B[kb + 4][8 * nc + g], bf);
+                        mma_passes<PASSES>(acc[nc], a, bf);
+                    }
+                }
+                asm volatile("" ::: "memory");   // as in tc_tile: no hoisted fragments
+            }
+#pragma unroll
+            for (int nc = 0; nc < K3_NC; ++nc)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int i = row0 + (e < 2 ? ra : rb), k = c0 + 8 * nc + 2 * t + (e & 1);
+                    if (i < n && k < d) {
+                        float* o = out + (size_t)i * d + k;
+                        *o = (j0 == j_begin) ? acc[nc][e] : *o + acc[nc][e];
+                    }
+                }
+            __syncthreads();   // the chunk is consumed before chunk + 2 reuses its buffer
+        }
+
+        // ---- the near pairs: difference form on the CUDA cores ----
+        if (ISO) {
+            uint32_t mask = near;
+            unsigned pending = __ballot_sync(FULL, mask != 0);
+            while (pending) {   // lanes in order, each lane's pairs in order
+                const int L = __ffs(pending) - 1;
+                const int bit = __ffs(__shfl_sync(FULL, mask, L)) - 1;
+                if (lane == L) mask &= mask - 1;
+                const int e = bit & 3;
+                const int i = row0 + 16 * w + (L >> 2) + (e >= 2 ? 8 : 0);
+                const int j = j0 + 8 * (bit >> 2) + 2 * (L & 3) + (e & 1);
+                const float* xi = x + (size_t)i * d;
+                const float* yj = y + (size_t)j * d;
+                const float* Aj = A + (size_t)j * d;
+                float s1[1] = {0.f}, wv = 0.f;
+                if (vec4) {   // 16-byte loads, all of a lane's issued together
+#pragma unroll 4
+                    for (int k = 4 * lane; k < d; k += 128) {
+                        const float4 xv = *reinterpret_cast<const float4*>(xi + k);
+                        const float4 yv = *reinterpret_cast<const float4*>(yj + k);
+                        const float4 av = *reinterpret_cast<const float4*>(Aj + k);
+                        const float df[4] = {xv.x - yv.x, xv.y - yv.y, xv.z - yv.z, xv.w - yv.w};
+                        const float ac[4] = {av.x, av.y, av.z, av.w};
+#pragma unroll
+                        for (int u = 0; u < 4; ++u) {
+                            s1[0] = fmaf(df[u], df[u], s1[0]);
+                            wv = fmaf(df[u], ac[u], wv);
                         }
                     }
-            }
-#pragma unroll
-            for (int r = 0; r < 2; ++r)
-#pragma unroll
-                for (int c = 0; c < 4; ++c) {
-                    kahan_add(s[r][c], cs[r][c], sl[r][c]);
-                    kahan_add(w[r][c], cw[r][c], wl[r][c]);
-                }
-        }
-
-        // ---- B: the jet of the profile -> alpha, beta ----
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-            float f1[4], f2[4];
-            eval_jet<4>(sp, s[r], f1, f2);
-#pragma unroll
-            for (int c = 0; c < 4; ++c) {
-                const bool ok = tx * 4 + c < cnt;
-                alpha[ty * 2 + r][tx * 4 + c] = ok ? (ISO ? -2.f * f1[c] : f1[c]) : 0.f;
-                beta[ty * 2 + r][tx * 4 + c] = ok ? (ISO ? 4.f : 1.f) * f2[c] * w[r][c] : 0.f;
-            }
-        }
-        __syncthreads();  // the coefficient tile is complete; stage A is consumed
-
-        // ---- C: out += alpha @ A + beta @ y - rowsum(beta) x ----
-        float gsum = 0.f;
-        if (ISO)
-            for (int jj = 0; jj < K3_TN; ++jj) gsum += beta[cr][jj];
-        for (int k0 = 0; k0 < d; k0 += K3_DC) {
-            if (k0 > 0) __syncthreads();  // the previous chunk is consumed
-            for (int e = tid; e < K3_TN * K3_DC; e += K3_THREADS) {
-                const int jj = e / K3_DC, cc = e % K3_DC, k = k0 + cc;
-                const bool ok = jj < cnt && k < d;
-                const size_t o = (size_t)(j0 + jj) * d + k;
-                st.c.Ac[jj][cc] = ok ? A[o] : 0.f;
-                st.c.Yc[jj][cc] = ok ? y[o] : 0.f;
-            }
-            __syncthreads();
-            float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 8
-            for (int jj = 0; jj < K3_TN; ++jj) {
-                const float a = alpha[cr][jj], b = beta[cr][jj];
-                const float4 av = *reinterpret_cast<const float4*>(&st.c.Ac[jj][cq * 4]);
-                const float4 yv = *reinterpret_cast<const float4*>(&st.c.Yc[jj][cq * 4]);
-                acc[0] = fmaf(a, av.x, fmaf(b, yv.x, acc[0]));
-                acc[1] = fmaf(a, av.y, fmaf(b, yv.y, acc[1]));
-                acc[2] = fmaf(a, av.z, fmaf(b, yv.z, acc[2]));
-                acc[3] = fmaf(a, av.w, fmaf(b, yv.w, acc[3]));
-            }
-            if (ci < n) {
-#pragma unroll
-                for (int c = 0; c < 4; ++c) {
-                    const int k = k0 + cq * 4 + c;
-                    if (k < d) {
-                        float v = acc[c];
-                        if (ISO) v = fmaf(-gsum, x[(size_t)ci * d + k], v);
-                        float* o = out + (size_t)ci * d + k;
-                        *o = (j0 == j_begin) ? v : *o + v;
+                } else {
+#pragma unroll 4
+                    for (int k = lane; k < d; k += 32) {
+                        const float df = xi[k] - yj[k];
+                        s1[0] = fmaf(df, df, s1[0]);
+                        wv = fmaf(df, Aj[k], wv);
                     }
                 }
+#pragma unroll
+                for (int o = 16; o > 0; o >>= 1) {
+                    s1[0] += __shfl_xor_sync(FULL, s1[0], o);
+                    wv += __shfl_xor_sync(FULL, wv, o);
+                }
+                float f1[1], f2[1];
+                k3_jet<FAM, P, 1>(sp, jc, s1, f1, f2);
+                const float al = -2.f * f1[0], be = 4.f * f2[0] * wv;
+                float* o = out + (size_t)i * d;
+                if (vec4) {
+#pragma unroll 4
+                    for (int k = 4 * lane; k < d; k += 128) {
+                        const float4 xv = *reinterpret_cast<const float4*>(xi + k);
+                        const float4 yv = *reinterpret_cast<const float4*>(yj + k);
+                        const float4 av = *reinterpret_cast<const float4*>(Aj + k);
+                        float4 ov = *reinterpret_cast<float4*>(o + k);
+                        ov.x = fmaf(al, av.x, fmaf(be, yv.x - xv.x, ov.x));
+                        ov.y = fmaf(al, av.y, fmaf(be, yv.y - xv.y, ov.y));
+                        ov.z = fmaf(al, av.z, fmaf(be, yv.z - xv.z, ov.z));
+                        ov.w = fmaf(al, av.w, fmaf(be, yv.w - xv.w, ov.w));
+                        *reinterpret_cast<float4*>(o + k) = ov;
+                    }
+                } else {
+#pragma unroll 4
+                    for (int k = lane; k < d; k += 32)
+                        o[k] = fmaf(al, Aj[k], fmaf(be, yj[k] - xi[k], o[k]));
+                }
+                pending = __ballot_sync(FULL, mask != 0);
             }
         }
     }
@@ -224,18 +349,63 @@ __global__ void k3_reduce(const float* __restrict__ partial, float* __restrict__
     out[e] = sum;
 }
 
-extern "C" int k3_grad_matvec(const float* x, const float* y, const float* A,
-                              float* partial, float* out, int n, int m, int d, int iso,
-                              int splits, int cols_per_split, ProfileSpec spec,
-                              void* stream) {
+struct K3Args {
+    const float *x, *y, *A, *x2, *y2, *ya;
+    float* partial;
+    int n, m, d, cols_per_split, vec4;
+};
+
+template <bool ISO, int FAM, int P, int PASSES>
+static int k3_go(dim3 grid, cudaStream_t st, const K3Args& g, const ProfileSpec& spec,
+                 const JetConsts& jc) {
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        k3_tc<ISO, FAM, P, PASSES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)sizeof(K3Shared));
+    if (attr != cudaSuccess) return (int)attr;
+    k3_tc<ISO, FAM, P, PASSES><<<grid, K3_THREADS, sizeof(K3Shared), st>>>(
+        g.x, g.y, g.A, g.x2, g.y2, g.ya, g.partial, g.n, g.m, g.d, g.cols_per_split, g.vec4, spec,
+        jc);
+    return 0;
+}
+
+template <int PASSES>
+static int k3_by_family(int iso, int family, int p, dim3 grid, cudaStream_t st,
+                        const K3Args& g, const ProfileSpec& spec, const JetConsts& jc) {
+    if (!iso)
+        return family == 0 ? k3_go<false, 0, 0, PASSES>(grid, st, g, spec, jc)
+                           : (int)cudaErrorInvalidValue;
+    switch (family) {
+    case 0: return k3_go<true, 0, 0, PASSES>(grid, st, g, spec, jc);
+    case FAM_EQ: return k3_go<true, FAM_EQ, 0, PASSES>(grid, st, g, spec, jc);
+    case FAM_MATERN:
+        switch (p) {
+        case 1: return k3_go<true, FAM_MATERN, 1, PASSES>(grid, st, g, spec, jc);
+        case 2: return k3_go<true, FAM_MATERN, 2, PASSES>(grid, st, g, spec, jc);
+        case 3: return k3_go<true, FAM_MATERN, 3, PASSES>(grid, st, g, spec, jc);
+        default: return (int)cudaErrorInvalidValue;
+        }
+    case FAM_RQ: return k3_go<true, FAM_RQ, 0, PASSES>(grid, st, g, spec, jc);
+    case FAM_CAUCHY: return k3_go<true, FAM_CAUCHY, 0, PASSES>(grid, st, g, spec, jc);
+    case FAM_IMQ: return k3_go<true, FAM_IMQ, 0, PASSES>(grid, st, g, spec, jc);
+    default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+extern "C" int k3_grad_matvec(const float* x, const float* y, const float* A, const float* x2,
+                              const float* y2, const float* ya, float* partial, float* out,
+                              int n, int m, int d, int iso, int splits, int cols_per_split,
+                              int passes, int family, int p, int vec4, ProfileSpec spec,
+                              JetConsts jc, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     dim3 grid((n + K3_TM - 1) / K3_TM, splits);
-    if (iso)
-        k3_grad<true><<<grid, K3_THREADS, 0, st>>>(x, y, A, partial, n, m, d, cols_per_split,
-                                                   spec);
-    else
-        k3_grad<false><<<grid, K3_THREADS, 0, st>>>(x, y, A, partial, n, m, d, cols_per_split,
-                                                    spec);
+    const K3Args g{x, y, A, x2, y2, ya, partial, n, m, d, cols_per_split, vec4};
+    int bad;
+    switch (passes) {
+    case 1: bad = k3_by_family<1>(iso, family, p, grid, st, g, spec, jc); break;
+    case 3: bad = k3_by_family<3>(iso, family, p, grid, st, g, spec, jc); break;
+    default: bad = (int)cudaErrorInvalidValue;
+    }
+    if (bad) return bad;
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     if (splits > 1) {

@@ -1,7 +1,7 @@
-// Fused kernel-matrix-vector products b = K a, K_ij = k(x_i, y_j), for
-// NVIDIA Hopper (sm_90a). Plain C interface, loaded with ctypes by
-// cfjax_torch/ops/gramian_mvm.py, which also holds the plain torch
-// version of each kernel.
+// K1: the fused direct-form kernel-matrix-vector product b = K a,
+// K_ij = k(x_i, y_j), for NVIDIA Hopper (sm_90a). Plain C interface, loaded
+// with ctypes by cfjax_torch/ops/gramian_mvm.py, which also holds its plain
+// torch version. K2, the expansion form, is in expand_mvm.cu.
 //
 // K1 `k1_gramian_matvec_family` and `k1_gramian_matvec_direct` replace
 //    cfjax/ops/pallas_mvm.py `pallas_gramian_matvec_direct` /
@@ -10,19 +10,14 @@
 //    (ProfileSpec.family: EQ, Exp, MaternP(p <= 3), RQ, Cauchy, IMQ under
 //    lengthscales, times a constant), `_direct` interprets any other
 //    profile program.
-// K2 `k2_gramian_matvec_expand` replaces `pallas_gramian_matvec` /
-//    `_mvm_kernel`: isotropic kernels at any d through the expansion
-//    ||x||^2 + ||y||^2 - 2 x.y, and dot-product kernels through x.y, with
-//    the inner products in full fp32 FMA (the "highest" tier).
 //
-// Neither kernel reads or writes an O(n m) array: each (row, column) entry
-// of K is recomputed from the points, passed through the profile and
-// contracted against `a` in registers. K2 is bound by the fp32 FMAs of the
-// x.y tile at large d. K1's family instances are bound by the SFU (one or
-// two MUFU operations per entry against 2d + 2..7 fp32 instructions); the
-// interpreted instance by its per-entry program decode. The Pallas kernels
-// baked the profile (a jnp closure) into the compiled kernel; here the
-// families are template instances and the rest a postfix program.
+// K1 reads or writes no O(n m) array: each (row, column) entry of K is
+// recomputed from the points, passed through the profile and contracted
+// against `a` in registers. Its family instances are bound by the SFU (one
+// or two MUFU operations per entry against 2d + 2..7 fp32 instructions);
+// the interpreted instance by its per-entry program decode. The Pallas
+// kernel baked the profile (a jnp closure) into the compiled kernel; here
+// the families are template instances and the rest a postfix program.
 //
 // The TPU kernels carry the row sum over a sequential grid axis in VMEM
 // scratch. Here the columns are split over gridDim.y, each block loops
@@ -32,6 +27,7 @@
 // edges are bounds-checked in the kernels; nothing is padded in memory.
 
 #include "profile_spec.cuh"
+#include "tc_tile.cuh"   // cp.async helpers
 
 // Row sums use compensated (Kahan) accumulation (kahan_add): one thread
 // adds up to m / (4 * splits) terms in sequence — 32768 at n = 2^17 — and
@@ -193,17 +189,6 @@ struct KfShape {
     // 20 KB at D = 16
     static constexpr int TN = DP <= 4 ? 512 : (DP <= 8 ? 256 : 128);
 };
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool live) {
-    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
-                 "r"(live ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // stage columns j0 .. j0 + cnt of y (d coordinates each) and a into buf;
 // the columns cnt .. TN are zero-filled
@@ -406,116 +391,6 @@ extern "C" int k1_gramian_matvec_family(const float* x, const float* y, const fl
     else if (d >= 9 && d <= 16) bad = kf_by_family<16>(family, p, grid, st, g, fc);
     else bad = (int)cudaErrorInvalidValue;
     if (bad) return bad;
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    launch_reduce(partial, out, n, splits, st);
-    return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// K2: expansion-form MVM, any d, iso or dot, fp32 FMA inner products
-// ---------------------------------------------------------------------------
-
-constexpr int K2_THREADS = 256;  // 16 x 16 threads, 4 x 4 entries each
-constexpr int K2_BM = 64;        // rows per block
-constexpr int K2_BN = 64;        // columns per tile
-constexpr int K2_BK = 16;        // depth per shared-memory stage
-constexpr int K2_PAD = 4;        // keeps float4 rows aligned
-
-template <bool ISO>
-__global__ void __launch_bounds__(K2_THREADS)
-k2_expand(const float* __restrict__ x, const float* __restrict__ y,
-          const float* __restrict__ x2, const float* __restrict__ y2,
-          const float* __restrict__ a, float* __restrict__ partial,
-          int n, int m, int d, int cols_per_split, const __grid_constant__ ProfileSpec spec) {
-    __shared__ ProfileSpec sp;
-    __shared__ __align__(16) float xs[K2_BK][K2_BM + K2_PAD];
-    __shared__ __align__(16) float ys[K2_BK][K2_BN + K2_PAD];
-    __shared__ float as[K2_BN];
-    __shared__ float y2s[K2_BN];
-    __shared__ float red[K2_BN / 4][K2_BM];
-
-    load_spec(sp, spec);
-    const int tx = threadIdx.x % 16;  // column quad
-    const int ty = threadIdx.x / 16;  // row quad
-    const int row0 = blockIdx.x * K2_BM;
-    float x2r[4], acc[4], comp[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-        const int i = row0 + ty * 4 + r;
-        x2r[r] = (ISO && i < n) ? x2[i] : 0.f;
-        acc[r] = 0.f;
-        comp[r] = 0.f;
-    }
-
-    const int j_begin = blockIdx.y * cols_per_split;
-    const int j_end = min(m, j_begin + cols_per_split);
-    for (int j0 = j_begin; j0 < j_end; j0 += K2_BN) {
-        const int cnt = min(K2_BN, j_end - j0);
-        __syncthreads();  // the previous tile's as / y2s are consumed
-        for (int t = threadIdx.x; t < K2_BN; t += K2_THREADS) {
-            as[t] = t < cnt ? a[j0 + t] : 0.f;
-            y2s[t] = (ISO && t < cnt) ? y2[j0 + t] : 0.f;
-        }
-        float S[4][4] = {};
-        for (int k0 = 0; k0 < d; k0 += K2_BK) {
-            __syncthreads();
-            for (int t = threadIdx.x; t < K2_BK * K2_BM; t += K2_THREADS) {
-                const int r = t / K2_BK, kk = t % K2_BK;
-                const int i = row0 + r, k = k0 + kk;
-                xs[kk][r] = (i < n && k < d) ? x[(size_t)i * d + k] : 0.f;
-                const int j = j0 + r;
-                ys[kk][r] = (r < cnt && k < d) ? y[(size_t)j * d + k] : 0.f;
-            }
-            __syncthreads();
-#pragma unroll
-            for (int kk = 0; kk < K2_BK; ++kk) {
-                const float4 xv = *reinterpret_cast<const float4*>(&xs[kk][ty * 4]);
-                const float4 yv = *reinterpret_cast<const float4*>(&ys[kk][tx * 4]);
-                const float xr[4] = {xv.x, xv.y, xv.z, xv.w};
-                const float yc[4] = {yv.x, yv.y, yv.z, yv.w};
-#pragma unroll
-                for (int r = 0; r < 4; ++r)
-#pragma unroll
-                    for (int c = 0; c < 4; ++c) S[r][c] = fmaf(xr[r], yc[c], S[r][c]);
-            }
-        }
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-            float s[4];
-#pragma unroll
-            for (int c = 0; c < 4; ++c)
-                s[c] = ISO ? fmaxf((x2r[r] + y2s[tx * 4 + c]) - 2.f * S[r][c], 0.f) : S[r][c];
-            eval_profile<4>(sp, s);
-#pragma unroll
-            for (int c = 0; c < 4; ++c)
-                kahan_add(acc[r], comp[r], (tx * 4 + c < cnt) ? s[c] * as[tx * 4 + c] : 0.f);
-        }
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) red[tx][ty * 4 + r] = acc[r];
-    __syncthreads();
-    if (threadIdx.x < K2_BM) {
-        const int i = row0 + threadIdx.x;
-        if (i < n) {
-            float tot = red[0][threadIdx.x];
-#pragma unroll
-            for (int c = 1; c < K2_BN / 4; ++c) tot += red[c][threadIdx.x];
-            partial[(size_t)blockIdx.y * n + i] = tot;
-        }
-    }
-}
-
-extern "C" int k2_gramian_matvec_expand(const float* x, const float* y, const float* x2,
-                                        const float* y2, const float* a, float* partial,
-                                        float* out, int n, int m, int d, int iso, int splits,
-                                        int cols_per_split, ProfileSpec spec, void* stream) {
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    dim3 grid((n + K2_BM - 1) / K2_BM, splits);
-    if (iso)
-        k2_expand<true><<<grid, K2_THREADS, 0, st>>>(x, y, x2, y2, a, partial, n, m, d, cols_per_split, spec);
-    else
-        k2_expand<false><<<grid, K2_THREADS, 0, st>>>(x, y, x2, y2, a, partial, n, m, d, cols_per_split, spec);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     launch_reduce(partial, out, n, splits, st);

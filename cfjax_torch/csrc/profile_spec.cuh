@@ -260,6 +260,85 @@ __device__ __forceinline__ void maternp_jet(const float* t, int p, float s, floa
     }
 }
 
+// (g', g'') of MaternP(P).profile at s: maternp_jet with p = P known when
+// compiled, so every table index is a constant (no local memory)
+template <int P>
+__device__ __forceinline__ void maternp_jet_fixed(const float* t, float s, float& g1,
+                                                  float& g2) {
+    const float bound = exp2f(-23.f / (float)P);
+    if (s < bound) {
+        float v1 = P * t[P - 1], v2 = P * (P - 1) * t[P - 1];
+#pragma unroll
+        for (int i = P - 1; i >= 1; --i) {
+            v1 = v1 * s + i * t[i - 1];
+            if (i >= 2) v2 = v2 * s + i * (i - 1) * t[i - 1];
+        }
+        g1 = v1;
+        g2 = P >= 2 ? v2 : 0.f;
+    } else {
+        const float c = 2.f * P + 1.f;
+        const float rho = sqrtf(c * s);
+        const float e = expf(-rho);
+        const float h = 0.5f * c;
+        float r1 = t[3 * P], s2 = t[4 * P];
+#pragma unroll
+        for (int j = P - 2; j >= 0; --j) {
+            r1 = r1 * rho + t[2 * P + 1 + j];
+            s2 = s2 * rho + t[3 * P + 1 + j];
+        }
+        g1 = h * e * r1;
+        g2 = h * h * e * s2 / rho;
+    }
+}
+
+// Families of one-leaf derivative specs (ProfileSpec.family of
+// to_spec(k, derivative=True)): f'(s) and f''(s) in registers, the
+// lengthscales and the Constant folded into the table (kernels/
+// profile_spec.py `_jet_family` documents each layout).
+#define JET_CONSTS 16
+
+struct JetConsts {
+    float c[JET_CONSTS];
+};
+
+template <int FAM, int P>
+__device__ __forceinline__ void family_jet(float s, const JetConsts& j, float& f1, float& f2) {
+    const float* c = j.c;
+    if constexpr (FAM == FAM_EQ) {
+        // f = scale exp2(s (c0 + c1)); f' = c2 e, f'' = c3 e
+        const float e = ex2_split(s, c[0], c[1]);
+        f1 = c[2] * e;
+        f2 = c[3] * e;
+    } else if constexpr (FAM == FAM_MATERN) {
+        // u = sigma s; f' = scale sigma g'(u), f'' = scale sigma^2 g''(u)
+        static_assert(P >= 1 && P <= 3, "MaternP's derivative family takes p = 1, 2, 3");
+        float g1, g2;
+        maternp_jet_fixed<P>(c + 3, c[0] * s, g1, g2);
+        f1 = c[1] * g1;
+        f2 = c[2] * g2;
+    } else if constexpr (FAM == FAM_RQ) {
+        // b = 1 + c0 s, f = scale b^c1; f' = c2 b^c1 / b, f'' = c3 b^c1 / b^2
+        const float b = fmaf(s, c[0], 1.f);
+        const float r = 1.f / b;
+        const float pw = exp2f(c[1] * log2f(b)) * r;
+        f1 = c[2] * pw;
+        f2 = c[3] * pw * r;
+    } else if constexpr (FAM == FAM_CAUCHY) {
+        // r = 1 / (1 + c0 s); f' = c1 r^2, f'' = c2 r^3
+        const float r = 1.f / fmaf(s, c[0], 1.f);
+        const float r2 = r * r;
+        f1 = c[1] * r2;
+        f2 = c[2] * r2 * r;
+    } else {
+        static_assert(FAM == FAM_IMQ, "unknown derivative family");
+        // r = (c0 s + c1)^(-1/2); f' = c2 r^3, f'' = c3 r^5
+        const float r = rsqrtf(fmaf(s, c[0], c[1]));
+        const float r3 = r * r * r;
+        f1 = c[2] * r3;
+        f2 = c[3] * r3 * r * r;
+    }
+}
+
 // jet of g(u) from the jet of u and g's derivatives at u
 __device__ __forceinline__ void chain(float (&u)[3], float g0, float g1, float g2) {
     u[2] = g2 * u[1] * u[1] + g1 * u[2];

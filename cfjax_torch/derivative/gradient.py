@@ -34,7 +34,7 @@ from ..kernels.profile_spec import to_spec
 from ..operators.gramian import slf_vector
 from ..operators.linop import LinearOperator, SumOperator, ZeroOperator
 from ..ops import grad_mvm as _grad_mvm
-from ..ops.tiles import inner_tile, map_rows, matmul_p, resolve_precision, sqdist_tile
+from ..ops.tiles import inner_tile, map_rows, matmul_p, sqdist_tile
 from ..utils.grids import as_points
 
 
@@ -145,8 +145,8 @@ def valgrad_matvec_generic(k, x, y, a0, A, block=32):
 def select_grad_kernel(g):
     """(derivative spec, decline reason) for a GradientGramian. The rules
     are correctness-only: an iso or dot gramian of float32 CUDA tensors,
-    nothing requiring grad, a kernel with a derivative spec and the
-    "highest" matmul tier takes K3; the plain path keeps the reason."""
+    nothing requiring grad and a kernel with a derivative spec takes K3, at
+    every matmul tier; the plain path keeps the reason."""
     if g.mode not in ("iso", "dot"):
         return None, f"gradient mode {g.mode!r} (K3 covers iso/dot)"
     if not (g.x.is_cuda and g.y.is_cuda):
@@ -159,9 +159,6 @@ def select_grad_kernel(g):
     spec, why = to_spec(g.k, derivative=True)
     if spec is None:
         return None, f"no derivative spec: {why}"
-    prec = resolve_precision()
-    if prec != "highest":
-        return None, f"matmul_precision {prec!r}: K3's tf32 tiers are not ported yet"
     return spec, None
 
 

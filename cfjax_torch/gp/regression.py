@@ -13,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 from torch.func import vmap
 
@@ -21,6 +22,22 @@ from ..operators.kronecker import KroneckerOperator
 from ..operators.solvers import cg, cg_columns, solve_with_info
 from ..operators.toeplitz import CirculantOperator
 from ..utils.grids import as_points, point_device
+
+
+def _observations(y, x, K):
+    """y as a tensor on the device of x's points, in the floating dtype of
+    the operator K built on them: cfjax's `jnp.asarray(y)` makes numpy's
+    float64 observations float32 under JAX's default, so a float32 GP keeps
+    float32 vectors (and its MVMs stay on the CUDA kernels, which take
+    float32). Integer points (index kernels) leave y's dtype alone."""
+    y = torch.as_tensor(y, device=point_device(x))
+    integer_points = isinstance(x, (torch.Tensor, np.ndarray)) and not (
+        torch.is_floating_point(x) if isinstance(x, torch.Tensor)
+        else np.issubdtype(x.dtype, np.floating))
+    if (not integer_points and y.is_floating_point() and K.dtype is not None
+            and K.dtype.is_floating_point):
+        y = y.to(K.dtype)
+    return y
 
 
 @dataclasses.dataclass
@@ -68,7 +85,7 @@ def gp_condition(kernel, x, y, noise: float = 1e-6,
     K0 = gramian(kernel, x)
     K = K0.add_diagonal(noise)
     n = K.shape[0]
-    y = torch.as_tensor(y, device=point_device(x))
+    y = _observations(y, x, K0)
     if (precondition == "auto" and isinstance(K0, Gramian)
             and torch.as_tensor(noise).ndim == 0
             and n > _config.DEFAULT.max_cholesky_size):
@@ -103,9 +120,9 @@ def log_marginal_likelihood(kernel, x, y, noise: float = 1e-6, method: str = "au
     backward needs distinct factor eigenvalues)."""
     from .. import config as _config
 
-    y = torch.as_tensor(y, device=point_device(x))
-    n = y.shape[0]
     K = gramian(kernel, x)
+    y = _observations(y, x, K)
+    n = y.shape[0]
     mcs = _config.DEFAULT.max_cholesky_size
     if method == "auto":
         if isinstance(K, CirculantOperator):

@@ -36,6 +36,12 @@ Taylor branch below eps^(1/p), the closed form above it), and kernels
 whose profile has no finite f' or f'' at s = 0 (Exp, MaternP(0), GammaExp)
 decline. `ProfileSpec.evaluate_jet(s)` propagates the
 second-order jet (f, f', f'') through a program, one rule per opcode.
+
+A derivative spec of a one-leaf iso kernel (EQ, MaternP(1..3), RQ,
+Cauchy, IMQ under lengthscales, times at most one Constant) carries a
+family too, with a table for f' and f'' in closed form (`_jet_family`,
+up to JET_CONSTS values): the tensor-core K3 evaluates it in registers,
+and `ProfileSpec.evaluate_jet_family(s)` is its plain torch evaluator.
 """
 
 from __future__ import annotations
@@ -97,6 +103,7 @@ FAMILY_CAUCHY = 4  # 1 / (1 + s c0), c0 = sigma
 FAMILY_IMQ = 5     # rsqrt(s c0 + c1), c0 = sigma, c1 = c^2
 FAMILY_MAX_P = 3
 FAMILY_CONSTS = 6  # the largest folded table (MaternP(3): c0, c1 and 4 coefficients)
+JET_CONSTS = 16    # the largest derivative-family table (MaternP(3): 3 + 13 values)
 
 _POP = {PUSH_S: -1, PUSH_C: -1, ADD: 1, MUL: 1, DIV: 1, POWC: 0, POWI: 0,
         NEG: 0, EXP: 0, SQRT: 0, ROOT: 0, MATERNP: 0, MATERNP_JET: 0}
@@ -268,6 +275,9 @@ class ProfileSpec:
     def _evaluate_family(self, s):
         if self.family == FAMILY_NONE:
             raise ValueError("this spec has no family: it is interpreted")
+        if self.jet:
+            raise ValueError("a derivative spec's family gives f' and f'': "
+                             "evaluate_jet_family")
         c = self.family_consts
         if self.family == FAMILY_EQ:
             f = _exp2_split(s, c[0], c[1])
@@ -284,6 +294,32 @@ class ProfileSpec:
         else:
             raise ValueError(f"unknown family {self.family}")
         return self.family_scale * f
+
+    def evaluate_jet_family(self, s):
+        """(f'(s), f''(s)) of a derivative spec's family form, as K3's family
+        instances compute them (`_jet_family` gives each table's layout)."""
+        if not self.jet or self.family == FAMILY_NONE:
+            raise ValueError("this spec has no derivative family: it is interpreted")
+        s = torch.as_tensor(s)
+        c = self.family_consts
+        if self.family == FAMILY_EQ:
+            e = _exp2_split(s, c[0], c[1])
+            return c[2] * e, c[3] * e
+        if self.family == FAMILY_MATERN:
+            p = self.family_p
+            _, g1, g2 = _maternp_jet(p, c[3:3 + 4 * p + 1], c[0] * s)
+            return c[1] * g1, c[2] * g2
+        if self.family == FAMILY_RQ:
+            b = 1.0 + s * c[0]
+            pw = torch.exp2(c[1] * torch.log2(b)) / b
+            return c[2] * pw, c[3] * pw / b
+        if self.family == FAMILY_CAUCHY:
+            r = 1.0 / (1.0 + s * c[0])
+            return c[1] * r * r, c[2] * r * r * r
+        if self.family == FAMILY_IMQ:
+            r = torch.rsqrt(s * c[0] + c[1])
+            return c[2] * r ** 3, c[3] * r ** 5
+        raise ValueError(f"unknown family {self.family}")
 
     def evaluate_jet(self, s):
         """Plain torch second-order jet of the program: (f, f', f'') at s,
@@ -466,9 +502,9 @@ def _emit(k, b, push_s, jet: bool):
         raise _Decline(f"{type(k).__name__} has no profile spec")
 
 
-def _family(k):
-    """(family, p, folded constants, scale) of a one-leaf value spec, or
-    None (see the module docstring)."""
+def _leaf(k):
+    """(leaf kernel, sigma = the product of 1/l^2, the Constant factor) of a
+    one-leaf kernel under Lengthscale scalings and at most one Constant."""
     sigma, scale, constants = 1.0, 1.0, 0
     while True:
         if isinstance(k, Lengthscale):
@@ -482,11 +518,21 @@ def _family(k):
         elif type(k).__name__ == "_EmbeddedPeriodic":
             k = k.k
         else:
-            break
+            return k, sigma, scale
+
+
+def _split(c):
+    """(the float32 nearest c, the rest): an exp2 argument u c taken exactly."""
+    return float(np.float32(c)), c - float(np.float32(c))
+
+
+def _family(k):
+    """(family, p, folded constants, scale) of a one-leaf value spec, or
+    None (see the module docstring)."""
+    k, sigma, scale = _leaf(k)
     ln2 = math.log(2.0)
-    split = lambda c: (float(np.float32(c)), c - float(np.float32(c)))
     if isinstance(k, EQ):
-        return FAMILY_EQ, 0, split(-sigma / (2 * ln2)), scale
+        return FAMILY_EQ, 0, _split(-sigma / (2 * ln2)), scale
     if isinstance(k, (Exp, MaternP)):
         p = 0 if isinstance(k, Exp) else k.p
         if p > FAMILY_MAX_P:
@@ -494,7 +540,7 @@ def _family(k):
         poly = (1.0,) if isinstance(k, Exp) else k._poly
         root = math.sqrt((2 * p + 1) * sigma)   # r = root * sqrt(s)
         return (FAMILY_MATERN, p,
-                split(-root / ln2) + tuple(cj * (2 * root) ** j for j, cj in enumerate(poly)),
+                _split(-root / ln2) + tuple(cj * (2 * root) ** j for j, cj in enumerate(poly)),
                 scale)
     if isinstance(k, RQ):
         a = _scalar(k, "alpha")
@@ -503,6 +549,43 @@ def _family(k):
         return FAMILY_CAUCHY, 0, (sigma,), scale
     if isinstance(k, InverseMultiQuadratic):
         return FAMILY_IMQ, 0, (sigma, _scalar(k, "c") ** 2), scale
+    return None
+
+
+def _jet_family(k):
+    """(family, p, table, 1.0) of a one-leaf derivative spec, or None. The
+    Constant and the lengthscales are folded into the table (sigma = the
+    product of 1/l^2, scale = the Constant):
+      EQ       c0 + c1 = -sigma / (2 ln 2) (split), c2 = -scale sigma / 2,
+               c3 = scale sigma^2 / 4: e = exp2(s (c0 + c1)), f' = c2 e,
+               f'' = c3 e;
+      MaternP  c0 = sigma, c1 = scale sigma, c2 = scale sigma^2, then
+               `_maternp_jet_table(p)` (p = 1..3): f' = c1 g'(c0 s),
+               f'' = c2 g''(c0 s);
+      RQ       c0 = sigma / (2 alpha), c1 = -alpha, c2 = -scale alpha c0,
+               c3 = scale alpha (alpha + 1) c0^2: b = 1 + c0 s,
+               f' = c2 b^c1 / b, f'' = c3 b^c1 / b^2;
+      Cauchy   c0 = sigma, c1 = -scale sigma, c2 = 2 scale sigma^2:
+               r = 1 / (1 + c0 s), f' = c1 r^2, f'' = c2 r^3;
+      IMQ      c0 = sigma, c1 = c^2, c2 = -scale sigma / 2,
+               c3 = 3 scale sigma^2 / 4: r = (c0 s + c1)^(-1/2), f' = c2 r^3,
+               f'' = c3 r^5."""
+    k, sigma, scale = _leaf(k)
+    if isinstance(k, EQ):
+        return (FAMILY_EQ, 0, _split(-sigma / (2 * math.log(2.0)))
+                + (-scale * sigma / 2, scale * sigma * sigma / 4), 1.0)
+    if isinstance(k, MaternP) and 1 <= k.p <= FAMILY_MAX_P:
+        return (FAMILY_MATERN, k.p, (sigma, scale * sigma, scale * sigma * sigma)
+                + _maternp_jet_table(k.p), 1.0)
+    if isinstance(k, RQ):
+        a = _scalar(k, "alpha")
+        c0 = sigma / (2 * a)
+        return FAMILY_RQ, 0, (c0, -a, -scale * a * c0, scale * a * (a + 1) * c0 * c0), 1.0
+    if isinstance(k, Cauchy):
+        return FAMILY_CAUCHY, 0, (sigma, -scale * sigma, 2 * scale * sigma * sigma), 1.0
+    if isinstance(k, InverseMultiQuadratic):
+        return (FAMILY_IMQ, 0, (sigma, _scalar(k, "c") ** 2, -scale * sigma / 2,
+                                0.75 * scale * sigma * sigma), 1.0)
     return None
 
 
@@ -519,7 +602,8 @@ def to_spec(k, derivative: bool = False):
         _emit(k, b, lambda: b.emit(PUSH_S), derivative)
     except _Decline as e:
         return None, str(e)
-    fam = None if derivative or trait != InputTrait.ISOTROPIC else _family(k)
+    fam = None if trait != InputTrait.ISOTROPIC else (_jet_family(k) if derivative
+                                                     else _family(k))
     spec = ProfileSpec("iso" if trait == InputTrait.ISOTROPIC else "dot",
                        tuple(b.ops), tuple(b.args), tuple(b.consts), derivative,
                        *(fam or ()))

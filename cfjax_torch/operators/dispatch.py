@@ -270,6 +270,13 @@ def _grid_col(k, x0, grid):
     return vmap(lambda xj: k(x0, xj))(pts)
 
 
+def _tier() -> str:
+    """The configured matmul tier and its tensor-core passes in K2 / K3."""
+    from ..ops.tiles import resolve_precision, tier_passes
+
+    return f"matmul_precision {resolve_precision()!r}: {tier_passes()} tf32 pass(es)"
+
+
 def explain(k, x, y=None, **opts) -> str:
     """Describe the structure the dispatcher detected, and whether the
     lazy Gramian's or gradient gramian's MVM runs on a CUDA kernel (and
@@ -283,7 +290,7 @@ def explain(k, x, y=None, **opts) -> str:
         why = kernel_decline_reason(op)
         if why is None:
             name = {"direct": "K1 gramian_matvec_direct",
-                    "expand": "K2 gramian_matvec_expand"}[op.kernel]
+                    "expand": f"K2 gramian_matvec_expand ({_tier()})"}[op.kernel]
             parts.append(f"cuda kernel {name}")
         else:
             parts.append(f"cuda kernel declined: {why}")
@@ -291,7 +298,7 @@ def explain(k, x, y=None, **opts) -> str:
     if isinstance(g, GradientGramian):
         parts.append(f"gradient mode = {g.mode}")
         why = g.kernel_reason
-        parts.append("cuda kernel K3 grad_matvec" if why is None
+        parts.append(f"cuda kernel K3 grad_matvec ({_tier()})" if why is None
                      else f"cuda kernel declined: {why}")
     if isinstance(op, KroneckerOperator):
         parts.append("factors: " + " ⊗ ".join(f"{type(f).__name__}{f.shape}" for f in op.factors))

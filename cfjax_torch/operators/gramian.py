@@ -22,7 +22,7 @@ from .. import config as _config
 from ..kernels.base import InputTrait, Kernel, input_trait
 from ..kernels.profile_spec import to_spec
 from ..ops import gramian_mvm as _mvm
-from ..ops.tiles import inner_tile, matmul_p, resolve_precision, sqdist_tile
+from ..ops.tiles import inner_tile, matmul_p, sqdist_tile
 from .linop import LinearOperator
 
 
@@ -115,7 +115,7 @@ def select_kernel(g):
     """(kernel name, spec, decline reason) for a Gramian. The rules are
     correctness-only: a single-RHS MVM of float32 CUDA tensors whose
     kernel has a profile spec goes to K1 ("direct": iso, d <= 16) or to
-    K2 ("expand": iso at larger d, or dot, at the "highest" tier)."""
+    K2 ("expand": iso at larger d, or dot, at every matmul tier)."""
     if g.mode not in ("iso", "dot"):
         return None, None, f"trait mode {g.mode!r} (the CUDA kernels cover iso/dot)"
     if not (g.x.is_cuda and g.y.is_cuda):
@@ -131,10 +131,6 @@ def select_kernel(g):
     d = g.x.shape[1]
     if g.mode == "iso" and d <= min(_mvm.DIRECT_MAX_D, _config.DEFAULT.direct_sqdist_max_d):
         return "direct", spec, None
-    prec = resolve_precision()
-    if prec != "highest":
-        return None, None, (f"matmul_precision {prec!r}: the expansion kernel's "
-                            "tf32 tiers are not ported yet")
     return "expand", spec, None
 
 

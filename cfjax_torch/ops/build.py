@@ -3,7 +3,7 @@
 Each `csrc/<name>.cu` is compiled by nvcc for sm_90a into its own shared
 library with a plain C interface, `build/lib<name>_<digest>.so` at the
 checkout root, and loaded with ctypes. The digest hashes every file under
-`csrc/` (sources and the shared header), so a change to any of them
+`csrc/` (sources and the shared headers), so a change to any of them
 rebuilds every library. `build()` starts one nvcc per missing library,
 all at once, and waits for them; the compiler's resource report
 (-Xptxas -v) is kept beside each library as `.log`.
@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-LIBRARIES = ("gramian_mvm", "grad_mvm", "tile_ell_mvm")
+LIBRARIES = ("gramian_mvm", "expand_mvm", "grad_mvm", "tile_ell_mvm")
 
 
 def _nvcc() -> str:

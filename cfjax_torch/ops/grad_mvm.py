@@ -11,13 +11,14 @@ dot-product kernel:
 (`cfjax_torch/csrc/grad_mvm.cu`, built by `ops/build.py`) on CUDA tensors
 and raises on what it does not take; on CPU tensors it takes the plain
 torch version `grad_matvec_plain`, which takes f' and f'' from autodiff of
-`k.profile` (`torch.func`) and forms s and <r, A> as cfjax's
-`grad_matvec_iso` does. The kernel takes them from the jet of the kernel's
-derivative spec (`to_spec(k, derivative=True)`) and forms s and <r, A> as
-differences at every d, exact at coincident points (see the source's
-header). It computes the "highest" (full fp32) tier only and is
-forward-only, like the Pallas kernel. Launches count in
-`gramian_mvm.LAUNCHES["grad"]`.
+`k.profile` and forms s and <r, A> as cfjax's `grad_matvec_iso` does, its
+products at the matmul tier. The kernel runs its four products on the
+tensor cores at the tier's passes (`tiles.TIER_PASSES`), takes f' and f''
+from the derivative spec's family in registers (`to_spec(k,
+derivative=True)`, one-leaf kernels) or its interpreted jet, and
+recomputes every near-coincident pair in difference form, exact at
+coincident points (see the source's header). Forward-only, like the
+Pallas kernel. Launches count in `gramian_mvm.LAUNCHES["grad"]`.
 """
 
 from __future__ import annotations
@@ -28,15 +29,32 @@ import functools
 import torch
 
 from ..kernels.derivatives import elementwise_derivatives
-from ..kernels.profile_spec import ProfileSpec, to_spec
+from ..kernels.profile_spec import JET_CONSTS, ProfileSpec, to_spec
 from . import build as _build
-from .gramian_mvm import _cdiv, _CSpec, _cspec, _launch, _ptr, column_split
-from .tiles import inner_tile, map_rows, matmul_p, resolve_precision, sqdist_tile
+from .gramian_mvm import _cdiv, _CSpec, _cspec, _launch, _ptr, column_split, vec4_ok
+from .tiles import inner_tile, map_rows, matmul_p, sqdist_tile, tier_passes
 
 # row / column tile sizes of the kernel, for the column split
-_K3_TM, _K3_TN = 32, 64
+_K3_TM, _K3_TN = 128, 64
 # most column tiles one split sums into its partial output (see grad_mvm.cu)
 _K3_MAX_TILES = 64
+# most bytes of the splits' partial outputs (splits x n x d floats) at large d
+_K3_PARTIAL_BYTES = 1 << 26
+# the near-coincident threshold tau of the kernel (K3_TAU in grad_mvm.cu): a
+# pair with s <= tau (|x_i|^2 + |y_j|^2) is recomputed in difference form
+NEAR_TAU = 2.0 ** -6
+
+
+class _CJet(ctypes.Structure):
+    _fields_ = [("c", ctypes.c_float * JET_CONSTS)]
+
+
+@functools.lru_cache(maxsize=64)
+def _cjet(spec: ProfileSpec) -> _CJet:
+    cj = _CJet()
+    for i, c in enumerate(spec.family_consts):
+        cj.c[i] = c
+    return cj
 
 
 @functools.cache
@@ -44,27 +62,29 @@ def library() -> ctypes.CDLL:
     """The K3 library (built once per source digest), with its C signature set."""
     lib = _build.load("grad_mvm")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.k3_grad_matvec.argtypes = [p] * 5 + [i] * 6 + [_CSpec, p]
+    lib.k3_grad_matvec.argtypes = [p] * 8 + [i] * 10 + [_CSpec, _CJet, p]
     lib.k3_grad_matvec.restype = i
     return lib
 
 
-def grad_matvec_plain(k, x, y, A, mode: str = "iso", block: int = 256):
+def grad_matvec_plain(k, x, y, A, mode: str = "iso", block: int = 256, precision=None):
     """Plain torch version of K3, row block by row block: the same closed
     form, with f' and f'' from autodiff of `k.profile`, the squared
-    distance from `sqdist_tile` and <r_ij, A_j> = <x_i, A_j> - <y_j, A_j>."""
+    distance from `sqdist_tile` and <r_ij, A_j> = <x_i, A_j> - <y_j, A_j>,
+    the products at `precision` (else the configured matmul tier)."""
     if mode not in ("iso", "dot"):
         raise ValueError(f"grad_matvec_plain covers iso and dot, not {mode!r}")
     t = torch.sum(y * A, dim=1)  # <y_j, A_j>
+    p = precision
 
     def body(xb):
         if mode == "dot":
-            _, k1, k2 = elementwise_derivatives(k.profile, inner_tile(xb, y), 2)
-            return matmul_p(k1, A) + matmul_p(k2 * inner_tile(xb, A), y)
-        _, k1, k2 = elementwise_derivatives(k.profile, sqdist_tile(xb, y), 2)
-        W = k2 * (inner_tile(xb, A) - t[None, :])  # f'' <r_ij, A_j>
-        return -2.0 * matmul_p(k1, A) - 4.0 * (torch.sum(W, dim=1)[:, None] * xb
-                                               - matmul_p(W, y))
+            _, k1, k2 = elementwise_derivatives(k.profile, inner_tile(xb, y, p), 2)
+            return matmul_p(k1, A, p) + matmul_p(k2 * inner_tile(xb, A, p), y, p)
+        _, k1, k2 = elementwise_derivatives(k.profile, sqdist_tile(xb, y, p), 2)
+        W = k2 * (inner_tile(xb, A, p) - t[None, :])  # f'' <r_ij, A_j>
+        return -2.0 * matmul_p(k1, A, p) - 4.0 * (torch.sum(W, dim=1)[:, None] * xb
+                                                  - matmul_p(W, y, p))
 
     return map_rows(body, x, block, x.shape[1])
 
@@ -96,26 +116,34 @@ def _check_inputs(k, x, y, A, spec, mode):
     return spec
 
 
-def grad_matvec(k, x, y, A, mode: str = "iso", spec: ProfileSpec = None):
+def grad_matvec(k, x, y, A, mode: str = "iso", spec: ProfileSpec = None, precision=None):
     """K3: the gradient-gramian block MVM (CUDA), or its plain version for
-    CPU tensors. x (n, d), y (m, d), A (m, d) -> (n, d)."""
+    CPU tensors. x (n, d), y (m, d), A (m, d) -> (n, d). The products run
+    at the tier's tensor-core passes (`precision`, else the configured
+    matmul_precision)."""
     if not x.is_cuda:
-        return grad_matvec_plain(k, x, y, A, mode)
+        return grad_matvec_plain(k, x, y, A, mode, precision=precision)
     spec = _check_inputs(k, x, y, A, spec, mode)
-    if resolve_precision() != "highest":
-        raise ValueError("the gradient-block kernel computes full fp32 products only; "
-                         "the tf32 tiers are not ported yet")
+    passes = tier_passes(precision)
     n, d = x.shape
     m = y.shape[0]
     out = torch.empty((n, d), dtype=torch.float32, device=x.device)
     if n == 0 or m == 0 or d == 0:
         return out.zero_()
+    iso = mode == "iso"
+    # |x_i|^2, |y_j|^2 and <y_j, A_j> for the expansion (iso)
+    x2 = torch.sum(x * x, dim=1) if iso else None
+    y2 = torch.sum(y * y, dim=1) if iso else None
+    ya = torch.sum(y * A, dim=1) if iso else None
     splits, per = column_split(_cdiv(n, _K3_TM), m, _K3_TN, x.device)
-    if per > _K3_MAX_TILES * _K3_TN:
-        per = _K3_MAX_TILES * _K3_TN
-        splits = _cdiv(m, per)
+    most = max(1, _K3_PARTIAL_BYTES // (4 * n * d))
+    if splits > most:
+        per = _cdiv(_cdiv(m, _K3_TN), most) * _K3_TN
+    per = min(per, _K3_MAX_TILES * _K3_TN)
+    splits = _cdiv(m, per)
     partial = out if splits == 1 else torch.empty((splits, n, d), dtype=torch.float32,
                                                   device=x.device)
     return _launch("grad", library().k3_grad_matvec, out,
-                   _ptr(x), _ptr(y), _ptr(A), _ptr(partial), _ptr(out), n, m, d,
-                   int(mode == "iso"), splits, per, _cspec(spec))
+                   _ptr(x), _ptr(y), _ptr(A), _ptr(x2), _ptr(y2), _ptr(ya), _ptr(partial),
+                   _ptr(out), n, m, d, int(iso), splits, per, passes, spec.family,
+                   spec.family_p, int(vec4_ok(d, x, y, A)), _cspec(spec), _cjet(spec))

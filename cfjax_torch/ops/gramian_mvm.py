@@ -1,6 +1,7 @@
 """Fused Gramian MVM kernels (counterpart of `cfjax.ops.pallas_mvm`).
 
-Two CUDA kernels for Hopper, in `cfjax_torch/csrc/gramian_mvm.cu`:
+Two CUDA kernels for Hopper, K1 in `cfjax_torch/csrc/gramian_mvm.cu` and
+K2 in `cfjax_torch/csrc/expand_mvm.cu`:
 
   * K1 `gramian_matvec_direct` (replaces `pallas_gramian_matvec_direct`):
     b = K a for isotropic kernels at d <= 16, with the exact
@@ -10,9 +11,11 @@ Two CUDA kernels for Hopper, in `cfjax_torch/csrc/gramian_mvm.cu`:
     other profile runs the interpreted instance;
   * K2 `gramian_matvec_expand` (replaces `pallas_gramian_matvec`): b = K a
     for isotropic kernels at any d through ||x||^2 + ||y||^2 - 2 x.y, and
-    for dot-product kernels through x.y, in full fp32 ("highest" tier).
+    for dot-product kernels through x.y, the x.y tile on the tensor cores
+    at the matmul tier's passes (`tiles.TIER_PASSES`), a one-leaf profile
+    through its family instance, any other through the interpreter.
 
-The source is compiled with nvcc for sm_90a at first use into `build/`
+The sources are compiled with nvcc for sm_90a at first use into `build/`
 at the checkout root and loaded with ctypes (`ops/build.py`). Each
 wrapper takes the kernel's plain torch version when its tensors lie on
 the CPU; for CUDA tensors it launches the kernel or raises. `LAUNCHES`
@@ -31,7 +34,7 @@ import torch
 from ..kernels.profile_spec import (FAMILY_CONSTS, FAMILY_NONE, MAX_CONSTS, MAX_OPS,
                                     ProfileSpec, to_spec)
 from . import build as _build
-from .tiles import sqdist_tile, inner_tile, resolve_precision
+from .tiles import inner_tile, sqdist_tile, tier_passes
 
 # largest d of the direct kernel (its template instances run d = 1..16)
 DIRECT_MAX_D = 16
@@ -80,7 +83,7 @@ def _cspec(spec: ProfileSpec) -> _CSpec:
 
 @functools.cache
 def library() -> ctypes.CDLL:
-    """The K1/K2 library (built once per source digest), with its C
+    """The K1 library (built once per source digest), with its C
     signatures set."""
     lib = _build.load("gramian_mvm")
     p, i = ctypes.c_void_p, ctypes.c_int
@@ -88,7 +91,16 @@ def library() -> ctypes.CDLL:
     lib.k1_gramian_matvec_direct.restype = i
     lib.k1_gramian_matvec_family.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, _CFamily, p]
     lib.k1_gramian_matvec_family.restype = i
-    lib.k2_gramian_matvec_expand.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, _CSpec, p]
+    return lib
+
+
+@functools.cache
+def expand_library() -> ctypes.CDLL:
+    """The K2 library (built once per source digest), with its C signature
+    set."""
+    lib = _build.load("expand_mvm")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.k2_gramian_matvec_expand.argtypes = [p] * 7 + [i] * 10 + [_CSpec, _CFamily, p]
     lib.k2_gramian_matvec_expand.restype = i
     return lib
 
@@ -112,6 +124,12 @@ def column_split(n_row_blocks: int, m: int, tn: int, device) -> tuple:
     want = max(1, min(col_tiles, _cdiv(4 * sms, n_row_blocks)))
     per = _cdiv(col_tiles, want)
     return _cdiv(col_tiles, per), per * tn
+
+
+def vec4_ok(d, *ts):
+    """The tensor-core kernels stage rows with 16-byte copies: d a multiple
+    of 4 and every array 16-byte aligned."""
+    return d % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in ts)
 
 
 def _check_inputs(k, x, y, a, spec, mode):
@@ -215,14 +233,13 @@ def gramian_matvec_direct(k, x, y, a, spec: ProfileSpec = None):
 def gramian_matvec_expand(k, x, y, a, mode: str = "iso", precision=None,
                           spec: ProfileSpec = None):
     """K2: b = K a for an isotropic (any d) or dot-product kernel (CUDA),
-    or its plain version for CPU tensors. The kernel computes the
-    "highest" tier only."""
+    or its plain version for CPU tensors. The x.y tile runs at the
+    tier's tensor-core passes (`precision`, else the configured
+    matmul_precision)."""
     if not x.is_cuda:
         return gramian_matvec_expand_plain(k, x, y, a, mode, precision)
     spec = _check_inputs(k, x, y, a, spec, mode)
-    if resolve_precision(precision) != "highest":
-        raise ValueError("the expansion kernel computes full fp32 inner products "
-                         "only; the tf32 tiers are not ported yet")
+    passes = tier_passes(precision)
     n, d = x.shape
     m = y.shape[0]
     out = torch.empty(n, dtype=torch.float32, device=x.device)
@@ -233,6 +250,8 @@ def gramian_matvec_expand(k, x, y, a, mode: str = "iso", precision=None,
     splits, per = column_split(_cdiv(n, _K2_BM), m, _K2_BN, x.device)
     partial = out if splits == 1 else torch.empty((splits, n), dtype=torch.float32,
                                                   device=x.device)
-    return _launch("expand", library().k2_gramian_matvec_expand, out,
+    return _launch("expand", expand_library().k2_gramian_matvec_expand, out,
                    _ptr(x), _ptr(y), _ptr(x2), _ptr(y2), _ptr(a), _ptr(partial),
-                   _ptr(out), n, m, d, int(mode == "iso"), splits, per, _cspec(spec))
+                   _ptr(out), n, m, d, int(mode == "iso"), splits, per, passes,
+                   spec.family, spec.family_p, int(vec4_ok(d, x, y)), _cspec(spec),
+                   _cfamily(spec))

@@ -13,6 +13,13 @@ On the CPU every tier is exact fp32/fp64, as cfjax's tiers are on XLA's
 CPU backend. On CUDA the tf32 tiers are emulated by rounding the inputs
 to tf32 and multiplying in full fp32, which gives the tensor cores'
 tf32 products exactly, independent of torch's global tf32 flags.
+
+The CUDA kernels K2 and K3 run each tier as passes over the tensor cores
+(`TIER_PASSES`, csrc/tc_tile.cuh): "default" one tf32 pass, "high" the
+three of 3xTF32 (the products `_mm` emulates), and "highest" the same
+three: on the card their error against float64 matched a three-way
+split's six passes (the counterpart of cfjax's bf16_6x) in every case
+measured (PERF.md), so "highest" takes the faster split.
 """
 
 from __future__ import annotations
@@ -22,11 +29,20 @@ import torch
 from .. import config as _config
 
 
+# tensor-core passes of each tier in the CUDA kernels
+TIER_PASSES = {"default": 1, "high": 3, "highest": 3}
+
+
 def resolve_precision(precision=None) -> str:
     p = _config.DEFAULT.matmul_precision if precision is None else precision
     if p not in ("default", "high", "highest"):
         raise ValueError(f"unknown matmul precision {p!r}")
     return p
+
+
+def tier_passes(precision=None) -> int:
+    """The tensor-core passes of a tier (else of the configured one)."""
+    return TIER_PASSES[resolve_precision(precision)]
 
 
 def _tf32(t):

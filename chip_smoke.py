@@ -26,13 +26,18 @@ card, then drives the paths a user runs:
     kernel at n = 65536 and BASELINE config 3 (separable EQ on 128^3);
     the posterior mean off the grid is a rectangular Gramian through K1.
 Phase 1 holds K1 (its family instances and its interpreted one) and K2,
-phase 6 K3, phase 9 K4 against their float64 plain versions; phase 0
-reads the compiler's report (K1's family instances keep no stack frame);
+phase 6 K3, phase 9 K4 against their float64 plain versions; K2 and K3
+at each matmul tier ("highest", "high", "default": their tensor-core
+passes) also against their plain version at that tier, on coincident and
+near-coincident points. Phase 0 reads the compiler's report (K1's, K2's
+and K3's family instances keep no stack frame and spill nothing);
 phase 5 times each kernel against its plain version and, for K4, against
-one PyTorch call that computes the same product (a CSR SpMV), and
-computes each kernel's bound, the least time the card could take for the
-same work. One line per phase, then a JSON line of kernel results, the
-card's name and power limit, and a last JSON line
+one PyTorch call that computes the same product (a CSR SpMV), K2 and K3 at
+each tier, and computes each kernel's bound, the least time the card
+could take for the same work. Phases 7 and 8 run again at the tf32
+tiers once the path's launches are counted. One line per phase, then a
+JSON line of kernel results, the card's name and power limit, and a last
+JSON line
 `{"ok": true, "device": {...}}`. Any failed check raises: the script then
 exits non-zero and prints no result. It needs a CUDA device and fails at
 once without one.
@@ -53,6 +58,20 @@ import torch
 K1_BOUND = 1e-5   # relative L2 error of K1 vs its float64 plain version
 K2_BOUND = 1e-4   # K2: the expansion cancels (cfjax's interpret tolerance is 2e-4)
 K3_BOUND = 1e-4   # K3: float32 jet and Taylor bound (cfjax's interpret tolerance is 3e-4)
+# K2 and K3 at each matmul tier (relative L2): (against their plain version
+# at the same tier on the card, the tf32 roundings emulated; against
+# float64), set from the H100 run in PERF.md: 2-6x above the largest
+# sound reading and, at three passes, below the smallest reading of the
+# fault control (`check_tiers`). K3's plain version forms s in difference
+# form at d <= 16, where the kernel's one pass rounds the expansion: hence
+# its looser "default" limit against the plain version.
+TIERS = ("highest", "high", "default")
+TIER_BOUND = {"K2": ({"highest": 5e-6, "high": 5e-6, "default": 5e-6},
+                     {"highest": 5e-6, "high": 5e-6, "default": 1e-3}),
+              "K3": ({"highest": 3e-5, "high": 3e-5, "default": 5e-3},
+                     {"highest": 3e-5, "high": 3e-5, "default": 1e-2})}
+# the float64 residual of phases 7 and 8's solves at each tier
+SOLVE_BOUND = {"highest": 1e-4, "high": 1e-4, "default": 3e-3}
 K4_BOUND = {torch.float32: 1e-5, torch.float64: 1e-12}   # K4 vs its float64 plain version
 SPARSE_TOL = 1e-6  # the sparsification tolerance of phases 10 and 11
 TOEPLITZ_BOUND = 1e-5   # float32 FFT MVMs of phases 12-13 vs float64 (relative L2)
@@ -67,12 +86,24 @@ Y_NOISE = 0.01    # standard deviation of the noise in the observations y
 FP32_RATE = 132 * 128 * 1.98e9   # fp32 instructions per second
 SFU_RATE = 132 * 16 * 1.98e9     # SFU operations per second
 HBM_RATE = 3.35e12               # bytes per second
+TC_RATE = 495e12                 # dense tf32 tensor-core flops per second
 
 
 def op_bound(pairs, fp32, sfu=0):
     """(ms, what sets it) for `pairs` entries of fp32 and SFU operations each."""
     t_fp32, t_sfu = pairs * fp32 / FP32_RATE * 1e3, pairs * sfu / SFU_RATE * 1e3
     return (t_sfu, "operations (SFU)") if t_sfu > t_fp32 else (t_fp32, "operations (fp32)")
+
+
+def tc_bound(pairs, flops, passes, fp32, sfu):
+    """(ms, what sets it) of a tensor-core kernel: `flops` per entry in
+    products at `passes` tf32 passes over the dense tf32 rate, against the
+    per-entry fp32 instructions and SFU operations over theirs."""
+    t = {"operations (tensor cores, tf32)": pairs * flops * passes / TC_RATE * 1e3,
+         "operations (fp32)": pairs * fp32 / FP32_RATE * 1e3,
+         "operations (SFU)": pairs * sfu / SFU_RATE * 1e3}
+    key = max(t, key=t.get)
+    return t[key], key
 
 
 def k1_ops(spec, d):
@@ -204,27 +235,81 @@ def phase1_kernels(tk, mvm):
                 record("family" if spec.family else "interpreted", out, ref, K1_BOUND,
                        f"K1 d={d} {n}x{m} {k!r} family {spec.family}")
     # points scaled by 1/sqrt(d): distances and inner products O(1), so
-    # the profiles neither underflow nor overflow in f32
-    cases = [(tk.EQ(), "iso", d) for d in (17, 64, 257)]
-    cases += [(tk.MaternP(2), "iso", d) for d in (17, 64, 257)]
+    # the profiles neither underflow nor overflow in f32; the first 16 rows
+    # of y are rows of x (s = 0) and the next 16 those rows moved by 1e-3
+    # (near-coincident); families and the interpreter (a sum)
+    iso = [tk.EQ(), tk.MaternP(2), 3.0 * tk.Lengthscale(tk.EQ(), 0.7), tk.RQ(1.5),
+           tk.InverseMultiQuadratic(0.7), 2.0 * tk.EQ() + 0.5 * tk.MaternP(1)]
+    cases = [(k, "iso", d) for d in (17, 64, 257) for k in iso]
     cases += [(tk.Dot() ** 2, "dot", 64), (tk.ExponentialDot(), "dot", 64)]
+    tiers = tier_record()
     for k, mode, d in cases:
-        x = cuda_tensor(rng.standard_normal((5003, d)) / np.sqrt(d))
-        y = cuda_tensor(rng.standard_normal((3001, d)) / np.sqrt(d))
-        a = cuda_tensor(rng.standard_normal(3001))
+        xs = rng.standard_normal((5003, d)) / np.sqrt(d)
+        ys = rng.standard_normal((3001, d)) / np.sqrt(d)
+        ys[:16] = xs[:16]
+        ys[16:32] = xs[:16] + 1e-3 * rng.standard_normal((16, d)) / np.sqrt(d)
+        x, y, a = cuda_tensor(xs), cuda_tensor(ys), cuda_tensor(rng.standard_normal(3001))
         out = mvm.gramian_matvec_expand(k, x, y, a, mode)
         ref = mvm.gramian_matvec_expand_plain(k, x.double(), y.double(), a.double(), mode)
-        record("expand", out, ref, K2_BOUND, f"K2 {mode} d={d} {k!r}")
+        what = f"K2 {mode} d={d} {k!r}"
+        record("expand", out, ref, K2_BOUND, what)
+        check_tiers(tiers, "K2", what, ref,
+                    lambda tier: mvm.gramian_matvec_expand(k, x, y, a, mode, precision=tier),
+                    lambda tier: mvm.gramian_matvec_expand_plain(k, x, y, a, mode,
+                                                                 precision=tier))
     torch.cuda.synchronize()
+    res["tiers"] = tiers
     fam, itp = res["family"], res["interpreted"]
     res["direct"] = [fam[0] + itp[0], max(fam[1], itp[1]), max(fam[2], itp[2])]
     print(f"phase 1 kernels vs plain: K1 family instances {fam[0]} cases (EQ, Exp, MaternP "
           f"0-3, RQ, Cauchy, IMQ, lengthscales, a constant; d in 1, 3, 5, 8, 16) max rel "
           f"{fam[1]:.3e} max abs {fam[2]:.3e}; K1 interpreted {itp[0]} cases max rel "
           f"{itp[1]:.3e} max abs {itp[2]:.3e} (bound {K1_BOUND:.0e}); "
-          f"K2 {res['expand'][0]} cases max rel {res['expand'][1]:.3e} "
-          f"(bound {K2_BOUND:.0e}) max abs {res['expand'][2]:.3e}", flush=True)
+          f"K2 {res['expand'][0]} cases (6 iso kernels at d 17, 64, 257 and 2 dot at 64, "
+          f"16 coincident and 16 near-coincident points each) max rel {res['expand'][1]:.3e} "
+          f"(bound {K2_BOUND:.0e}) max abs {res['expand'][2]:.3e}; K2 by tier "
+          f"{tier_text(tiers, 'K2')}", flush=True)
     return res
+
+
+def tier_record():
+    """{tier: [cases, max rel vs the plain version at the tier, max rel vs
+    float64, min rel of the fault control]}."""
+    return {tier: [0, 0.0, 0.0, float("inf")] for tier in TIERS}
+
+
+def check_tiers(rec, name, what, ref, kern, plain):
+    """kern(tier) at each tier against plain(tier) (float32 on the card)
+    and ref (float64), within kernel `name`'s TIER_BOUND. The fault
+    control: the kernel at the other pass count (one pass where three are
+    due, three where one is) against plain(tier); rec keeps its smallest
+    reading, which a limit that tells the passes apart stays below."""
+    from cfjax_torch.ops.tiles import tier_passes
+
+    outs = {tier: kern(tier) for tier in TIERS}
+    for tier, out in outs.items():
+        check(torch.isfinite(out).all().item(), f"{what} {tier}: non-finite output")
+        r64 = rel(out, ref)
+        b_plain, b64 = TIER_BOUND[name][0][tier], TIER_BOUND[name][1][tier]
+        check(r64 <= b64, f"{what} {tier}: relative error {r64:.3e} vs float64 > {b64:.0e}")
+        same = plain(tier).double()
+        rt = rel(out, same)
+        check(rt <= b_plain, f"{what} {tier} ({tier_passes(tier)} passes): relative error "
+                             f"{rt:.3e} vs the plain version at the tier > {b_plain:.0e}")
+        fault = rel(outs["default" if tier_passes(tier) == 3 else "highest"], same)
+        c = rec[tier]
+        rec[tier] = [c[0] + 1, max(c[1], rt), max(c[2], r64), min(c[3], fault)]
+
+
+def tier_text(rec, name):
+    from cfjax_torch.ops.tiles import tier_passes
+
+    return "; ".join(
+        f"{tier} ({tier_passes(tier)} passes) {c[0]} cases, max rel {c[1]:.3e} vs the plain "
+        f"version at the tier (bound {TIER_BOUND[name][0][tier]:.0e}; the other pass count "
+        f"reads at least {c[3]:.3e}), {c[2]:.3e} vs float64 (bound "
+        f"{TIER_BOUND[name][1][tier]:.0e})"
+        for tier, c in rec.items())
 
 
 def residual(Kalpha, alpha, y, noise=NOISE):
@@ -270,23 +355,60 @@ def phase_gp(tk, ops, gp, mvm, n, d, kernel, kind, label, rng, solve_opts, resid
                 cg_iters=None if info is None else info[0], explain=how)
 
 
+def phase_float64_observations(tk, gp, mvm):
+    """gp_condition on float32 points with numpy's float64 observations and
+    precondition="never" (plain CG: max_cholesky_size lowered to 1024 for
+    n = 4096): y takes the points' float32, so every CG iteration runs K1."""
+    import cfjax_torch
+
+    rng = np.random.default_rng(2)
+    xs = rng.standard_normal((4096, 3))
+    x = cuda_tensor(xs)
+    y = np.sin(xs[:, 0]) + Y_NOISE * rng.standard_normal(4096)   # float64
+    k = tk.MaternP(2)
+    cfjax_torch.set_config(max_cholesky_size=1024)
+    try:
+        before = mvm.LAUNCHES["direct"]
+        post = gp.gp_condition(k, x, y, noise=NOISE, precondition="never", tol=1e-5,
+                               maxiter=1000)
+        launches = mvm.LAUNCHES["direct"] - before
+    finally:
+        cfjax_torch.set_config(max_cholesky_size=cfjax_torch.config.Config.max_cholesky_size)
+    it = post.solve_info[0]
+    yt = torch.tensor(y, device="cuda")
+    res64 = residual(mvm.gramian_matvec_direct_plain(k, x.double(), x.double(),
+                                                     post.alpha.double()), post.alpha, yt)
+    check(post.alpha.dtype == torch.float32 and launches >= it and res64 <= 1e-3,
+          f"phase 2b: alpha {post.alpha.dtype}, {launches} K1 launches for {it} CG "
+          f"iterations, float64 residual {res64:.3e}")
+    print(f"phase 2b float32 points, float64 observations, precondition='never' n=4096: "
+          f"alpha {post.alpha.dtype}, {it} CG iterations, {launches} K1 launches, float64 "
+          f"residual {res64:.3e} (bound 1e-3)", flush=True)
+    return dict(iters=it, launches=launches, residual64=res64)
+
+
 def phase6_grad_kernel(tk, gmvm):
     """K3 vs its float64 plain version, with copies of rows of x in y so
-    that s = 0 occurs exactly. Returns (cases, max rel, max abs error,
-    max |reference|)."""
+    that s = 0 occurs exactly, and rows moved by 1e-3 (near-coincident:
+    the kernel's exact path); at each tier against the plain version at
+    the tier. Returns [cases, max rel, max abs error, max |reference|,
+    tier record]."""
     rng = np.random.default_rng(6)
     kernels = [(tk.EQ(), "iso"), (tk.MaternP(2), "iso"), (tk.MaternP(3), "iso"),
                (tk.Lengthscale(tk.MaternP(2), 0.5), "iso"),
                (2.0 * tk.EQ() + 0.5 * tk.MaternP(2), "iso"), (tk.RQ(1.5), "iso"),
                (tk.Dot() ** 2, "dot"), (tk.ExponentialDot(), "dot")]
     res = [0, 0.0, 0.0, 0.0]
+    tiers = tier_record()
     for d in (1, 3, 16, 64, 257, 1024):
         for n, m in ((1003, 601), (7, 4096)):
             # points scaled by 1/sqrt(d): distances and inner products O(1),
             # so the off-diagonal blocks neither underflow nor overflow
             xs = rng.standard_normal((n, d)) / np.sqrt(d)
             ys = rng.standard_normal((m, d)) / np.sqrt(d)
-            ys[:min(16, n)] = xs[:16]
+            c = min(16, n)
+            ys[:c] = xs[:c]   # coincident, then near-coincident (moved by 1e-3)
+            ys[c:2 * c] = xs[:c] + 1e-3 * rng.standard_normal((c, d)) / np.sqrt(d)
             x, y, A = cuda_tensor(xs), cuda_tensor(ys), cuda_tensor(rng.standard_normal((m, d)))
             for k, mode in kernels:
                 out = gmvm.grad_matvec(k, x, y, A, mode)
@@ -298,11 +420,16 @@ def phase6_grad_kernel(tk, gmvm):
                 res = [res[0] + 1, max(res[1], r),
                        max(res[2], float((out.double() - ref).abs().max())),
                        max(res[3], float(ref.abs().max()))]
+                check_tiers(tiers, "K3", what, ref,
+                            lambda tier: gmvm.grad_matvec(k, x, y, A, mode, precision=tier),
+                            lambda tier: gmvm.grad_matvec_plain(k, x, y, A, mode,
+                                                                precision=tier))
     torch.cuda.synchronize()
     print(f"phase 6 K3 vs float64 plain: {res[0]} cases (8 kernels, d in 1..1024, "
-          f"1003x601 and 7x4096, up to 16 coincident points each) max rel {res[1]:.3e} "
-          f"(bound {K3_BOUND:.0e}) max abs {res[2]:.3e} (largest |entry| {res[3]:.3e})",
-          flush=True)
+          f"1003x601 and 7x4096, up to 16 coincident and 16 near-coincident points each) max "
+          f"rel {res[1]:.3e} (bound {K3_BOUND:.0e}) max abs {res[2]:.3e} (largest |entry| "
+          f"{res[3]:.3e}); K3 by tier {tier_text(tiers, 'K3')}", flush=True)
+    res.append(tiers)
     return res
 
 
@@ -345,13 +472,43 @@ def phase7_gradient_gp(tk, ops, gp, mvm, gmvm):
     ref = gmvm.grad_matvec_plain(k, xt[:64].double(), xd, alpha.double().reshape(n, d))
     mean_err = rel(mean[:64 * d], ref.reshape(-1))
     check(mean_err <= 1e-4, f"phase 7: posterior mean rows disagree ({mean_err:.3e})")
+
+    def solve(tier):
+        post, wall = sync_time(lambda: gp.gp_condition(kernel, x, y, noise=NOISE, tol=1e-5,
+                                                       maxiter=1000))
+        plain = gmvm.grad_matvec_plain(k, xd, xd, post.alpha.double().reshape(n, d))
+        return post.solve_info[0], residual(G @ post.alpha, post.alpha, y, NOISE), \
+            residual(plain.reshape(-1), post.alpha, y, NOISE), wall
+
     print(f"phase 7 gradient GP (BASELINE config 4) EQ n=4096 d=16, 65536 unknowns: "
           f"{it} CG iterations (tol 1e-5), residual {res:.3e} (K3) / {res64:.3e} float64 "
           f"(bound 1e-4), K3 launches {launches}, gp_condition {wall:.3f} s, mean(1024) "
           f"{mean_wall:.4f} s, mean rows rel {mean_err:.3e}, off-diagonal share "
           f"||G a - a|| / ||G a|| = {share:.3f} | {how}", flush=True)
     return dict(cg_iters=it, launches=launches, residual=res, residual64=res64,
-                wall_s=wall, mean_err=mean_err, share=share)
+                wall_s=wall, mean_err=mean_err, share=share, solve=solve)
+
+
+def at_tiers(label, solve):
+    """The solve at the tf32 tiers, after the path's launches are counted:
+    "CG iterations, residual (K3) / float64, wall" of each, the float64
+    residual within SOLVE_BOUND."""
+    import cfjax_torch
+    from cfjax_torch.ops.tiles import tier_passes
+
+    parts = []
+    for tier in ("high", "default"):
+        cfjax_torch.set_config(matmul_precision=tier)
+        try:
+            it, res, res64, wall = solve(tier)
+        finally:
+            cfjax_torch.set_config(matmul_precision="highest")
+        check(np.isfinite(res64) and res64 <= SOLVE_BOUND[tier],
+              f"{label} at {tier!r}: float64 residual {res64:.3e} > {SOLVE_BOUND[tier]:.0e}")
+        parts.append(f"at {tier!r} ({tier_passes(tier)} tf32 passes): {it} iterations, "
+                     f"residual {res:.3e} (K3) / {res64:.3e} float64 (bound "
+                     f"{SOLVE_BOUND[tier]:.0e}), {wall:.3f} s")
+    return "; ".join(parts)
 
 
 def phase8_readme_gradient(tk, ops, gmvm):
@@ -378,6 +535,12 @@ def phase8_readme_gradient(tk, ops, gmvm):
     plain = gmvm.grad_matvec_plain(k, xd, xd, xs.double().reshape(n, d)).reshape(-1)
     res64 = residual(plain, xs, v, 1e-3)
     check(max(res, res64) <= 1e-4, f"phase 8: residual {res:.3e} / {res64:.3e} > 1e-4")
+
+    def solve(tier):
+        (z, info), wall = sync_time(lambda: ops.solve_with_info(op, v, tol=1e-6, maxiter=200))
+        plain = gmvm.grad_matvec_plain(k, xd, xd, z.double().reshape(n, d)).reshape(-1)
+        return info[0], residual(G @ z, z, v, 1e-3), residual(plain, z, v, 1e-3), wall
+
     # at this draw s = |x_i - x_j|^2 ~ 2 d: f'(s) of MaternP(2) falls out of
     # the float32 range off the diagonal, so G is -2 f'(0) I = 5/3 I in float32
     D2 = torch.cdist(x, x) ** 2
@@ -395,7 +558,7 @@ def phase8_readme_gradient(tk, ops, gmvm):
           f"{100 * zero_share:.2f}% of the pairs and at most {f1_max:.3e} (smallest normal "
           f"{torch.finfo(torch.float32).tiny:.3e}, min off-diagonal s = {float(D2.min()):.1f}), "
           f"off-diagonal share ||G v - 5/3 v|| / ||G v|| = {share:.3e}", flush=True)
-    return dict(residual=res, residual64=res64, wall_s=wall, row_err=row_err)
+    return dict(residual=res, residual64=res64, wall_s=wall, row_err=row_err, solve=solve)
 
 
 def phase9_rows_kernel(tmvm, res, S, a, what):
@@ -654,6 +817,36 @@ def ptxas_k1_family(build):
                                      f"{stack} bytes and spill {spill} bytes: "
                                      f"{[p for p in props if int(p[1]) or int(p[2])]}")
     return len(props), stack, spill, (min(regs), max(regs)) if regs else None
+
+
+def near_pairs(x, y, tau):
+    """Pairs with s <= tau (|x|^2 + |y|^2), K3's near-coincident test (s in
+    float64 here), counted in row blocks."""
+    x, y = x.double(), y.double()
+    y2 = torch.sum(y * y, 1)
+    total = 0
+    for i in range(0, x.shape[0], 1024):
+        xb = x[i:i + 1024]
+        q = torch.sum(xb * xb, 1)[:, None] + y2[None, :]
+        total += int((torch.cdist(xb, y) ** 2 <= tau * q).sum())
+    return total
+
+
+def ptxas_tc(build, lib, kernel, count):
+    """The tensor-core kernel's instances (template <ISO, FAM, P, PASSES>) in
+    the compiler's report beside its library: the family instances keep no
+    stack frame and spill nothing; the interpreted ones (FAM 0) spill
+    nothing and keep only the interpreter's stack. Returns (instances,
+    registers (min, max), the interpreted instances' stack bytes)."""
+    log = build.library_path(lib).with_suffix(".log").read_text()
+    ents = re.findall(rf"Compiling entry function '(\S*{kernel}ILb[01]ELi(\d+)ELi\d+ELi\d+E\S*)'"
+                      r"[^\n]*\n(?:[^\n]*\n)*?\s*(\d+) bytes stack frame, (\d+) bytes spill "
+                      r"stores, (\d+) bytes spill loads\n[^\n]*Used (\d+) registers", log)
+    check(len(ents) == count, f"ptxas reports {len(ents)} {kernel} instances, not {count}")
+    bad = [e[0] for e in ents if int(e[3]) or int(e[4]) or (int(e[1]) and int(e[2]))]
+    check(not bad, f"{kernel} instances spill or keep a stack frame: {bad}")
+    regs = [int(e[5]) for e in ents]
+    return len(ents), (min(regs), max(regs)), sorted({int(e[2]) for e in ents if not int(e[1])})
 
 
 def rows64(k, x, y, a):
@@ -969,19 +1162,25 @@ def main():
     from cfjax_torch.ops import grad_mvm as gmvm
     from cfjax_torch.ops import gramian_mvm as mvm
     from cfjax_torch.ops import tile_ell_mvm as tmvm
+    from cfjax_torch.kernels.profile_spec import to_spec
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
     build.build()
-    mvm.library(), gmvm.library(), tmvm.library()
+    mvm.library(), mvm.expand_library(), gmvm.library(), tmvm.library()
     built_s = time.perf_counter() - t0
     fam_n, fam_stack, fam_spill, fam_regs = ptxas_k1_family(build)
+    k2_n, k2_regs, k2_stack = ptxas_tc(build, "expand_mvm", "k2_tc", 20)
+    k3_n, k3_regs, k3_stack = ptxas_tc(build, "grad_mvm", "k3_tc", 18)
     print(f"phase 0 card: {smi} | torch {torch.__version__} cuda {torch.version.cuda} | "
           f"kernel libraries {', '.join(build.LIBRARIES)} built in {built_s:.1f} s | ptxas: "
           f"{fam_n} K1 family instances, stack frame {fam_stack} bytes, spills {fam_spill} "
-          f"bytes, registers {fam_regs}", flush=True)
+          f"bytes, registers {fam_regs}; K2 {k2_n} instances (10 profiles x 1, 3 passes), "
+          f"K3 {k3_n} (9 x 1, 3 passes): family instances 0 bytes stack, no instance spills, "
+          f"registers {k2_regs} / {k3_regs}, the interpreted instances' stack {k2_stack} / {k3_stack} "
+          f"bytes (the profile interpreter's)", flush=True)
 
     p1 = phase1_kernels(tk, mvm)
 
@@ -994,6 +1193,7 @@ def main():
     print(f"phase 2 cholesky n=16384 d=3 MaternP(2): residual {p2['residual']:.3e} / {p2['residual64']:.3e} f64 "
           f"(bound 1e-3) gp_condition {p2['wall_s']:.3f} s mean(4096) "
           f"{p2['mean_wall_s']:.4f} s | {p2['explain']}", flush=True)
+    p2b = phase_float64_observations(tk, gp, mvm)
     p3 = phase_gp(tk, ops, gp, mvm, 131072, 3, tk.MaternP(2), "direct",
                   "phase 3", rng, dict(tol=1e-5, maxiter=500), 2e-5)
     check(p3["cg_iters"] is not None and p3["cg_iters"] < 500,
@@ -1029,41 +1229,95 @@ def main():
     a17 = cuda_tensor(rng.standard_normal(131072))
     keq, km2 = tk.EQ(), tk.MaternP(2)
     k1t = time_k1(mvm, tk, xh, ah, x17, a17)
-    runs = {
-        "expand": (lambda: mvm.gramian_matvec_expand(k2, x64, x64, ah),
-                   lambda: mvm.gramian_matvec_expand_plain(k2, x64, x64, ah)),
-        "grad": (lambda: gmvm.grad_matvec(keq, xg7, xg7, ag7),
-                 lambda: gmvm.grad_matvec_plain(keq, xg7, xg7, ag7)),
-        "grad8": (lambda: gmvm.grad_matvec(km2, xg8, xg8, ag8),
-                  lambda: gmvm.grad_matvec_plain(km2, xg8, xg8, ag8)),
-    }
-    # (ms of one call with the wrapper's host time, device ms, plain ms)
+    from cfjax_torch.ops.tiles import tier_passes
+
+    def runs(tier):
+        return {
+            "expand": (lambda: mvm.gramian_matvec_expand(k2, x64, x64, ah, precision=tier),
+                       lambda: mvm.gramian_matvec_expand_plain(k2, x64, x64, ah,
+                                                               precision=tier)),
+            "grad": (lambda: gmvm.grad_matvec(keq, xg7, xg7, ag7, precision=tier),
+                     lambda: gmvm.grad_matvec_plain(keq, xg7, xg7, ag7, precision=tier)),
+            "grad8": (lambda: gmvm.grad_matvec(km2, xg8, xg8, ag8, precision=tier),
+                      lambda: gmvm.grad_matvec_plain(km2, xg8, xg8, ag8, precision=tier)),
+        }
+
+    # (ms of one call with the wrapper's host time, device ms, plain ms at the tier)
     times = {"direct": (k1t["call_ms"], k1t["ms"], k1t["plain_ms"])}
-    for key, (kern, plain) in runs.items():
-        times[key] = kernel_times(kern, plain)
-    # bounds: K1 by its family's operations; K2: d FFMA for x.y, the
-    # expansion (FADD, FFMA, FMNMX), EQ (FMUL, ex2) and the row sum; K3: 9 d
-    # flops per pair (cfjax's count), 4.5 d fp32 instructions
-    bounds = {"direct": k1t["bound"], "expand": op_bound(16384 ** 2, 64 + 5, 1),
-              "grad": op_bound(4096 ** 2, 4.5 * 16), "grad8": op_bound(1024 ** 2, 4.5 * 1024)}
+    tier_times = {}
+    for tier in TIERS:
+        for key, (kern, plain) in runs(tier).items():
+            tier_times[key, tier] = kernel_times(kern, plain)
+    for key in ("expand", "grad", "grad8"):
+        times[key] = tier_times[key, "highest"]
+    # the cost of K3's near-coincident path: the shapes against a fresh draw
+    # of points (no pair within tau) beside the timed run against themselves
+    # (each point's own pair; device ms)
+    near = {}
+    for key, k, xx, A in (("grad", keq, xg7, ag7), ("grad8", km2, xg8, ag8)):
+        scale = 0.5 if key == "grad" else 1.0
+        yy = cuda_tensor(scale * rng.standard_normal(tuple(xx.shape)))
+        far = float(np.median(graph_ms(lambda: gmvm.grad_matvec(k, xx, yy, A))))
+        near[key] = (times[key][1], far, near_pairs(xx, xx, gmvm.NEAR_TAU),
+                     near_pairs(xx, yy, gmvm.NEAR_TAU))
+    # bounds. K1 by its family's least operations (SFU), and beside it its
+    # fp32 issue with the 4 instructions an entry of exp2's split argument.
+    # K2 / K3 on the tensor cores: 2 d flops an entry (x.y) / 8 d a pair
+    # (four products) at the tier's passes, against the per-entry fp32 and
+    # SFU work: K2 the expansion (FADD, FFMA, FMNMX), EQ (FMUL, ex2), the row
+    # sum's FFMA; K3 the expansion and tau test (4), w (1), alpha, beta and
+    # rowsum(beta) (4), clamp (1), and the jet: EQ 3 fp32 + 1 SFU, MaternP(2)
+    # 11 + 3 (rsqrt, ex2, rcp). Beside them the CUDA-core bound of the fp32
+    # kernel's count: K2 d FFMA + 5 fp32 + 1 SFU an entry, K3 9 d flops a pair.
+    fp32_k1, sfu_k1 = k1_ops(to_spec(tk.MaternP(2))[0], 3)
+    k1_issue = op_bound(131072 ** 2, fp32_k1 + 4, 0)
+    tcb = {"expand": lambda ps: tc_bound(16384 ** 2, 2 * 64, ps, 5, 1),
+           "grad": lambda ps: tc_bound(4096 ** 2, 8 * 16, ps, 13, 1),
+           "grad8": lambda ps: tc_bound(1024 ** 2, 8 * 1024, ps, 21, 3)}
+    core = {"expand": op_bound(16384 ** 2, 64 + 5, 1), "grad": op_bound(4096 ** 2, 4.5 * 16),
+            "grad8": op_bound(1024 ** 2, 4.5 * 1024)}
+    bounds = {"direct": k1t["bound"]}
+    for key in tcb:
+        bounds[key] = tcb[key](tier_passes("highest"))
     share = lambda key, i: 100 * bounds[key][0] / times[key][i]
     line = lambda key: (f"{times[key][0]:.4f} ms a call ({times[key][1]:.4f} ms device) vs "
                         f"plain {times[key][2]:.4f} ms, bound {bounds[key][0]:.4f} ms "
                         f"({bounds[key][1]}) = {share(key, 0):.1f}% of a call "
                         f"({share(key, 1):.1f}% of device)")
+
+    def tier_line(key):
+        parts = []
+        for tier in TIERS:
+            call, dev, plain = tier_times[key, tier]
+            b, by = tcb[key](tier_passes(tier))
+            parts.append(f"{tier} ({tier_passes(tier)} passes) {call:.4f} ms a call ({dev:.4f} "
+                         f"device) vs plain {plain:.4f}, bound {b:.4f} ms ({by}) = "
+                         f"{100 * b / dev:.1f}% of device, CUDA-core bound {core[key][0]:.4f} "
+                         f"ms ({core[key][1]})")
+        return "; ".join(parts)
+
+    near_text = "; ".join(
+        f"{label}: {near[key][2]} near pairs {near[key][0]:.4f} ms, {near[key][3]} near pairs "
+        f"{near[key][1]:.4f} ms device ({1e6 * (near[key][0] - near[key][1]) / max(1, near[key][2] - near[key][3]):.1f} ns a pair)"
+        for key, label in (("grad", "n=4096 d=16"), ("grad8", "n=d=1024")))
     print(f"phase 5 times (a call: CUDA events around one call, the wrapper's host time "
           f"included, median of 20; device: CUDA graphs of 20 calls, median of 10 replays; "
           f"plain: as a call, median of 20) and bounds: K1 MaternP(2) n=16384 d=3 family "
           f"instance {line('direct')}; interpreted instance {k1t['interp_call_ms']:.4f} ms a "
           f"call ({k1t['interp_ms']:.4f} ms device); K1 n=131072 d=3 (phase 3's shape) "
           f"{k1t['call17']:.3f} ms a call ({k1t['ms17']:.3f} ms device), bound "
-          f"{k1t['bound17'][0]:.3f} ms = {100 * k1t['bound17'][0] / k1t['call17']:.1f}% of a "
-          f"call ({100 * k1t['bound17'][0] / k1t['ms17']:.1f}% of device); K2 Lengthscale(EQ, 4) n=16384 "
-          f"d=64 {line('expand')}; K3 EQ n=4096 d=16 {line('grad')}; K3 MaternP(2) n=1024 "
-          f"d=1024 {line('grad8')}; library call: none for K1-K3 (one PyTorch call would "
-          f"form the n x m matrix) | phase walls: 2 {p2['wall_s']:.3f} s, 3 "
-          f"{p3['wall_s']:.3f} s ({p3['cg_iters']} CG iterations, {p3['launches']} K1 "
-          f"launches), 4 {p4['wall_s']:.3f} s", flush=True)
+          f"{k1t['bound17'][0]:.3f} ms ({k1t['bound17'][1]}) = "
+          f"{100 * k1t['bound17'][0] / k1t['call17']:.1f}% of a call "
+          f"({100 * k1t['bound17'][0] / k1t['ms17']:.1f}% of device), fp32-issue bound with "
+          f"exp2's split argument ({fp32_k1 + 4} fp32 an entry) {k1_issue[0]:.3f} ms = "
+          f"{100 * k1_issue[0] / k1t['ms17']:.1f}% of device | K2 Lengthscale(EQ, 4) n=16384 "
+          f"d=64: {tier_line('expand')} | K3 EQ n=4096 d=16: {tier_line('grad')} | K3 "
+          f"MaternP(2) n=1024 d=1024: {tier_line('grad8')} | K3's near-coincident path (pairs "
+          f"with s <= tau (|x|^2 + |y|^2), tau = {gmvm.NEAR_TAU}), the points against themselves "
+          f"and against a fresh draw: {near_text} | library call: none for K1-K3 "
+          f"(one PyTorch call would form the n x m matrix) | phase walls: 2 "
+          f"{p2['wall_s']:.3f} s, 3 {p3['wall_s']:.3f} s ({p3['cg_iters']} CG iterations, "
+          f"{p3['launches']} K1 launches), 4 {p4['wall_s']:.3f} s", flush=True)
 
     p6 = phase6_grad_kernel(tk, gmvm)
 
@@ -1077,6 +1331,9 @@ def main():
     check(p7["launches"] >= p7["cg_iters"],
           f"phase 7: {p7['launches']} K3 launches < {p7['cg_iters']} CG iterations")
     launches["grad"] = grad_launches
+    # phases 7 and 8 again at the tf32 tiers, outside the path's count
+    print(f"phases 7-8 at the tf32 tiers: phase 7 {at_tiers('phase 7', p7['solve'])} | "
+          f"phase 8 {at_tiers('phase 8', p8['solve'])}", flush=True)
 
     p9, p9_skipped = phase9_synthetic(tmvm, t_tile)
 
@@ -1136,9 +1393,10 @@ def main():
           f"n=65536), Kronecker MVM {p14['mvm_ms']:.4f} ms (128^3), levinson n=16384 "
           f"{p12['lev_ms']:.1f} ms; K1 launches {mvm.LAUNCHES['direct']}", flush=True)
 
+    # at "highest", the configured tier
     meta = {"direct": ("K1 gramian_matvec_direct", "cfjax_torch/csrc/gramian_mvm.cu",
                        "cfjax/ops/pallas_mvm.py:253", p1["direct"][2], None),
-            "expand": ("K2 gramian_matvec_expand", "cfjax_torch/csrc/gramian_mvm.cu",
+            "expand": ("K2 gramian_matvec_expand", "cfjax_torch/csrc/expand_mvm.cu",
                        "cfjax/ops/pallas_mvm.py:152", p1["expand"][2], None),
             "grad": ("K3 grad_matvec", "cfjax_torch/csrc/grad_mvm.cu",
                      "cfjax/ops/pallas_mvm.py:374", p6[2], None),

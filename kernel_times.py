@@ -1,5 +1,8 @@
 """Time the port's four kernels through their public wrappers, at the
-shapes of `chip_smoke.py` phase 5, for the `cfjax_torch` of a checkout.
+shapes of `chip_smoke.py` phase 5, for the `cfjax_torch` of a checkout;
+K2 and K3 at each matmul tier ("highest" under the kernels' names, the
+tf32 tiers as "... @ high" / "... @ default", null where the checkout's
+kernel declines the tier).
 
     python3 kernel_times.py [--root DIR] [--label NAME]
 
@@ -113,6 +116,21 @@ def main():
         f"K4 S @ a, phase 11's operator (nnz {S.nnz})": lambda: S @ a11,
     }
     out = {name: times(fn) for name, fn in runs.items()}
+    import cfjax_torch
+
+    for tier in ("high", "default"):
+        cfjax_torch.set_config(matmul_precision=tier)
+        try:
+            for name, fn in runs.items():
+                if name.startswith(("K2", "K3")):
+                    try:
+                        out[f"{name} @ {tier}"] = times(fn)
+                    except ValueError as e:   # only a kernel that declines the tier
+                        if "tf32 tiers are not ported" not in str(e):
+                            raise
+                        out[f"{name} @ {tier}"] = None
+        finally:
+            cfjax_torch.set_config(matmul_precision="highest")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(json.dumps({"label": args.label, "root": args.root, "card": smi, "kernels": out}))

@@ -465,3 +465,112 @@ def test_kronecker_on_cuda():
     G = gramian(SeparableKernel(tk.EQ(), B), x)
     assert isinstance(G, KroneckerOperator)
     assert _rel(G @ v, gramian(SeparableKernel(tk.EQ(), B), x.double()) @ v.double()) <= 1e-5
+
+
+# K2 and K3 at each matmul tier, relative L2: (against the plain version at
+# the same tier on the card, tf32 roundings emulated; against float64), the
+# limits of chip_smoke.py, 2-6x above the largest reading on the H100. One
+# tf32 pass ("default") rounds each input to 11 bits; three ("high",
+# "highest") carry about fp32's error. K3's plain version forms s exactly
+# at d <= 16, where the kernel's one pass rounds the expansion.
+TIER_BOUND = {"K2": ({"highest": 5e-6, "high": 5e-6, "default": 5e-6},
+                     {"highest": 5e-6, "high": 5e-6, "default": 1e-3}),
+              "K3": ({"highest": 3e-5, "high": 3e-5, "default": 5e-3},
+                     {"highest": 3e-5, "high": 3e-5, "default": 1e-2})}
+
+
+def _near_data(n, m, d, seed=0):
+    """Points scaled by 1/sqrt(d); y holds 16 rows of x (coincident) and 16
+    rows of x moved by 1e-3 (near-coincident)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, d)) / np.sqrt(d)
+    y = rng.standard_normal((m, d)) / np.sqrt(d)
+    y[:16] = x[:16]
+    y[16:32] = x[:16] + 1e-3 * rng.standard_normal((16, d)) / np.sqrt(d)
+    f = lambda v: torch.tensor(v, dtype=torch.float32, device="cuda")
+    return f(x), f(y), f(rng.standard_normal((m, d))), f(rng.standard_normal(m))
+
+
+@needs_gpu
+@pytest.mark.parametrize("prec", ["highest", "high", "default"])
+@pytest.mark.parametrize("k,mode", [(tk.EQ(), "iso"), (tk.MaternP(2), "iso"),
+                                    (tk.Lengthscale(tk.RQ(1.5), 0.8), "iso"),
+                                    (2.0 * tk.EQ() + 0.5 * tk.MaternP(1), "iso"),
+                                    (tk.Dot() ** 2, "dot")],
+                         ids=["EQ", "MaternP2", "LengthscaleRQ", "SumScaled", "Dot2"])
+def test_expand_kernel_at_each_tier(k, mode, prec):
+    x, y, _, a = _near_data(1003, 701, 64)
+    before = mvm.LAUNCHES["expand"]
+    out = mvm.gramian_matvec_expand(k, x, y, a, mode, precision=prec)
+    torch.cuda.synchronize()
+    assert mvm.LAUNCHES["expand"] == before + 1
+    same = mvm.gramian_matvec_expand_plain(k, x, y, a, mode, precision=prec)
+    ref = mvm.gramian_matvec_expand_plain(k, x.double(), y.double(), a.double(), mode)
+    assert _rel(out, same.double()) <= TIER_BOUND["K2"][0][prec]
+    assert _rel(out, ref) <= TIER_BOUND["K2"][1][prec]
+    assert torch.equal(out, mvm.gramian_matvec_expand(k, x, y, a, mode, precision=prec))
+
+
+@needs_gpu
+@pytest.mark.parametrize("prec", ["highest", "high", "default"])
+@pytest.mark.parametrize("d", [3, 16, 257])
+@pytest.mark.parametrize("k,mode", [(tk.EQ(), "iso"), (tk.MaternP(2), "iso"),
+                                    (2.0 * tk.EQ() + 0.5 * tk.MaternP(2), "iso"),
+                                    (tk.ExponentialDot(), "dot")],
+                         ids=["EQ", "MaternP2", "SumScaled", "ExponentialDot"])
+def test_grad_kernel_at_each_tier(k, mode, d, prec):
+    """K3 at each tier on coincident and near-coincident points (the
+    kernel's exact path) against the plain version at the tier and
+    float64; the result repeats bit for bit."""
+    x, y, A, _ = _near_data(1003, 601, d)
+    out = grad_mvm.grad_matvec(k, x, y, A, mode, precision=prec)
+    same = grad_mvm.grad_matvec_plain(k, x, y, A, mode, precision=prec)
+    ref = grad_mvm.grad_matvec_plain(k, x.double(), y.double(), A.double(), mode)
+    assert torch.isfinite(out).all()
+    assert _rel(out, same.double()) <= TIER_BOUND["K3"][0][prec]
+    assert _rel(out, ref) <= TIER_BOUND["K3"][1][prec]
+    assert torch.equal(out, grad_mvm.grad_matvec(k, x, y, A, mode, precision=prec))
+
+
+@needs_gpu
+@pytest.mark.parametrize("prec", ["high", "default"])
+def test_explain_names_k2_and_k3_at_tf32_tiers(prec):
+    import cfjax_torch
+
+    x, _, _ = _cuda_data(300, 1, 64, scale=64 ** -0.5)
+    cfjax_torch.set_config(matmul_precision=prec)
+    try:
+        how2 = explain(tk.Lengthscale(tk.EQ(), 4.0), x)
+        how3 = explain(GradientKernel(tk.EQ()), x)
+        G = gramian(GradientKernel(tk.EQ()), x)
+        before = mvm.LAUNCHES["grad"]
+        G @ torch.ones(G.shape[1], device="cuda")
+        launched = mvm.LAUNCHES["grad"] - before
+    finally:
+        cfjax_torch.set_config(matmul_precision="highest")
+    assert "cuda kernel K2" in how2 and f"matmul_precision {prec!r}" in how2
+    assert "cuda kernel K3" in how3 and launched == 1
+
+
+@needs_gpu
+def test_float32_solve_with_float64_observations_launches_k1():
+    """gp_condition with float32 points and numpy's float64 y, plain CG
+    (precondition="never", above a lowered max_cholesky_size): y takes the
+    points' dtype, so every CG iteration runs K1."""
+    import cfjax_torch
+    from cfjax_torch.gp import gp_condition
+
+    rng = np.random.default_rng(3)
+    xs = rng.standard_normal((1000, 3))
+    x = torch.tensor(xs, dtype=torch.float32, device="cuda")
+    y = np.sin(xs[:, 0]) + 0.01 * rng.standard_normal(1000)
+    cfjax_torch.set_config(max_cholesky_size=256)
+    try:
+        before = mvm.LAUNCHES["direct"]
+        post = gp_condition(tk.MaternP(2), x, y, noise=1e-2, precondition="never", tol=1e-5,
+                            maxiter=1000)
+        launches = mvm.LAUNCHES["direct"] - before
+    finally:
+        cfjax_torch.set_config(max_cholesky_size=cfjax_torch.config.Config.max_cholesky_size)
+    assert post.alpha.dtype == torch.float32
+    assert launches >= post.solve_info[0] > 0

@@ -174,3 +174,58 @@ def test_lml_other_methods_not_ported(problem):
     x, y, _ = problem
     with pytest.raises(NotImplementedError):
         t_lml(tk.EQ(), torch.tensor(x), torch.tensor(y), NOISE, method="slq")
+
+
+def _rel_err(out, ref):
+    return float(np.linalg.norm(out - ref) / np.linalg.norm(ref))
+
+
+def test_gp_condition_float32_points_float64_observations(rng, small_cholesky_size):
+    """float32 points with numpy's float64 observations, through the
+    Nystrom-PCG regime: the port casts y to the points' dtype as cfjax's
+    `jnp.asarray` does under JAX's default, so the solve stays in float32
+    (before, the float32 Nystrom apply met a float64 vector and raised).
+    cfjax here runs with x64 on, in float64: the float32 alpha agrees with
+    it to 1e-4 relative (float32 PCG at tol 1e-7, the condition number of
+    K + 1e-2 I)."""
+    x = rng.standard_normal((300, 3)).astype(np.float32)
+    y = rng.standard_normal(300)
+    kj = jk.MaternP(2)
+    pj = j_condition(kj, jnp.asarray(x), jnp.asarray(y), noise=NOISE, tol=1e-10)
+    pt = t_condition(tk.from_reference(kj), torch.tensor(x), y, noise=NOISE, tol=1e-7,
+                     maxiter=2000)
+    assert pt.alpha.dtype == torch.float32
+    assert _rel_err(pt.alpha.double().numpy(), np.asarray(pj.alpha)) <= 1e-4
+    # precondition="never" keeps float32 too (plain CG on the Gramian)
+    pn = t_condition(tk.from_reference(kj), torch.tensor(x), y, noise=NOISE,
+                     precondition="never", tol=1e-7, maxiter=2000)
+    assert pn.alpha.dtype == torch.float32
+    assert _rel_err(pn.alpha.double().numpy(), np.asarray(pj.alpha)) <= 1e-4
+
+
+def test_gradient_gp_float32_points_float64_observations(rng, small_cholesky_size):
+    """GradientKernel(EQ()) on float32 points (40, 4) with a float64 y of
+    160 gradient entries (CG regime: 160 > 128): float32 alpha, within 1e-4
+    relative of cfjax's float64 alpha."""
+    from cfjax.derivative import GradientKernel as JGradientKernel
+    from cfjax_torch.derivative import GradientKernel
+
+    x = rng.standard_normal((40, 4)).astype(np.float32)
+    y = rng.standard_normal(160)
+    pj = j_condition(JGradientKernel(jk.EQ()), jnp.asarray(x), jnp.asarray(y), noise=NOISE,
+                     tol=1e-10)
+    pt = t_condition(GradientKernel(tk.EQ()), torch.tensor(x), y, noise=NOISE, tol=1e-7,
+                     maxiter=2000)
+    assert pt.alpha.dtype == torch.float32
+    assert _rel_err(pt.alpha.double().numpy(), np.asarray(pj.alpha)) <= 1e-4
+
+
+def test_lml_float32_points_float64_observations(rng):
+    """log_marginal_likelihood casts y the same way (Cholesky branch)."""
+    x = rng.standard_normal((100, 3)).astype(np.float32)
+    y = rng.standard_normal(100)
+    kj = jk.MaternP(2)
+    ref = float(j_lml(kj, jnp.asarray(x), jnp.asarray(y), NOISE))
+    out = t_lml(tk.from_reference(kj), torch.tensor(x), y, NOISE)
+    assert out.dtype == torch.float32
+    assert abs(float(out) - ref) <= 1e-4 * abs(ref)

@@ -133,7 +133,7 @@ def test_library_digest_covers_every_source(tmp_path, monkeypatch):
     (tmp_path / "shared.cuh").write_text("// changed\n")
     assert build.library_path("a") != first
     assert build.library_path("a").name.startswith("liba_")
-    assert set(build.LIBRARIES) == {"gramian_mvm", "grad_mvm", "tile_ell_mvm"}
+    assert set(build.LIBRARIES) == {"gramian_mvm", "expand_mvm", "grad_mvm", "tile_ell_mvm"}
 
 
 def test_csrc_sources_declare_every_opcode():
@@ -151,3 +151,49 @@ def test_csrc_sources_declare_every_opcode():
     assert len(defined) == 13
     for limit in ("MAX_OPS", "MAX_CONSTS", "MAX_STACK"):
         assert f"#define {limit} {getattr(ps, limit)}" in header
+
+
+@pytest.mark.parametrize("prec", ["default", "high", "highest"])
+@pytest.mark.parametrize("name", ["EQ", "MaternP2", "Dot2"])
+def test_plain_matches_reference_at_each_tier(name, prec, rng):
+    """K3's plain version at each matmul tier (its `precision`, or the
+    configured one) against cfjax's blocked MVM under the same
+    `matmul_precision`. On the CPU every tier is exact in both packages
+    (float64), so they agree to rtol 1e-12; d = 20 takes the expansion."""
+    import cfjax
+
+    make, mode = F64_KERNELS[name]
+    kj = make()
+    d = 20
+    x = rng.standard_normal((40, d)) / np.sqrt(d)
+    y = rng.standard_normal((31, d)) / np.sqrt(d)
+    y[:5] = x[:5]
+    A = rng.standard_normal((31, d))
+    fast = grad_matvec_iso if mode == "iso" else grad_matvec_dot
+    cfjax.set_config(matmul_precision=prec)
+    try:
+        ref = fast(kj, jnp.asarray(x), jnp.asarray(y), jnp.asarray(A), block=16)
+    finally:
+        cfjax.set_config(matmul_precision=cfjax.config.Config.matmul_precision)
+    kt = tk.from_reference(kj)
+    xt, yt, At = torch.tensor(x), torch.tensor(y), torch.tensor(A)
+    out = grad_matvec_plain(kt, xt, yt, At, mode, block=16, precision=prec)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-12, atol=1e-13)
+    cfjax_torch.set_config(matmul_precision=prec)
+    try:
+        configured = grad_matvec(kt, xt, yt, At, mode)
+    finally:
+        cfjax_torch.set_config(matmul_precision=cfjax_torch.config.Config.matmul_precision)
+    np.testing.assert_array_equal(configured.numpy(), out.numpy())
+
+
+def test_near_threshold_matches_the_kernel_source():
+    """The near-coincident threshold the wrapper documents is the kernel's."""
+    import re
+
+    from cfjax_torch.ops import grad_mvm
+
+    src = (build.CSRC / "grad_mvm.cu").read_text()
+    tau = re.search(r"constexpr float K3_TAU = ([0-9.]+)f / ([0-9.]+)f;", src)
+    assert tau is not None
+    assert float(tau.group(1)) / float(tau.group(2)) == grad_mvm.NEAR_TAU

@@ -222,3 +222,41 @@ def test_blocked_matvec_gradient_with_checkpoint(rng):
     dense = k.profile_value(sqdist_tile(x, y)) @ a
     (g_dense,) = torch.autograd.grad(dense.sum(), k.l)
     np.testing.assert_allclose(g_blocked.numpy(), g_dense.numpy(), rtol=1e-12)
+
+
+@pytest.mark.parametrize("prec", ["default", "high", "highest"])
+@pytest.mark.parametrize("kname,mode", [("EQ", "iso"), ("ExponentialDot", "dot")])
+def test_expand_plain_matches_reference_at_each_tier(kname, mode, prec, rng):
+    """K2's plain version at each matmul tier against cfjax's blocked MVM
+    under the same `matmul_precision` (exact on the CPU in both packages:
+    rtol 1e-12)."""
+    import cfjax
+
+    kj = {"EQ": jk.EQ(), "ExponentialDot": jk.ExponentialDot()}[kname]
+    x, y, a = _data(rng, 150, 130, 40, np.float64, scale=40 ** -0.5)
+    cfjax.set_config(matmul_precision=prec)
+    try:
+        ref = j_gramian_matvec(kj, jnp.asarray(x), jnp.asarray(y), jnp.asarray(a), mode, 64)
+    finally:
+        cfjax.set_config(matmul_precision=cfjax.config.Config.matmul_precision)
+    out = mvm.gramian_matvec_expand(tk.from_reference(kj), torch.tensor(x), torch.tensor(y),
+                                    torch.tensor(a), mode, precision=prec)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-12)
+
+
+def test_tier_passes():
+    """The tensor-core passes of each tier in K2 and K3, and of the
+    configured tier."""
+    import cfjax_torch
+    from cfjax_torch.ops.tiles import TIER_PASSES, tier_passes
+
+    assert {p: tier_passes(p) for p in ("default", "high", "highest")} == TIER_PASSES
+    assert TIER_PASSES == {"default": 1, "high": 3, "highest": 3}
+    cfjax_torch.set_config(matmul_precision="default")
+    try:
+        assert tier_passes() == 1
+    finally:
+        cfjax_torch.set_config(matmul_precision=cfjax_torch.config.Config.matmul_precision)
+    assert tier_passes() == 3
+    with pytest.raises(ValueError):
+        tier_passes("bf16")

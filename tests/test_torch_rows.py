@@ -12,6 +12,9 @@ profile families, and the configured device for input without one.
   instances compute agrees with the interpreted program to rtol 1e-6 in
   float32 (exp2 of a prescaled argument against exp: about one rounding
   of an argument below 2^5) and to 1e-12 in float64 (the folding itself).
+* Derivative families (`ProfileSpec.family` of a derivative spec): the
+  closed-form f' and f'' that K3's family instances compute agree with
+  the interpreted jet and with autodiff of `k.profile`.
 * The device: input that carries no device resolves to the configured
   device, "cuda" by default; these tests read the resolution without
   allocating, then run with "cpu".
@@ -252,7 +255,51 @@ def test_other_specs_stay_interpreted(k):
     assert why is None and spec.family == FAMILY_NONE
     with pytest.raises(ValueError, match="interpreted"):
         spec.evaluate(torch.zeros(3), family=True)
-    assert to_spec(tk.EQ(), derivative=True)[0].family == FAMILY_NONE
+    # their derivative specs (where they have one) stay interpreted too
+    dspec, _ = to_spec(k, derivative=True)
+    assert dspec is None or dspec.family == FAMILY_NONE
+    # a one-leaf derivative spec carries K3's jet family instead
+    assert to_spec(tk.EQ(), derivative=True)[0].family == FAMILY_EQ
+
+
+JET_FAMILIES = {
+    "EQ": (tk.EQ(), FAMILY_EQ, 0),
+    "MaternP1": (tk.MaternP(1), FAMILY_MATERN, 1),
+    "MaternP2": (tk.MaternP(2), FAMILY_MATERN, 2),
+    "ScaledLengthscaleMaternP3": (2.5 * tk.Lengthscale(tk.MaternP(3), 0.6), FAMILY_MATERN, 3),
+    "LengthscaleEQTwice": (tk.Lengthscale(tk.Lengthscale(tk.EQ(), 2.0), 0.7) * 0.5,
+                           FAMILY_EQ, 0),
+    "RQ": (2.0 * tk.Lengthscale(tk.RQ(2.0), 1.3), FAMILY_RQ, 0),
+    "Cauchy": (tk.Lengthscale(tk.Cauchy(), 0.6) * 1.5, FAMILY_CAUCHY, 0),
+    "IMQ": (tk.Lengthscale(tk.InverseMultiQuadratic(1.3), 1.7) * 0.5, FAMILY_IMQ, 0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(JET_FAMILIES))
+def test_jet_family_form_matches_program(name):
+    """K3's derivative families (`evaluate_jet_family`: f', f'' in closed
+    form from the folded table) against the interpreted jet of the
+    derivative program and autodiff of `k.profile`: 1e-12 in float64, and
+    in float32 within 2e-6 of the largest value (the exp2 argument and the
+    Matern Taylor bound move by a rounding)."""
+    from cfjax_torch.kernels.derivatives import elementwise_derivatives
+
+    k, family, p = JET_FAMILIES[name]
+    spec, why = to_spec(k, derivative=True)
+    assert why is None and spec.jet and (spec.family, spec.family_p) == (family, p)
+    s64 = torch.linspace(0, 30, 4001, dtype=torch.float64)
+    f1, f2 = spec.evaluate_jet_family(s64)
+    _, g1, g2 = spec.evaluate_jet(s64)
+    _, h1, h2 = elementwise_derivatives(k.profile, s64, 2)
+    for a, b in ((f1, g1), (f2, g2), (f1, h1), (f2, h2)):
+        torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12 * float(b.abs().max()))
+    s32 = torch.linspace(0, 4, 2049, dtype=torch.float32)
+    f1, f2 = spec.evaluate_jet_family(s32)
+    _, g1, g2 = spec.evaluate_jet(s32)
+    for a, b in ((f1, g1), (f2, g2)):
+        torch.testing.assert_close(a, b, rtol=0, atol=2e-6 * float(b.abs().max()))
+    with pytest.raises(ValueError, match="evaluate_jet_family"):
+        spec.evaluate(s32, family=True)
 
 
 @pytest.fixture
