@@ -9,7 +9,10 @@
 //    by the exact difference form. `_family` takes the one-leaf profiles
 //    (ProfileSpec.family: EQ, Exp, MaternP(p <= 3), RQ, Cauchy, IMQ under
 //    lengthscales, times a constant), `_direct` interprets any other
-//    profile program.
+//    profile program. `k1_gramian_matmat_family` takes p columns at once
+//    (B = K A, for the SLQ probe batches and `cg_columns`), evaluating each
+//    entry's profile once for all of them; a spec that is not one leaf runs
+//    `k1_gramian_matvec_direct` once per column (ops/gramian_mvm.py).
 //
 // K1 reads or writes no O(n m) array: each (row, column) entry of K is
 // recomputed from the points, passed through the profile and contracted
@@ -28,6 +31,8 @@
 
 #include "profile_spec.cuh"
 #include "tc_tile.cuh"   // cp.async helpers
+
+#include <type_traits>
 
 // Row sums use compensated (Kahan) accumulation (kahan_add): one thread
 // adds up to m / (4 * splits) terms in sequence — 32768 at n = 2^17 — and
@@ -337,39 +342,269 @@ k1_family(const float* __restrict__ x, const float* __restrict__ y, const float*
     }
 }
 
-struct KfArgs {
-    const float *x, *y, *a;
-    float* partial;
-    int n, m, d, cols_per_split;
-};
 
-template <int D, int FAM, int P>
-static int kf_go(dim3 grid, cudaStream_t st, const KfArgs& g, const FamilyConsts& fc) {
-    k1_family<D, FAM, P><<<grid, KF_THREADS, 0, st>>>(g.x, g.y, g.a, g.partial, g.n, g.m, g.d,
-                                                     g.cols_per_split, fc);
-    return 0;
-}
+// ---------------------------------------------------------------------------
+// K1, many columns: B = K A for A of shape (m, p), a one-leaf family, d <= D
+// ---------------------------------------------------------------------------
+//
+// `k1_gramian_matmat_family` is the counterpart, on the card, of cfjax's
+// multi-RHS product (cfjax/operators/gramian.py `Gramian._matmat`, which
+// stays on XLA's blocked path): the SLQ probe batches (Lanczos, then
+// `cg_columns`) push p = 16 columns through every product. The profile of
+// each (x_i, y_j) pair is evaluated once, in registers, and contracted into
+// C columns of A.
+//
+// What bounds it: fp32 issue. An entry costs 2d for the distance, the
+// profile (MaternP(2): 6 fp32 + 4 for exp2's split argument, 2 MUFU) and C
+// FFMAs into the row sums, plus a Kahan step (4) per column and 16 entries:
+// at d = 3, C = 16 about 36 fp32 instructions against 2 MUFU, so the SFU,
+// K1's limit at one column, is idle half the time.
+//
+// Register tiles. Thread (warp w, lane l) owns rows l + 32 r (r < R = 2)
+// and, for each, C = 16 sums with their compensation and their group sum:
+// 96 registers. Warp w takes columns w * 4 + 16 q .. + 3 of each staged
+// tile; a column's y and its C entries of A lie together in shared memory
+// and every lane of a warp reads them by broadcast (16-byte loads).
+//
+// Occupancy. An instance holds 146-244 registers a thread (ptxas, H100),
+// so the SM's 64K registers hold few threads: blocks of 4 warps let three
+// blocks (12 warps) share an SM at <= 170 registers, where blocks of 8
+// warps fit one. At n = 2^17, p = 16 that cut the device time by a fifth
+// (PERF.md): the kernel is bound by latency more than by issue.
+//
+// Chunks. Columns of A past C run as further chunks over gridDim.z, each
+// evaluating the profile again; a chunk's columns past p (all of them past
+// the first p when p < C) are zero-filled in the staged tile and never
+// written. Splits over gridDim.y and their fixed-order sum are K1's.
+
+constexpr int KM_THREADS = 128;
+constexpr int KM_WARPS = KM_THREADS / 32;
+constexpr int KM_V = 4;        // columns per step of a warp
+constexpr int KM_GROUP = 4;    // steps per compensated partial sum
+constexpr int KM_C = 16;       // columns of A per chunk
 
 template <int D>
-static int kf_by_family(int family, int p, dim3 grid, cudaStream_t st, const KfArgs& g,
-                        const FamilyConsts& fc) {
+struct KmShape {
+    static constexpr int C = KM_C;
+    static constexpr int R = 32 / C;                  // rows per thread
+    static constexpr int BM = 32 * R;                 // rows per block
+    static constexpr int DY = (D + 3) / 4 * 4;        // y's floats per staged column
+    static constexpr int S = DY + C;                  // floats per staged column
+    static constexpr int TN = S <= 20 ? 256 : 128;    // columns per staged tile: <= 40 KB
+};
+
+// stage columns j0 .. j0 + cnt of y (d coordinates) and of A's columns
+// c0 .. c0 + C into buf; the rest of the tile, and A's columns past p, are
+// zero-filled
+template <int D>
+__device__ __forceinline__ void km_stage(float* buf, const float* y, const float* A, int j0,
+                                         int cnt, int d, int p, int c0) {
+    using Sh = KmShape<D>;
+    constexpr int C = Sh::C;
+    for (int j = threadIdx.x; j < Sh::TN; j += KM_THREADS) {
+        const bool live = j < cnt;
+        const size_t jg = live ? (size_t)(j0 + j) : 0;
+        float* dst = buf + j * Sh::S;
+#pragma unroll
+        for (int k = 0; k < D; ++k)
+            if (k < d) cp_async4(dst + k, y + jg * d + k, live);
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+            const bool on = live && c0 + c < p;
+            cp_async4(dst + Sh::DY + c, A + (on ? jg * p + c0 + c : 0), on);
+        }
+    }
+}
+
+// one staged tile: (acc, comp)[r][c] += sum over warp w's columns j of
+// f(s_rj) A[j][c], compensated once per KM_GROUP steps
+template <int D, int FAM, int P, bool RAGGED>
+__device__ __forceinline__ void km_tile(const float* buf, const float (&xr)[KmShape<D>::R][D],
+                                        float (&acc)[KmShape<D>::R][KM_C],
+                                        float (&comp)[KmShape<D>::R][KM_C], int cnt,
+                                        const FamilyConsts& fc) {
+    using Sh = KmShape<D>;
+    constexpr int C = Sh::C, R = Sh::R, DY = Sh::DY, S = Sh::S;
+    constexpr int STEPS = Sh::TN / (KM_WARPS * KM_V);   // a warp's steps in a tile: 8 or 16
+    static_assert(STEPS % KM_GROUP == 0, "a tile holds whole groups of steps");
+    const int w = threadIdx.x >> 5;
+    for (int g = 0; g < STEPS; g += KM_GROUP) {
+        float ts[R][C];   // this group's terms of each row and column
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+            for (int c = 0; c < C; ++c) ts[r][c] = 0.f;
+#pragma unroll 1
+        for (int q = 0; q < KM_GROUP; ++q) {
+            const int jb = (g + q) * KM_WARPS * KM_V + w * KM_V;
+#pragma unroll
+            for (int v = 0; v < KM_V; ++v) {
+                const float* col = buf + (jb + v) * S;
+                float yc[DY];
+#pragma unroll
+                for (int k = 0; k < DY / 4; ++k) {
+                    const float4 t = reinterpret_cast<const float4*>(col)[k];
+                    yc[4 * k] = t.x;
+                    yc[4 * k + 1] = t.y;
+                    yc[4 * k + 2] = t.z;
+                    yc[4 * k + 3] = t.w;
+                }
+                float f[R];
+#pragma unroll
+                for (int r = 0; r < R; ++r) {
+                    float s = 0.f;
+#pragma unroll
+                    for (int k = 0; k < D; ++k) {
+                        const float t = xr[r][k] - yc[k];
+                        s = fmaf(t, t, s);
+                    }
+                    f[r] = family_value<FAM, P>(s, fc);
+                    if (RAGGED && jb + v >= cnt) f[r] = 0.f;   // IMQ(c = 0) is inf at s = 0
+                }
+#pragma unroll
+                for (int c4 = 0; c4 < C / 4; ++c4) {
+                    const float4 a4 = reinterpret_cast<const float4*>(col + DY)[c4];
+#pragma unroll
+                    for (int r = 0; r < R; ++r) {
+                        ts[r][4 * c4] = fmaf(f[r], a4.x, ts[r][4 * c4]);
+                        ts[r][4 * c4 + 1] = fmaf(f[r], a4.y, ts[r][4 * c4 + 1]);
+                        ts[r][4 * c4 + 2] = fmaf(f[r], a4.z, ts[r][4 * c4 + 2]);
+                        ts[r][4 * c4 + 3] = fmaf(f[r], a4.w, ts[r][4 * c4 + 3]);
+                    }
+                }
+            }
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+            for (int c = 0; c < C; ++c) kahan_add(acc[r][c], comp[r][c], ts[r][c]);
+    }
+}
+
+// up to 255 registers a thread (the 96 of the sums, x's R d coordinates, a
+// staged column and the profile): as many blocks an SM as they leave room
+// for
+template <int D, int FAM, int P>
+__global__ void __launch_bounds__(KM_THREADS, 1)
+k1_matmat_family(const float* __restrict__ x, const float* __restrict__ y,
+                 const float* __restrict__ A, float* __restrict__ partial, int n, int m, int d,
+                 int p, int cols_per_split, const __grid_constant__ FamilyConsts fc) {
+    using Sh = KmShape<D>;
+    constexpr int C = Sh::C, R = Sh::R, BM = Sh::BM, TN = Sh::TN, S = Sh::S;
+    static_assert(C % 4 == 0 && R * C == 32, "C sums of R rows: 32 a thread");
+    static_assert(KM_WARPS * BM * 4 <= 2 * TN * S, "the reduction reuses the staging buffers");
+    __shared__ __align__(16) float buf[2][TN * S];
+
+    for (int t = threadIdx.x; t < 2 * TN * S; t += KM_THREADS) (&buf[0][0])[t] = 0.f;
+    __syncthreads();
+
+    const int lane = threadIdx.x & 31;
+    const int w = threadIdx.x >> 5;
+    const int row0 = blockIdx.x * BM;
+    const int c0 = blockIdx.z * C;
+    float xr[R][D];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+        const int i = row0 + r * 32 + lane;
+#pragma unroll
+        for (int k = 0; k < D; ++k) xr[r][k] = (i < n && k < d) ? x[(size_t)i * d + k] : 0.f;
+    }
+
+    const int j_begin = blockIdx.y * cols_per_split;
+    const int j_end = min(m, j_begin + cols_per_split);
+    const int tiles = j_end > j_begin ? (j_end - j_begin + TN - 1) / TN : 0;
+    float acc[R][C], comp[R][C];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int c = 0; c < C; ++c) acc[r][c] = comp[r][c] = 0.f;
+
+    if (tiles > 0) {
+        km_stage<D>(buf[0], y, A, j_begin, min(TN, j_end - j_begin), d, p, c0);
+        cp_async_commit();
+    }
+    for (int t = 0; t < tiles; ++t) {
+        const int j0 = j_begin + t * TN;
+        const int cnt = min(TN, j_end - j0);
+        if (t + 1 < tiles) {
+            km_stage<D>(buf[(t + 1) & 1], y, A, j0 + TN, min(TN, j_end - j0 - TN), d, p, c0);
+            cp_async_commit();
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
+        }
+        __syncthreads();   // tile t has landed for every thread
+        if (cnt == TN)
+            km_tile<D, FAM, P, false>(buf[t & 1], xr, acc, comp, cnt, fc);
+        else
+            km_tile<D, FAM, P, true>(buf[t & 1], xr, acc, comp, cnt, fc);
+        __syncthreads();   // tile t is consumed before tile t + 2 overwrites it
+    }
+
+    // the warps' sums of each (row, column), four columns a round, added in
+    // warp order through the staging buffer
+    float4* red = reinterpret_cast<float4*>(&buf[0][0]);
+#pragma unroll
+    for (int cq = 0; cq < C; cq += 4) {
+        __syncthreads();   // the buffer is free: the last tile, or the last round, is read
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+            red[w * BM + r * 32 + lane] =
+                make_float4(acc[r][cq] - comp[r][cq], acc[r][cq + 1] - comp[r][cq + 1],
+                            acc[r][cq + 2] - comp[r][cq + 2], acc[r][cq + 3] - comp[r][cq + 3]);
+        __syncthreads();
+        const float* rf = &buf[0][0];
+        for (int t = threadIdx.x; t < BM * 4; t += KM_THREADS) {
+            const int i = row0 + t / 4, c = c0 + cq + t % 4;
+            if (i < n && c < p) {
+                float tot = rf[t];
+#pragma unroll
+                for (int u = 1; u < KM_WARPS; ++u) tot += rf[u * BM * 4 + t];
+                partial[((size_t)blockIdx.y * n + i) * p + c] = fc.scale * tot;
+            }
+        }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// Host entries
+// ---------------------------------------------------------------------------
+
+template <int V>
+using Int = std::integral_constant<int, V>;
+
+// f(Int<D>) for the instance of d: D = d up to 4, then 8 and 16
+template <class F>
+static int by_dim(int d, F&& f) {
+    if (d == 1) return f(Int<1>{});
+    if (d == 2) return f(Int<2>{});
+    if (d == 3) return f(Int<3>{});
+    if (d == 4) return f(Int<4>{});
+    if (d >= 5 && d <= 8) return f(Int<8>{});
+    if (d >= 9 && d <= 16) return f(Int<16>{});
+    return (int)cudaErrorInvalidValue;
+}
+
+// f(Int<FAM>, Int<P>) for a one-leaf family and its p
+template <class F>
+static int by_family(int family, int p, F&& f) {
     switch (family) {
     case FAM_EQ:
-        return kf_go<D, FAM_EQ, 0>(grid, st, g, fc);
+        return f(Int<FAM_EQ>{}, Int<0>{});
     case FAM_MATERN:
         switch (p) {
-        case 0: return kf_go<D, FAM_MATERN, 0>(grid, st, g, fc);
-        case 1: return kf_go<D, FAM_MATERN, 1>(grid, st, g, fc);
-        case 2: return kf_go<D, FAM_MATERN, 2>(grid, st, g, fc);
-        case 3: return kf_go<D, FAM_MATERN, 3>(grid, st, g, fc);
+        case 0: return f(Int<FAM_MATERN>{}, Int<0>{});
+        case 1: return f(Int<FAM_MATERN>{}, Int<1>{});
+        case 2: return f(Int<FAM_MATERN>{}, Int<2>{});
+        case 3: return f(Int<FAM_MATERN>{}, Int<3>{});
         default: return (int)cudaErrorInvalidValue;
         }
     case FAM_RQ:
-        return kf_go<D, FAM_RQ, 0>(grid, st, g, fc);
+        return f(Int<FAM_RQ>{}, Int<0>{});
     case FAM_CAUCHY:
-        return kf_go<D, FAM_CAUCHY, 0>(grid, st, g, fc);
+        return f(Int<FAM_CAUCHY>{}, Int<0>{});
     case FAM_IMQ:
-        return kf_go<D, FAM_IMQ, 0>(grid, st, g, fc);
+        return f(Int<FAM_IMQ>{}, Int<0>{});
     default:
         return (int)cudaErrorInvalidValue;
     }
@@ -381,18 +616,52 @@ extern "C" int k1_gramian_matvec_family(const float* x, const float* y, const fl
                                         FamilyConsts fc, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     dim3 grid((n + KF_BM - 1) / KF_BM, splits);
-    const KfArgs g{x, y, a, splits == 1 ? out : partial, n, m, d, cols_per_split};
-    int bad;
-    if (d == 1) bad = kf_by_family<1>(family, p, grid, st, g, fc);
-    else if (d == 2) bad = kf_by_family<2>(family, p, grid, st, g, fc);
-    else if (d == 3) bad = kf_by_family<3>(family, p, grid, st, g, fc);
-    else if (d == 4) bad = kf_by_family<4>(family, p, grid, st, g, fc);
-    else if (d >= 5 && d <= 8) bad = kf_by_family<8>(family, p, grid, st, g, fc);
-    else if (d >= 9 && d <= 16) bad = kf_by_family<16>(family, p, grid, st, g, fc);
-    else bad = (int)cudaErrorInvalidValue;
+    float* dst = splits == 1 ? out : partial;
+    const int bad = by_dim(d, [&](auto Dc) {
+        return by_family(family, p, [&](auto F, auto Pc) {
+            k1_family<decltype(Dc)::value, decltype(F)::value, decltype(Pc)::value>
+                <<<grid, KF_THREADS, 0, st>>>(x, y, a, dst, n, m, d, cols_per_split, fc);
+            return 0;
+        });
+    });
     if (bad) return bad;
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     launch_reduce(partial, out, n, splits, st);
+    return (int)cudaGetLastError();
+}
+
+// the rows a block, the staged tile's columns and the chunk's columns of A
+// of d's many-column instance, for the host's column split
+extern "C" int k1_gramian_matmat_shape(int d, int* rows, int* cols, int* chunk) {
+    return by_dim(d, [&](auto Dc) {
+        using Sh = KmShape<decltype(Dc)::value>;
+        *rows = Sh::BM;
+        *cols = Sh::TN;
+        *chunk = Sh::C;
+        return 0;
+    });
+}
+
+// B (n, p) = K A, A (m, p) row-major, in chunks of KM_C columns
+extern "C" int k1_gramian_matmat_family(const float* x, const float* y, const float* A,
+                                        float* partial, float* out, int n, int m, int d, int p,
+                                        int splits, int cols_per_split, int family, int fam_p,
+                                        FamilyConsts fc, void* stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    float* dst = splits == 1 ? out : partial;
+    const int bad = by_dim(d, [&](auto Dc) {
+        using Sh = KmShape<decltype(Dc)::value>;
+        dim3 grid((n + Sh::BM - 1) / Sh::BM, splits, (p + KM_C - 1) / KM_C);
+        return by_family(family, fam_p, [&](auto F, auto Pc) {
+            k1_matmat_family<decltype(Dc)::value, decltype(F)::value, decltype(Pc)::value>
+                <<<grid, KM_THREADS, 0, st>>>(x, y, A, dst, n, m, d, p, cols_per_split, fc);
+            return 0;
+        });
+    });
+    if (bad) return bad;
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    launch_reduce(partial, out, n * p, splits, st);
     return (int)cudaGetLastError();
 }

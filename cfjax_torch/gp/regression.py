@@ -5,7 +5,8 @@ max_cholesky_size, Nystrom-preconditioned CG above it for a plain
 Gramian, plain CG for other operators such as the gradient gramian of
 `GradientKernel` observations), the posterior mean and variance, and the
 log marginal likelihood: exact and structured on circulant and Kronecker
-gramians, a dense Cholesky otherwise.
+gramians, a dense Cholesky up to max_cholesky_size, and above it the
+stochastic Lanczos logdet with a CG quadratic form (`operators/slq.py`).
 """
 
 from __future__ import annotations
@@ -104,20 +105,50 @@ def gp_condition(kernel, x, y, noise: float = 1e-6,
     return GPPosterior(kernel, x, alpha, noise, info)
 
 
-def log_marginal_likelihood(kernel, x, y, noise: float = 1e-6, method: str = "auto"):
+def _slq_terms(kernel, x, y, noise, generator, probes, iters, tol, maxiter):
+    """(logdet, quadratic form) of K + noise I by SLQ and CG, over the
+    parameters (the kernel's hyperparameter tensors, then the noise): the
+    product is rebuilt from them once per sequence of parameters it is
+    called with (the forward's, the backward solve's, the pull-back's)."""
+    from ..kernels.parameters import leaves, with_leaves
+    from ..operators.slq import cg_quadform, slq_logdet
+
+    nz = noise if isinstance(noise, torch.Tensor) else torch.tensor(float(noise),
+                                                                    dtype=torch.float64)
+    params = tuple(leaves(kernel)) + (nz,)
+    last = {}
+
+    def mv(ps, V):
+        if last.get("ps") is not ps:
+            last.update(ps=ps, op=gramian(with_leaves(kernel, list(ps[:-1])), x))
+        return last["op"].matvec(V) + ps[-1] * V
+
+    logdet = slq_logdet(mv, y.shape[0], probes, iters, tol, maxiter, params, generator,
+                        dtype=y.dtype, device=y.device)
+    quad = cg_quadform(mv, tol, maxiter, params, y)
+    return logdet, quad
+
+
+def log_marginal_likelihood(kernel, x, y, noise: float = 1e-6, method: str = "auto",
+                            generator=None, probes: int = 16, lanczos_iters: int = 48,
+                            solve_tol: float = 1e-6, solve_maxiter: int = 500):
     """log p(y | x, theta), routed through the structure dispatcher:
 
       * Circulant gramian (periodic kernel on a uniform grid): exact
         O(n log n) spectral logdet and quadratic form;
       * Kronecker gramian (separable product on a lazy grid): exact
         per-factor eigendecompositions, O(sum n_i^3) for n = prod n_i;
-      * n <= max_cholesky_size: dense Cholesky.
+      * n <= max_cholesky_size: dense Cholesky;
+      * else (the lazy regime, "slq"): the stochastic Lanczos logdet over
+        `probes` Rademacher probes drawn from `generator` (default: a
+        generator seeded with 0 on y's device) and `lanczos_iters` steps,
+        and the CG quadratic form, both solves to `solve_tol` in at most
+        `solve_maxiter` iterations (`operators/slq.py`).
 
-    cfjax's stochastic Lanczos branch ("slq", the lazy regime above
-    max_cholesky_size) is not ported yet (ROADMAP.md, queue 1, item 8).
     Differentiable in the kernel's hyperparameters and `noise` by
     autograd (the Kronecker branch through `torch.linalg.eigh`, whose
-    backward needs distinct factor eigenvalues)."""
+    backward needs distinct factor eigenvalues; the slq branch through the
+    Hutchinson / CG backwards)."""
     from .. import config as _config
 
     K = gramian(kernel, x)
@@ -151,8 +182,8 @@ def log_marginal_likelihood(kernel, x, y, noise: float = 1e-6, method: str = "au
         quad = torch.sum(z * z)
         logdet = 2 * torch.sum(torch.log(torch.diagonal(L)))
     elif method == "slq":
-        raise NotImplementedError(
-            "log_marginal_likelihood method 'slq' is not ported yet (ROADMAP.md, queue 1, item 8)")
+        logdet, quad = _slq_terms(kernel, x, y, noise, generator, probes, lanczos_iters,
+                                  solve_tol, solve_maxiter)
     else:
         raise ValueError(f"unknown logML method {method!r}")
     return -0.5 * (quad + logdet + n * math.log(2 * math.pi))

@@ -59,7 +59,7 @@ from .transforms import (
     Warped,
     normalize,
 )
-from .parameters import from_reference, nparameters, parameters, similar
+from .parameters import from_reference, nparameters, parameters, similar, with_leaves
 from .profile_spec import ProfileSpec, to_spec
 
 # reference-name alias (src/stationary.jl:197 `CosineKernel`)

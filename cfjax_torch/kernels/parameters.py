@@ -34,12 +34,17 @@ def _leaf_slots(k):
             yield k, name
 
 
+def leaves(k) -> list:
+    """The hyperparameter tensors of kernel k, in `parameters` order."""
+    return [getattr(m, n) for m, n in _leaf_slots(k)]
+
+
 def parameters(k) -> torch.Tensor:
     """Flat vector of all hyperparameters of kernel k."""
-    leaves = [getattr(m, n) for m, n in _leaf_slots(k)]
-    if not leaves:
+    ls = leaves(k)
+    if not ls:
         return torch.zeros((0,), dtype=torch.float64)
-    return torch.cat([l.reshape(-1) for l in leaves])
+    return torch.cat([l.reshape(-1) for l in ls])
 
 
 def nparameters(k) -> int:
@@ -50,17 +55,30 @@ def similar(k, theta):
     """Rebuild a kernel of the same structure from a flat parameter vector
     (reference `Base.similar(k, θ)`, src/parameters.jl:21-37)."""
     theta = torch.as_tensor(theta)
-    new = copy.deepcopy(k)
-    slots = list(_leaf_slots(new))
-    need = sum(getattr(m, n).numel() for m, n in slots)
+    old = leaves(k)
+    need = sum(l.numel() for l in old)
     if theta.numel() != need:
         raise ValueError(
             f"parameter vector has {theta.numel()} entries, kernel needs {need}")
-    i = 0
-    for m, n in slots:
-        old = getattr(m, n)
-        setattr(m, n, theta[i:i + old.numel()].reshape(old.shape))
-        i += old.numel()
+    parts, i = [], 0
+    for l in old:
+        parts.append(theta[i:i + l.numel()].reshape(l.shape))
+        i += l.numel()
+    return with_leaves(k, parts)
+
+
+def with_leaves(k, leaves):
+    """A kernel of k's structure whose hyperparameter tensors are `leaves`
+    (in `parameters` order), used as they are, so that autograd sees
+    through them. k's own hyperparameters are not copied: they may be
+    results of autograd (which `copy.deepcopy` refuses)."""
+    slots = list(_leaf_slots(k))
+    if len(leaves) != len(slots):
+        raise ValueError(f"{len(leaves)} leaves, kernel has {len(slots)}")
+    memo = {id(getattr(m, n)): None for m, n in slots}
+    new = copy.deepcopy(k, memo)
+    for (m, n), leaf in zip(slots, leaves):
+        setattr(memo[id(m)], n, leaf)   # m's copy in `new`
     return new
 
 

@@ -280,7 +280,9 @@ def _tier() -> str:
 def explain(k, x, y=None, **opts) -> str:
     """Describe the structure the dispatcher detected, and whether the
     lazy Gramian's or gradient gramian's MVM runs on a CUDA kernel (and
-    which) or why not."""
+    which) or why not. The Gramian's reasons are those of a call made
+    now: under `torch.no_grad()` inputs that require grad do not decline
+    the kernel."""
     from ..derivative.gradient import GradientGramian, JacobianConjugatedGradientGramian
 
     op = gramian(k, x, y, **opts)
@@ -288,10 +290,14 @@ def explain(k, x, y=None, **opts) -> str:
     if isinstance(op, Gramian):
         parts.append(f"mvm mode = {op.mode}, block = {op.block}")
         why = kernel_decline_reason(op)
-        if why is None:
-            name = {"direct": "K1 gramian_matvec_direct",
-                    "expand": f"K2 gramian_matvec_expand ({_tier()})"}[op.kernel]
-            parts.append(f"cuda kernel {name}")
+        if why is None and op.kernel == "direct":
+            cols = ("its family instance" if op._spec.family else
+                    "the interpreted instance once per column")
+            parts.append(f"cuda kernel K1 gramian_matvec_direct; multi-RHS K1 "
+                         f"gramian_matmat_direct ({cols})")
+        elif why is None:
+            parts.append(f"cuda kernel K2 gramian_matvec_expand ({_tier()}); multi-RHS "
+                         f"declined: K2 has no many-column variant (plain path)")
         else:
             parts.append(f"cuda kernel declined: {why}")
     g = op.inner if isinstance(op, JacobianConjugatedGradientGramian) else op

@@ -2,14 +2,16 @@
 trait-specialized MVMs (counterpart of `cfjax.operators.gramian`,
 reference src/gramian.jl).
 
-A single-RHS MVM of float32 tensors on a CUDA device runs on a
-hand-written kernel (`cfjax_torch.ops.gramian_mvm`): K1 for isotropic
-kernels at d <= 16, K2 for isotropic kernels at larger d and for
-dot-product kernels. Everything else — CPU tensors, float64, inputs that
-require grad, kernels without a profile spec, multi-RHS products — takes
-the blocked plain-torch path `gramian_matvec`, which builds one row block
-of kernel entries at a time and contracts it at once. The choice is made
-at construction (`Gramian.kernel`, `kernel_decline_reason`).
+An MVM of float32 tensors on a CUDA device runs on a hand-written kernel
+(`cfjax_torch.ops.gramian_mvm`): K1 for isotropic kernels at d <= 16 (a
+multi-RHS product through its many-column variant), K2 for isotropic
+kernels at larger d and for dot-product kernels (single RHS). Everything
+else — CPU tensors, float64, kernels without a profile spec, K2's
+multi-RHS products, and any product that autograd records — takes the
+blocked plain-torch path `gramian_matvec`, which builds one row block of
+kernel entries at a time and contracts it at once. The device, dtype and
+spec are decided at construction (`Gramian.kernel`); whether autograd
+records is decided at each call (`kernel_decline_reason`).
 """
 
 from __future__ import annotations
@@ -112,19 +114,17 @@ def mvm_mode(k) -> str:
 
 
 def select_kernel(g):
-    """(kernel name, spec, decline reason) for a Gramian. The rules are
-    correctness-only: a single-RHS MVM of float32 CUDA tensors whose
-    kernel has a profile spec goes to K1 ("direct": iso, d <= 16) or to
-    K2 ("expand": iso at larger d, or dot, at every matmul tier)."""
+    """(kernel name, spec, decline reason) for a Gramian, decided once at
+    construction. The rules are correctness-only: an MVM of float32 CUDA
+    tensors whose kernel has a profile spec goes to K1 ("direct": iso,
+    d <= 16) or to K2 ("expand": iso at larger d, or dot, at every matmul
+    tier). Whether autograd records is decided at each call."""
     if g.mode not in ("iso", "dot"):
         return None, None, f"trait mode {g.mode!r} (the CUDA kernels cover iso/dot)"
     if not (g.x.is_cuda and g.y.is_cuda):
         return None, None, f"tensors on {g.x.device.type}: the CUDA kernels need a CUDA device"
     if g.x.dtype != torch.float32 or g.y.dtype != torch.float32:
         return None, None, f"dtype {g.x.dtype}: the CUDA kernels take float32"
-    if g.x.requires_grad or g.y.requires_grad or any(
-            b.requires_grad for b in g.k.buffers()):
-        return None, None, "an input requires grad (the CUDA kernels are forward-only)"
     spec, why = to_spec(g.k)
     if spec is None:
         return None, None, f"no profile spec: {why}"
@@ -134,10 +134,18 @@ def select_kernel(g):
     return "expand", spec, None
 
 
-def kernel_decline_reason(g):
-    """Why a Gramian's single-RHS MVM stays on the plain torch path (None:
-    it runs on a CUDA kernel). Surfaced by dispatch.explain()."""
-    return g.kernel_reason
+GRAD_REASON = "autograd records: an input requires grad (the CUDA kernels are forward-only)"
+
+
+def kernel_decline_reason(g, *rhs):
+    """Why a Gramian's MVM (with right-hand sides `rhs`, if given) stays on
+    the plain torch path now (None: it runs on a CUDA kernel). Surfaced by
+    dispatch.explain()."""
+    if g.kernel_reason is not None:
+        return g.kernel_reason
+    if _needs_grad(g.k, g.x, g.y, *rhs):
+        return GRAD_REASON
+    return None
 
 
 class Gramian(LinearOperator):
@@ -168,9 +176,11 @@ class Gramian(LinearOperator):
     def is_psd(self):
         return self._same and self.k.is_mercer
 
+    def _on_kernel(self, v):
+        return v.dtype == torch.float32 and kernel_decline_reason(self, v) is None
+
     def _matvec(self, v):
-        if (self.kernel is not None and v.ndim == 1 and not v.requires_grad
-                and v.dtype == torch.float32):
+        if v.ndim == 1 and self._on_kernel(v):
             v = v.contiguous()
             if self.kernel == "direct":
                 return _mvm.gramian_matvec_direct(self.k, self.x, self.y, v, spec=self._spec)
@@ -179,8 +189,11 @@ class Gramian(LinearOperator):
         return gramian_matvec(self.k, self.x, self.y, v, self.mode, self.block)
 
     def _matmat(self, V):
-        # multi-RHS stays on the plain path: it reuses each kernel tile
-        # across all columns, which the single-RHS kernels cannot
+        # K2 has no many-column variant: its multi-RHS products stay on the
+        # plain path, which reuses each kernel tile across all columns
+        if self.kernel == "direct" and self._on_kernel(V):
+            return _mvm.gramian_matmat_direct(self.k, self.x, self.y, V.contiguous(),
+                                              spec=self._spec)
         return gramian_matvec(self.k, self.x, self.y, V, self.mode, self.block)
 
     def _rmatvec(self, v):

@@ -1,5 +1,7 @@
 from .gramian_mvm import (
     LAUNCHES,
+    gramian_matmat_direct,
+    gramian_matmat_direct_plain,
     gramian_matvec_direct,
     gramian_matvec_direct_plain,
     gramian_matvec_expand,

@@ -9,6 +9,10 @@ K2 in `cfjax_torch/csrc/expand_mvm.cu`:
     `family`, `kernels/profile_spec.py`) runs an instance specialised for
     its family, with register tiles and the profile in registers; any
     other profile runs the interpreted instance;
+  * K1 `gramian_matmat_direct`, many columns: B = K A for A of shape
+    (m, p), the same kernels, each entry's profile evaluated once for a
+    chunk of 16 columns (the SLQ probe batches and `cg_columns`); a spec
+    that is not one leaf runs the interpreted instance once per column;
   * K2 `gramian_matvec_expand` (replaces `pallas_gramian_matvec`): b = K a
     for isotropic kernels at any d through ||x||^2 + ||y||^2 - 2 x.y, and
     for dot-product kernels through x.y, the x.y tile on the tensor cores
@@ -19,9 +23,11 @@ The sources are compiled with nvcc for sm_90a at first use into `build/`
 at the checkout root and loaded with ctypes (`ops/build.py`). Each
 wrapper takes the kernel's plain torch version when its tensors lie on
 the CPU; for CUDA tensors it launches the kernel or raises. `LAUNCHES`
-counts kernel launches per kernel (K3, in `ops/grad_mvm.py`, counts
-under "grad"; K4, in `ops/tile_ell_mvm.py`, under "tile_ell"). Both
-kernels are forward-only, like the Pallas kernels.
+counts kernel launches per kernel ("direct_cols" the many-column K1's,
+one a call, or one a column for the interpreted instance; K3, in
+`ops/grad_mvm.py`, counts under "grad"; K4, in `ops/tile_ell_mvm.py`,
+under "tile_ell"). Both kernels are forward-only, like the Pallas
+kernels.
 """
 
 from __future__ import annotations
@@ -46,7 +52,7 @@ _K2_BM, _K2_BN = 64, 64
 _K1F_BM = 128
 _K1F_TN = {1: 512, 2: 512, 3: 512, 4: 256, 8: 128, 16: 128}
 
-LAUNCHES = {"direct": 0, "expand": 0, "grad": 0, "tile_ell": 0}
+LAUNCHES = {"direct": 0, "direct_cols": 0, "expand": 0, "grad": 0, "tile_ell": 0}
 
 
 class _CSpec(ctypes.Structure):
@@ -91,7 +97,23 @@ def library() -> ctypes.CDLL:
     lib.k1_gramian_matvec_direct.restype = i
     lib.k1_gramian_matvec_family.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, _CFamily, p]
     lib.k1_gramian_matvec_family.restype = i
+    lib.k1_gramian_matmat_family.argtypes = [p, p, p, p, p] + [i] * 8 + [_CFamily, p]
+    lib.k1_gramian_matmat_family.restype = i
+    lib.k1_gramian_matmat_shape.argtypes = [i, p, p, p]
+    lib.k1_gramian_matmat_shape.restype = i
     return lib
+
+
+@functools.cache
+def _matmat_shape(d: int) -> tuple:
+    """(rows a block, columns a staged tile, columns of A a chunk) of the
+    many-column instance for d, as the library defines them."""
+    rows, cols, chunk = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = library().k1_gramian_matmat_shape(d, ctypes.byref(rows), ctypes.byref(cols),
+                                            ctypes.byref(chunk))
+    if err != 0:
+        raise ValueError(f"no many-column K1 instance for d={d}")
+    return rows.value, cols.value, chunk.value
 
 
 @functools.cache
@@ -132,8 +154,8 @@ def vec4_ok(d, *ts):
     return d % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in ts)
 
 
-def _check_inputs(k, x, y, a, spec, mode):
-    """The value kernels' input contract (K1, K2)."""
+def _check_inputs(k, x, y, a, spec, mode, cols=False):
+    """The value kernels' input contract (K1, K2; `cols`: a is (m, p))."""
     ts = (x, y, a)
     if not all(t.is_cuda and t.device == x.device for t in ts):
         raise ValueError("x, y and a must lie on one CUDA device")
@@ -141,12 +163,12 @@ def _check_inputs(k, x, y, a, spec, mode):
         raise TypeError("the CUDA Gramian MVM kernels take float32 tensors")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("x, y and a must be contiguous")
-    if x.ndim != 2 or y.ndim != 2 or a.ndim != 1 or x.shape[1] != y.shape[1] \
+    if x.ndim != 2 or y.ndim != 2 or a.ndim != 1 + cols or x.shape[1] != y.shape[1] \
             or a.shape[0] != y.shape[0]:
         raise ValueError(f"shapes x {tuple(x.shape)}, y {tuple(y.shape)}, a "
-                         f"{tuple(a.shape)}: need (n, d), (m, d), (m,)")
-    if any(t.requires_grad for t in ts) or any(
-            b.requires_grad for b in k.buffers()):
+                         f"{tuple(a.shape)}: need (n, d), (m, d), " + ("(m, p)" if cols else "(m,)"))
+    if torch.is_grad_enabled() and (any(t.requires_grad for t in ts) or any(
+            b.requires_grad for b in k.buffers())):
         raise RuntimeError("the CUDA Gramian MVM kernels are forward-only: an "
                            "input requires grad")
     if spec is None:
@@ -190,6 +212,15 @@ def gramian_matvec_direct_plain(k, x, y, a, block: int = 512):
                     k, x, y, a, block)
 
 
+def gramian_matmat_direct_plain(k, x, y, A, block: int = 512):
+    """Plain torch version of the many-column K1: B = K A for A of shape
+    (m, p), the squared distance by the difference form, row block by row
+    block, each kernel tile contracted against all columns at once."""
+    out = [k.profile_value(sqdist_tile(x[i:i + block], y, direct_max_d=x.shape[1])) @ A
+           for i in range(0, x.shape[0], block)]
+    return torch.cat(out) if out else A.new_zeros((0, A.shape[1]))
+
+
 def gramian_matvec_expand_plain(k, x, y, a, mode: str = "iso", precision=None,
                                 block: int = 512):
     """Plain torch version of K2: b = K a with the profile of
@@ -208,26 +239,69 @@ def gramian_matvec_direct(k, x, y, a, spec: ProfileSpec = None):
     if not x.is_cuda:
         return gramian_matvec_direct_plain(k, x, y, a)
     spec = _check_inputs(k, x, y, a, spec, "iso")
-    n, d = x.shape
-    m = y.shape[0]
+    return _matvec_direct(x, y, a, spec, "direct")
+
+
+def _check_direct_d(d):
     if not 1 <= d <= DIRECT_MAX_D:
         raise ValueError(f"the direct kernel takes 1 <= d <= {DIRECT_MAX_D}, got d={d}")
+
+
+def _instance_d(d):
+    """The D of K1's family instance for d: 1, 2, 3, 4, 8 or 16."""
+    return next(D for D in sorted(_K1F_TN) if D >= d)
+
+
+def _matvec_direct(x, y, a, spec, kind):
+    """One K1 launch on checked inputs, counted under LAUNCHES[kind]."""
+    n, d = x.shape
+    m = y.shape[0]
+    _check_direct_d(d)
     out = torch.empty(n, dtype=torch.float32, device=x.device)
     if n == 0 or m == 0:
         return out.zero_()
     family = spec.family != FAMILY_NONE
     if family:
-        tn = _K1F_TN[next(D for D in sorted(_K1F_TN) if D >= d)]
-        splits, per = column_split(_cdiv(n, _K1F_BM), m, tn, x.device)
+        splits, per = column_split(_cdiv(n, _K1F_BM), m, _K1F_TN[_instance_d(d)], x.device)
     else:
         splits, per = column_split(_cdiv(n, _K1_TM), m, _K1_TN, x.device)
     partial = out if splits == 1 else torch.empty((splits, n), dtype=torch.float32,
                                                   device=x.device)
     args = (_ptr(x), _ptr(y), _ptr(a), _ptr(partial), _ptr(out), n, m, d, splits, per)
     if family:
-        return _launch("direct", library().k1_gramian_matvec_family, out, *args,
+        return _launch(kind, library().k1_gramian_matvec_family, out, *args,
                        spec.family, spec.family_p, _cfamily(spec))
-    return _launch("direct", library().k1_gramian_matvec_direct, out, *args, _cspec(spec))
+    return _launch(kind, library().k1_gramian_matvec_direct, out, *args, _cspec(spec))
+
+
+def gramian_matmat_direct(k, x, y, A, spec: ProfileSpec = None):
+    """The many-column K1: B = K A for an isotropic kernel at d <= 16 and A
+    of shape (m, p) (CUDA), or its plain version for CPU tensors. A
+    one-leaf profile runs one launch of its family instance over chunks of
+    16 columns; any other runs the interpreted single-column instance once
+    per column."""
+    if not x.is_cuda:
+        return gramian_matmat_direct_plain(k, x, y, A)
+    spec = _check_inputs(k, x, y, A, spec, "iso", cols=True)
+    n, d = x.shape
+    m, p = A.shape
+    _check_direct_d(d)
+    if n * p >= 2 ** 31:
+        raise ValueError(f"n p = {n * p} entries: the kernel indexes them with int")
+    if spec.family == FAMILY_NONE:
+        cols = [_matvec_direct(x, y, A[:, c].contiguous(), spec, "direct_cols")
+                for c in range(p)]
+        return torch.stack(cols, dim=1) if cols else A.new_zeros((n, 0))
+    out = torch.empty((n, p), dtype=torch.float32, device=x.device)
+    if n == 0 or m == 0 or p == 0:
+        return out.zero_()
+    bm, tn, chunk = _matmat_shape(d)
+    splits, per = column_split(_cdiv(n, bm) * _cdiv(p, chunk), m, tn, x.device)
+    partial = out if splits == 1 else torch.empty((splits, n, p), dtype=torch.float32,
+                                                  device=x.device)
+    return _launch("direct_cols", library().k1_gramian_matmat_family, out, _ptr(x), _ptr(y),
+                   _ptr(A), _ptr(partial), _ptr(out), n, m, d, p, splits, per,
+                   spec.family, spec.family_p, _cfamily(spec))
 
 
 def gramian_matvec_expand(k, x, y, a, mode: str = "iso", precision=None,

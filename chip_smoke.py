@@ -24,8 +24,15 @@ card, then drives the paths a user runs:
     Kronecker (mode-product MVM, per-factor Cholesky, exact logML and its
     gradient) operators, at BASELINE config 2 (Exp, n = 65536), a periodic
     kernel at n = 65536 and BASELINE config 3 (separable EQ on 128^3);
-    the posterior mean off the grid is a rectangular Gramian through K1.
-Phase 1 holds K1 (its family instances and its interpreted one) and K2,
+    the posterior mean off the grid is a rectangular Gramian through K1;
+  * phases 15-16, the lazy log-likelihood and the fit:
+    `log_marginal_likelihood` above max_cholesky_size (SLQ logdet through
+    the many-column K1, CG quadratic form through K1, the VJP on the plain
+    path) with its gradient, at n = 16384 against the float64 dense
+    Cholesky logML and at n = 2^17 (phase 3's points), then three
+    `fit_kernel` Adam steps at n = 2^17.
+Phase 1 holds K1 (its family instances, its many-column instances and its
+interpreted one) and K2,
 phase 6 K3, phase 9 K4 against their float64 plain versions; K2 and K3
 at each matmul tier ("highest", "high", "default": their tensor-core
 passes) also against their plain version at that tier, on coincident and
@@ -45,6 +52,7 @@ once without one.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -76,6 +84,17 @@ K4_BOUND = {torch.float32: 1e-5, torch.float64: 1e-12}   # K4 vs its float64 pla
 SPARSE_TOL = 1e-6  # the sparsification tolerance of phases 10 and 11
 TOEPLITZ_BOUND = 1e-5   # float32 FFT MVMs of phases 12-13 vs float64 (relative L2)
 VARIANCE_BOUND = 1e-4   # float32 posterior variance vs float64 (absolute; prior variance 1)
+# the SLQ logdet at n = 16384 through the many-column K1 in float32 vs the
+# float64 plain path on the same probes (relative): 3x the H100's reading,
+# 3.165e-5 (PERF.md)
+SLQ_BOUND = 1e-4
+# Lanczos steps at which phase 15a holds the slq logML's value to the
+# Cholesky one (2%): at cfjax's default 48 the quadrature's bias at n =
+# 16384 (kappa ~ 1e5) is 1.8% of the logdet, 3.1% of the logML (PERF.md)
+CONVERGED_ITERS = 384
+# rows of the many-column K1's product held against its float64 plain
+# version in phase 5: all of them at n = 16384, an eighth at n = 2^17
+CHECK_ROWS = 16384
 NOISE = 1e-2      # the GP's noise variance
 Y_NOISE = 0.01    # standard deviation of the noise in the observations y
 
@@ -213,7 +232,8 @@ def phase1_kernels(tk, mvm):
     interp = dataclasses.replace(to_spec(tk.MaternP(2))[0], family=0)
     k1_cases.append((tk.MaternP(2), interp))
     # cases, max rel, max abs
-    res = {"family": [0, 0.0, 0.0], "interpreted": [0, 0.0, 0.0], "expand": [0, 0.0, 0.0]}
+    res = {"family": [0, 0.0, 0.0], "interpreted": [0, 0.0, 0.0], "expand": [0, 0.0, 0.0],
+           "cols": [0, 0.0, 0.0]}
 
     def record(kind, out, ref, bound, what):
         r = rel(out, ref)
@@ -234,6 +254,27 @@ def phase1_kernels(tk, mvm):
                 ref = mvm.gramian_matvec_direct_plain(k, x.double(), y.double(), a.double())
                 record("family" if spec.family else "interpreted", out, ref, K1_BOUND,
                        f"K1 d={d} {n}x{m} {k!r} family {spec.family}")
+    # the many-column K1: every family and the interpreted spec, p columns
+    # in one chunk (p <= 16) or more (17, 40), ragged n and m, the first 16
+    # rows of y rows of x (s = 0); bit-repeatable
+    repeat = 0
+    for d in (1, 3, 5, 16):
+        for n, m in ((1003, 701), (7, 4099)):
+            xs, ys = rng.standard_normal((n, d)), rng.standard_normal((m, d))
+            ys[:min(16, n)] = xs[:16]
+            x, y = cuda_tensor(xs), cuda_tensor(ys)
+            for p in (1, 2, 7, 16, 17, 40):
+                A = cuda_tensor(rng.standard_normal((m, p)))
+                for k, spec in k1_cases:
+                    out = mvm.gramian_matmat_direct(k, x, y, A, spec=spec)
+                    ref = mvm.gramian_matmat_direct_plain(k, x.double(), y.double(), A.double())
+                    check(tuple(out.shape) == (n, p), f"many-column K1: shape {tuple(out.shape)}")
+                    record("cols", out, ref, K1_BOUND,
+                           f"many-column K1 d={d} {n}x{m} p={p} {k!r} family {spec.family}")
+                    if p == 17 and spec.family:
+                        check(torch.equal(out, mvm.gramian_matmat_direct(k, x, y, A, spec=spec)),
+                              f"many-column K1 d={d} {n}x{m} {k!r}: two calls differ")
+                        repeat += 1
     # points scaled by 1/sqrt(d): distances and inner products O(1), so
     # the profiles neither underflow nor overflow in f32; the first 16 rows
     # of y are rows of x (s = 0) and the next 16 those rows moved by 1e-3
@@ -264,7 +305,10 @@ def phase1_kernels(tk, mvm):
     print(f"phase 1 kernels vs plain: K1 family instances {fam[0]} cases (EQ, Exp, MaternP "
           f"0-3, RQ, Cauchy, IMQ, lengthscales, a constant; d in 1, 3, 5, 8, 16) max rel "
           f"{fam[1]:.3e} max abs {fam[2]:.3e}; K1 interpreted {itp[0]} cases max rel "
-          f"{itp[1]:.3e} max abs {itp[2]:.3e} (bound {K1_BOUND:.0e}); "
+          f"{itp[1]:.3e} max abs {itp[2]:.3e} (bound {K1_BOUND:.0e}); many-column K1 "
+          f"{res['cols'][0]} cases (the same profiles, d in 1, 3, 5, 16, p in 1, 2, 7, 16, 17, "
+          f"40, 1003x701 and 7x4099, 16 coincident points) max rel {res['cols'][1]:.3e} max "
+          f"abs {res['cols'][2]:.3e} (bound {K1_BOUND:.0e}), {repeat} cases bit-repeatable; "
           f"K2 {res['expand'][0]} cases (6 iso kernels at d 17, 64, 257 and 2 dot at 64, "
           f"16 coincident and 16 near-coincident points each) max rel {res['expand'][1]:.3e} "
           f"(bound {K2_BOUND:.0e}) max abs {res['expand'][2]:.3e}; K2 by tier "
@@ -352,7 +396,7 @@ def phase_gp(tk, ops, gp, mvm, n, d, kernel, kind, label, rng, solve_opts, resid
     info = post.solve_info
     return dict(residual=res, residual64=res64, mean_err=mean_err, wall_s=wall,
                 mean_wall_s=mean_wall, launches=launches,
-                cg_iters=None if info is None else info[0], explain=how)
+                cg_iters=None if info is None else info[0], explain=how, x=x, y=y)
 
 
 def phase_float64_observations(tk, gp, mvm):
@@ -801,19 +845,20 @@ def k4_times(S, S10, tmvm):
                 lib_err=lib_err, sweep=sweep)
 
 
-def ptxas_k1_family(build):
-    """K1's family instances in the compiler's report beside the K1/K2
-    library: (instances, largest stack frame, spill bytes, registers)."""
+def ptxas_k1_family(build, kernel, count):
+    """K1's family instances of `kernel` ("k1_family", "k1_matmat_family")
+    in the compiler's report beside the K1/K2 library: (instances, largest
+    stack frame, spill bytes, registers)."""
     log = build.library_path("gramian_mvm").with_suffix(".log").read_text()
-    props = re.findall(r"Function properties for (\S*k1_family\S*)\s*\n\s*(\d+) bytes stack "
+    props = re.findall(rf"Function properties for (\S*{kernel}I\S*)\s*\n\s*(\d+) bytes stack "
                        r"frame, (\d+) bytes spill stores, (\d+) bytes spill loads", log)
     regs = [int(r) for name, r in re.findall(
-        r"Compiling entry function '(\S*k1_family\S*)'[^\n]*\n(?:[^\n]*\n)*?"
+        rf"Compiling entry function '(\S*{kernel}I\S*)'[^\n]*\n(?:[^\n]*\n)*?"
         r"[^\n]*Used (\d+) registers", log)]
-    check(len(props) == 48, f"ptxas reports {len(props)} K1 family instances, not 48")
+    check(len(props) == count, f"ptxas reports {len(props)} {kernel} instances, not {count}")
     stack = max(int(p[1]) for p in props)
     spill = max(int(p[2]) + int(p[3]) for p in props)
-    check(stack == 0 and spill == 0, f"K1 family instances keep a stack frame of up to "
+    check(stack == 0 and spill == 0, f"{kernel} instances keep a stack frame of up to "
                                      f"{stack} bytes and spill {spill} bytes: "
                                      f"{[p for p in props if int(p[1]) or int(p[2])]}")
     return len(props), stack, spill, (min(regs), max(regs)) if regs else None
@@ -1149,6 +1194,286 @@ def time_k1(mvm, tk, xh, ah, x17, a17):
                 bound17=op_bound(131072 ** 2, fp32, sfu))
 
 
+def cols_text(k1c):
+    """The many-column K1's times against its bound and 16 single-column calls."""
+    parts = []
+    for n, t in k1c.items():
+        plain = "" if t["plain_ms"] is None else f" vs plain {t['plain_ms']:.4f} ms"
+        parts.append(
+            f"n={n} {t['call_ms']:.4f} ms a call ({t['ms']:.4f} ms device){plain}; against "
+            f"float64 plain on rows 0..{t['rows']} rel {t['err']:.3e} max abs {t['abs_err']:.3e} "
+            f"(bound {K1_BOUND:.0e}); 16 single-column K1 calls {t['singles_ms']:.4f} ms device "
+            f"({t['singles_ms'] / t['ms']:.2f}x); bound {t['bound'][0]:.4f} ms "
+            f"({t['bound'][1]}) = {100 * t['bound'][0] / t['ms']:.1f}% of device, fp32 issue "
+            f"with exp2's split argument {t['issue'][0]:.4f} ms = "
+            f"{100 * t['issue'][0] / t['ms']:.1f}%")
+    return "; ".join(parts)
+
+
+def lml_grads(tk, gp, x, y, l0=1.0, **kw):
+    """log_marginal_likelihood of Lengthscale(MaternP(2), l0) + NOISE I at
+    (x, y) and its gradient in log l and in the noise (autograd over
+    float64 leaves): (value, d/dlog l, d/dnoise)."""
+    l = torch.tensor(l0, dtype=torch.float64, requires_grad=True)
+    nz = torch.tensor(NOISE, dtype=torch.float64, requires_grad=True)
+    v = gp.log_marginal_likelihood(tk.Lengthscale(tk.MaternP(2), l), x, y, noise=nz, **kw)
+    gl, gn = torch.autograd.grad(v, (l, nz))
+    return float(v.detach()), l0 * float(gl), float(gn)
+
+
+@contextlib.contextmanager
+def slq_stages(slq, maxiter):
+    """The iterations and walls of the slq stages of the logML calls made
+    inside: wraps `_lanczos_batch`, `cg_columns`, `cg` and `_pull_back` in
+    `cfjax_torch.operators.slq`, each between two synchronizes, and keeps
+    the quadratic form's alpha."""
+    st = dict(lanczos_calls=0, lanczos_s=0.0, cols_s=0.0, quad_s=0.0, vjp_s=0.0)
+    orig = {name: getattr(slq, name) for name in ("_lanczos_batch", "cg_columns", "cg",
+                                                  "_pull_back")}
+
+    def lanczos(out):
+        st["lanczos_calls"] += 1
+
+    def cols(out):
+        st["cols_iters"] = int(out[1])
+        st["cols_hit"] = st["cols_iters"] >= maxiter
+
+    def quad(out):
+        st["quad_iters"], st["alpha"] = int(out[1][0]), out[0]
+        st["quad_hit"] = st["quad_iters"] >= maxiter
+
+    def timed(name, key, seen=None):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig[name](*a, **kw)
+            torch.cuda.synchronize()
+            st[key] += time.perf_counter() - t0
+            if seen is not None:
+                seen(out)
+            return out
+        return run
+
+    slq._lanczos_batch = timed("_lanczos_batch", "lanczos_s", lanczos)
+    slq.cg_columns = timed("cg_columns", "cols_s", cols)
+    slq.cg = timed("cg", "quad_s", quad)
+    slq._pull_back = timed("_pull_back", "vjp_s")
+    try:
+        yield st
+    finally:
+        for name, fn in orig.items():
+            setattr(slq, name, fn)
+
+
+def stage_text(st):
+    return (f"Lanczos {st['lanczos_s']:.3f} s (48 steps), cg_columns {st['cols_iters']} iterations "
+            f"{'(hit solve_maxiter) ' if st['cols_hit'] else ''}{st['cols_s']:.3f} s, quadratic "
+            f"form CG {st['quad_iters']} iterations {'(hit solve_maxiter) ' if st['quad_hit'] else ''}"
+            f"{st['quad_s']:.3f} s, VJP (plain, checkpointed) {st['vjp_s']:.3f} s")
+
+
+def logml_launches(label, before, after, st):
+    """Every forward product of the logML ran on K1: one many-column launch a
+    Lanczos step (one probe sweep) and a cg_columns iteration, one
+    single-column launch a quadratic-form CG iteration and one for its
+    first residual."""
+    cols = after["direct_cols"] - before["direct_cols"]
+    one = after["direct"] - before["direct"]
+    check(cols == 48 + st["cols_iters"] and one == st["quad_iters"] + 1,
+          f"{label}: {cols} many-column K1 launches for 48 Lanczos steps and "
+          f"{st['cols_iters']} cg_columns iterations, {one} K1 launches for "
+          f"{st['quad_iters']} CG iterations: a forward product ran elsewhere")
+    return cols, one
+
+
+def phase15_logdet(tk, ops, slq):
+    """The SLQ logdet of Lengthscale(MaternP(2), 1) + NOISE I at n = 16384
+    (phase 15a's points): float32 through the many-column K1 against
+    float64 through the plain path on the same probes (a generator seeded
+    with 0), and the float32 estimate's error against the exact logdet
+    (float64 dense Cholesky) over probes and Lanczos steps: the variance
+    (probes) and the quadrature's bias (steps)."""
+    rng = np.random.default_rng(15)
+    n = 16384
+    x = cuda_tensor(rng.standard_normal((n, 3)))
+    k = tk.Lengthscale(tk.MaternP(2), 1.0)
+
+    def logdet(xx, probes=16, iters=48):
+        G = ops.gramian(k, xx)
+        est = slq.slq_logdet(lambda ps, V: G.matvec(V) + NOISE * V, n, probes, iters, 1e-6, 500,
+                             (), torch.Generator(device="cuda").manual_seed(0), dtype=xx.dtype,
+                             device=xx.device)
+        return float(est)
+
+    (ld32, s32), (ld64, s64) = sync_time(lambda: logdet(x)), sync_time(lambda: logdet(x.double()))
+    err = abs(ld32 - ld64) / abs(ld64)
+    check(err <= SLQ_BOUND, f"phase 15: SLQ logdet float32 (K1) {ld32:.9e} vs float64 plain "
+                            f"{ld64:.9e}, rel {err:.3e} > {SLQ_BOUND:.0e}")
+    with torch.no_grad():
+        A = ops.gramian(k, x.double()).todense()
+        A.diagonal().add_(NOISE)
+        exact = float(2 * torch.sum(torch.log(torch.diagonal(torch.linalg.cholesky(A)))))
+        del A
+    sweep = {(p, it): (logdet(x, p, it) - exact) / abs(exact)
+             for p, it in ((16, 48), (64, 48), (16, 96), (16, 192), (16, 384))}
+    return dict(ld32=ld32, ld64=ld64, err=err, s32=s32, s64=s64, exact=exact, sweep=sweep)
+
+
+def phase15_logml(tk, gp, mvm, slq, p3):
+    """The lazy logML and its gradient in log l and the noise.
+    (a) n = 16384, phase 3's kind of points, method="slq" forced (solves to
+    cfjax's 1e-6, up to 2000 iterations), against the float64 dense
+    Cholesky logML on the card with cfjax's test tolerances: the gradient
+    (0.15 max(1, |g|)) at cfjax's 16 probes and 48 Lanczos steps, whose
+    value is biased here (printed), the value (2%) at CONVERGED_ITERS
+    steps.
+    (b) n = 2^17, phase 3's points, the auto route (slq above
+    max_cholesky_size), cfjax's defaults but solve_tol 1e-5: no reference,
+    the solves' iterations and the float64 residual of alpha."""
+    rng = np.random.default_rng(15)
+    n = 16384
+    x = cuda_tensor(rng.standard_normal((n, 3)))
+    y = torch.sin(x[:, 0]) + Y_NOISE * cuda_tensor(rng.standard_normal(n))
+    before = dict(mvm.LAUNCHES)
+    with slq_stages(slq, 2000) as st_a:
+        (va, gla, gna), wall_a = sync_time(lambda: lml_grads(tk, gp, x, y, method="slq",
+                                                             solve_maxiter=2000))
+    cols_a, one_a = logml_launches("phase 15a", before, dict(mvm.LAUNCHES), st_a)
+    (vc, glc, gnc), wall_c = sync_time(lambda: lml_grads(tk, gp, x.double(), y.double(),
+                                                         method="cholesky"))
+    err_v = abs(va - vc) / abs(vc)
+    err_l, err_n = abs(gla - glc), abs(gna - gnc)
+    tol_l, tol_n = 0.15 * max(1.0, abs(glc)), 0.15 * max(1.0, abs(gnc))
+    with torch.no_grad():
+        vs = float(gp.log_marginal_likelihood(tk.Lengthscale(tk.MaternP(2), 1.0), x, y,
+                                              noise=NOISE, method="slq",
+                                              lanczos_iters=CONVERGED_ITERS, solve_maxiter=2000))
+    err_s = abs(vs - vc) / abs(vc)
+    check(err_s <= 0.02 and err_l <= tol_l and err_n <= tol_n,
+          f"phase 15a: slq logML at {CONVERGED_ITERS} Lanczos steps {vs:.6e} vs Cholesky "
+          f"{vc:.6e} (rel {err_s:.3e}, bound 0.02); d/dlog l {gla:.6e} vs {glc:.6e} (|diff| "
+          f"{err_l:.3e}, bound {tol_l:.3e}); d/dnoise {gna:.6e} vs {gnc:.6e} (|diff| "
+          f"{err_n:.3e}, bound {tol_n:.3e})")
+    print(f"phase 15a lazy logML n=16384 d=3 Lengthscale(MaternP(2), 1) method='slq' (16 probes, "
+          f"solve_tol 1e-6, solve_maxiter 2000), float32 on K1: value at {CONVERGED_ITERS} "
+          f"Lanczos steps {vs:.6e} vs float64 dense Cholesky {vc:.6e} (rel {err_s:.3e}, bound "
+          f"0.02); at cfjax's 48 steps {va:.6e} (rel {err_v:.3e}, the quadrature's bias), d/dlog l {gla:.6e} "
+          f"vs {glc:.6e} (|diff| {err_l:.3e}, bound {tol_l:.3e}); d/dnoise {gna:.6e} vs "
+          f"{gnc:.6e} (|diff| {err_n:.3e}, bound {tol_n:.3e}); value and gradient {wall_a:.3f} "
+          f"s ({stage_text(st_a)}), Cholesky and its gradient {wall_c:.3f} s; launches: "
+          f"{cols_a} many-column K1, {one_a} K1", flush=True)
+
+    x, y = p3["x"], p3["y"]
+    n = x.shape[0]
+    before = dict(mvm.LAUNCHES)
+    with slq_stages(slq, 500) as st_b:
+        (vb, glb, gnb), wall_b = sync_time(lambda: lml_grads(tk, gp, x, y, solve_tol=1e-5))
+    check(st_b["lanczos_calls"] > 0, "phase 15b: the auto route did not take the slq branch")
+    cols_b, one_b = logml_launches("phase 15b", before, dict(mvm.LAUNCHES), st_b)
+    check(all(np.isfinite([vb, glb, gnb])), f"phase 15b: logML {vb} gradient {glb}, {gnb}")
+    alpha = st_b["alpha"]
+    k = tk.Lengthscale(tk.MaternP(2), 1.0)
+    res64 = residual(mvm.gramian_matvec_direct_plain(k, x.double(), x.double(), alpha.double()),
+                     alpha, y)
+    print(f"phase 15b lazy logML n=131072 (phase 3's points) Lengthscale(MaternP(2), 1), the "
+          f"auto route to slq, solve_tol 1e-5, solve_maxiter 500: value {vb:.6e}, d/dlog l "
+          f"{glb:.6e}, d/dnoise {gnb:.6e}; {wall_b:.3f} s: {stage_text(st_b)}; float64 "
+          f"relative residual of alpha {res64:.3e}; launches: {cols_b} many-column K1 (48 + "
+          f"{st_b['cols_iters']}), {one_b} K1 ({st_b['quad_iters']} + 1); no preconditioner "
+          f"(as cfjax's slq branch)", flush=True)
+    return dict(va=va, vc=vc, err_v=err_v, wall_a=wall_a, st_a=st_a, vb=vb, glb=glb, gnb=gnb,
+                wall_b=wall_b, st_b=st_b, res64=res64, launches_b=(cols_b, one_b))
+
+
+def phase16_fit(tk, gp, mvm, p3, step_s):
+    """fit_kernel: 3 Adam steps (lr 0.05) from Lengthscale(MaternP(2), 2) at
+    phase 3's points through the slq branch, cfjax's defaults; at n = 2^16
+    (its first half) when three of phase 15b's logML walls exceed 180 s.
+    The wall and launches of each step are read at each call of the
+    logML (a wrapper in fit's namespace)."""
+    import cfjax_torch.gp.fit as fit_mod
+
+    x, y = p3["x"], p3["y"]
+    cut = 3 * step_s > 180
+    if cut:
+        x, y = x[:65536], y[:65536]
+    marks = []
+    orig = fit_mod.log_marginal_likelihood
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), dict(mvm.LAUNCHES)))
+        return orig(*a, **kw)
+
+    fit_mod.log_marginal_likelihood = timed
+    try:
+        (kfit, hist), wall = sync_time(lambda: gp.fit_kernel(tk.Lengthscale(tk.MaternP(2), 2.0),
+                                                             x, y, noise=NOISE, steps=3, lr=0.05))
+    finally:
+        fit_mod.log_marginal_likelihood = orig
+    marks.append((time.perf_counter(), dict(mvm.LAUNCHES)))
+    walls = [b[0] - a[0] for a, b in zip(marks, marks[1:])]
+    launches = [(b[1]["direct_cols"] - a[1]["direct_cols"], b[1]["direct"] - a[1]["direct"])
+                for a, b in zip(marks, marks[1:])]
+    l_fit = float(kfit.l)
+    check(hist.shape == (3,) and bool(torch.isfinite(hist).all()) and np.isfinite(l_fit)
+          and l_fit > 0 and l_fit != 2.0, f"phase 16: history {hist.tolist()}, l {l_fit}")
+    check(all(c > 48 and o > 1 for c, o in launches), f"phase 16: launches per step {launches}")
+    why = (f"cut to n=65536: three logML walls of phase 15b ({step_s:.1f} s each) exceed 180 s"
+           if cut else "n=131072, uncut")
+    print(f"phase 16 fit_kernel 3 Adam steps (lr 0.05) from Lengthscale(MaternP(2), 2) through "
+          f"slq ({why}): losses {', '.join(f'{v:.6e}' for v in hist.tolist())}, l {l_fit:.6f}; "
+          f"{wall:.3f} s, steps {', '.join(f'{w:.3f}' for w in walls)} s; launches per step "
+          f"(many-column K1, K1) {launches}", flush=True)
+    return dict(hist=hist.tolist(), walls=walls, launches=launches, l=l_fit, cut=cut, wall=wall)
+
+
+def time_k1_cols(mvm, tk, xh, x17, p=16):
+    """The many-column K1 at p = 16 columns (the SLQ probe batch), MaternP(2),
+    d = 3: at n = 16384 (`kernel_times` against its plain version), and at
+    n = 2^17 (phase 3's shape: a call, median of 3, and device time from a
+    graph of 3 calls); beside each, p single-column K1 calls on the same
+    columns (device, from graphs) and the bound. At both shapes the
+    product is held against its float64 plain version at K1_BOUND: all of
+    it at n = 16384, its first CHECK_ROWS rows (against every column of K)
+    at n = 2^17."""
+    from cfjax_torch.kernels.profile_spec import to_spec
+
+    k = tk.MaternP(2)
+    spec = to_spec(k)[0]
+    g = torch.Generator(device="cuda").manual_seed(5)
+    out = {}
+    for n, x in ((16384, xh), (131072, x17)):
+        A = torch.randn((n, p), generator=g, device="cuda")
+        cols = [A[:, c].contiguous() for c in range(p)]
+        kern = lambda: mvm.gramian_matmat_direct(k, x, x, A, spec=spec)
+        singles = lambda: [mvm.gramian_matvec_direct(k, x, x, a, spec=spec) for a in cols]
+        rows = min(n, CHECK_ROWS)
+        got = kern()[:rows]
+        ref = mvm.gramian_matmat_direct_plain(k, x[:rows].double(), x.double(), A.double())
+        err = rel(got, ref)
+        abs_err = float((got.double() - ref).abs().max())
+        del ref
+        check(bool(torch.isfinite(got).all()) and err <= K1_BOUND,
+              f"many-column K1 n={n} p={p}, rows 0..{rows}: relative error {err:.3e} against "
+              f"float64 plain > {K1_BOUND:.0e}")
+        if n == 16384:
+            call, dev, plain = kernel_times(kern, lambda: mvm.gramian_matmat_direct_plain(
+                k, x, x, A))
+            singles_ms = float(np.median(graph_ms(singles, 1, 5)))
+        else:
+            dev = float(np.median(graph_ms(kern, 3, 3)))
+            call, plain = float(np.median(median_ms(kern, 3))), None
+            singles_ms = float(np.median(graph_ms(singles, 1, 3)))
+        check(dev < singles_ms, f"many-column K1 n={n} p={p}: {dev:.4f} ms device, not below "
+                                f"{p} single-column calls ({singles_ms:.4f} ms)")
+        fp32, sfu = k1_ops(spec, 3)
+        out[n] = dict(call_ms=call, ms=dev, plain_ms=plain, singles_ms=singles_ms, rows=rows,
+                      err=err, abs_err=abs_err, bound=op_bound(n * n, fp32 - 1 + p, sfu),
+                      issue=op_bound(n * n, fp32 - 1 + p + 4, 0))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1163,7 +1488,9 @@ def main():
     from cfjax_torch.ops import gramian_mvm as mvm
     from cfjax_torch.ops import tile_ell_mvm as tmvm
     from cfjax_torch.kernels.profile_spec import to_spec
+    from cfjax_torch.operators import slq
 
+    t_start = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
@@ -1171,13 +1498,16 @@ def main():
     build.build()
     mvm.library(), mvm.expand_library(), gmvm.library(), tmvm.library()
     built_s = time.perf_counter() - t0
-    fam_n, fam_stack, fam_spill, fam_regs = ptxas_k1_family(build)
+    fam_n, fam_stack, fam_spill, fam_regs = ptxas_k1_family(build, "k1_family", 48)
+    cols_n, cols_stack, cols_spill, cols_regs = ptxas_k1_family(build, "k1_matmat_family", 48)
     k2_n, k2_regs, k2_stack = ptxas_tc(build, "expand_mvm", "k2_tc", 20)
     k3_n, k3_regs, k3_stack = ptxas_tc(build, "grad_mvm", "k3_tc", 18)
     print(f"phase 0 card: {smi} | torch {torch.__version__} cuda {torch.version.cuda} | "
           f"kernel libraries {', '.join(build.LIBRARIES)} built in {built_s:.1f} s | ptxas: "
           f"{fam_n} K1 family instances, stack frame {fam_stack} bytes, spills {fam_spill} "
-          f"bytes, registers {fam_regs}; K2 {k2_n} instances (10 profiles x 1, 3 passes), "
+          f"bytes, registers {fam_regs}; {cols_n} many-column K1 instances (6 D x 8 profiles, "
+          f"16 columns a chunk), stack frame {cols_stack} bytes, spills {cols_spill} "
+          f"bytes, registers {cols_regs}; K2 {k2_n} instances (10 profiles x 1, 3 passes), "
           f"K3 {k3_n} (9 x 1, 3 passes): family instances 0 bytes stack, no instance spills, "
           f"registers {k2_regs} / {k3_regs}, the interpreted instances' stack {k2_stack} / {k3_stack} "
           f"bytes (the profile interpreter's)", flush=True)
@@ -1229,6 +1559,7 @@ def main():
     a17 = cuda_tensor(rng.standard_normal(131072))
     keq, km2 = tk.EQ(), tk.MaternP(2)
     k1t = time_k1(mvm, tk, xh, ah, x17, a17)
+    k1c = time_k1_cols(mvm, tk, xh, x17)
     from cfjax_torch.ops.tiles import tier_passes
 
     def runs(tier):
@@ -1243,7 +1574,8 @@ def main():
         }
 
     # (ms of one call with the wrapper's host time, device ms, plain ms at the tier)
-    times = {"direct": (k1t["call_ms"], k1t["ms"], k1t["plain_ms"])}
+    times = {"direct": (k1t["call_ms"], k1t["ms"], k1t["plain_ms"]),
+             "direct_cols": (k1c[16384]["call_ms"], k1c[16384]["ms"], k1c[16384]["plain_ms"])}
     tier_times = {}
     for tier in TIERS:
         for key, (kern, plain) in runs(tier).items():
@@ -1276,7 +1608,7 @@ def main():
            "grad8": lambda ps: tc_bound(1024 ** 2, 8 * 1024, ps, 21, 3)}
     core = {"expand": op_bound(16384 ** 2, 64 + 5, 1), "grad": op_bound(4096 ** 2, 4.5 * 16),
             "grad8": op_bound(1024 ** 2, 4.5 * 1024)}
-    bounds = {"direct": k1t["bound"]}
+    bounds = {"direct": k1t["bound"], "direct_cols": k1c[16384]["bound"]}
     for key in tcb:
         bounds[key] = tcb[key](tier_passes("highest"))
     share = lambda key, i: 100 * bounds[key][0] / times[key][i]
@@ -1310,7 +1642,8 @@ def main():
           f"{100 * k1t['bound17'][0] / k1t['call17']:.1f}% of a call "
           f"({100 * k1t['bound17'][0] / k1t['ms17']:.1f}% of device), fp32-issue bound with "
           f"exp2's split argument ({fp32_k1 + 4} fp32 an entry) {k1_issue[0]:.3f} ms = "
-          f"{100 * k1_issue[0] / k1t['ms17']:.1f}% of device | K2 Lengthscale(EQ, 4) n=16384 "
+          f"{100 * k1_issue[0] / k1t['ms17']:.1f}% of device | many-column K1 MaternP(2) d=3 "
+          f"p=16: {cols_text(k1c)} | K2 Lengthscale(EQ, 4) n=16384 "
           f"d=64: {tier_line('expand')} | K3 EQ n=4096 d=16: {tier_line('grad')} | K3 "
           f"MaternP(2) n=1024 d=1024: {tier_line('grad8')} | K3's near-coincident path (pairs "
           f"with s <= tau (|x|^2 + |y|^2), tau = {gmvm.NEAR_TAU}), the points against themselves "
@@ -1387,15 +1720,39 @@ def main():
     p13, w13 = sync_time(lambda: phase13_circulant(tk, ops, gp))
     p14, w14 = sync_time(lambda: phase14_kronecker(tk, ops, gp))
     check(mvm.LAUNCHES["direct"] > 0, "kernel 'direct' was not launched on the structured path")
+    launches["direct"] += mvm.LAUNCHES["direct"]
     print(f"phases 12-14 structured path {time.perf_counter() - t_struct:.1f} s (walls: 12 "
           f"{w12:.3f} s, 13 {w13:.3f} s, 14 {w14:.3f} s, checks included): FFT MVM "
           f"{p12['mvm_ms']:.4f} ms (Toeplitz n=65536) / {p13['mvm_ms']:.4f} ms (circulant "
           f"n=65536), Kronecker MVM {p14['mvm_ms']:.4f} ms (128^3), levinson n=16384 "
           f"{p12['lev_ms']:.1f} ms; K1 launches {mvm.LAUNCHES['direct']}", flush=True)
 
+    # ---- the lazy logML and the fit: counts from here to the end of phase 16 ----
+    p15d = phase15_logdet(tk, ops, slq)
+    sweep = ", ".join(f"{p} probes {it} steps {100 * e:+.3f}%" for (p, it), e in p15d["sweep"].items())
+    print(f"phase 15 SLQ logdet n=16384 (16 probes, 48 Lanczos steps, the same probes): "
+          f"float32 through the many-column K1 {p15d['ld32']:.9e} ({p15d['s32']:.3f} s) vs "
+          f"float64 plain {p15d['ld64']:.9e} ({p15d['s64']:.3f} s), rel {p15d['err']:.3e} "
+          f"(bound {SLQ_BOUND:.0e}); against the exact logdet {p15d['exact']:.9e} (float64 "
+          f"dense Cholesky), float32: {sweep}", flush=True)
+    for key in mvm.LAUNCHES:
+        mvm.LAUNCHES[key] = 0
+    t_lml = time.perf_counter()
+    p15 = phase15_logml(tk, gp, mvm, slq, p3)
+    p16 = phase16_fit(tk, gp, mvm, p3, p15["wall_b"])
+    launches["direct_cols"] = mvm.LAUNCHES["direct_cols"]
+    launches["direct"] += mvm.LAUNCHES["direct"]
+    check(launches["direct_cols"] > 0 and mvm.LAUNCHES["direct"] > 0,
+          "the many-column K1 or K1 was not launched on the logML path")
+    print(f"phases 15-16 logML path {time.perf_counter() - t_lml:.1f} s: launches many-column "
+          f"K1 {mvm.LAUNCHES['direct_cols']}, K1 {mvm.LAUNCHES['direct']}", flush=True)
+
     # at "highest", the configured tier
     meta = {"direct": ("K1 gramian_matvec_direct", "cfjax_torch/csrc/gramian_mvm.cu",
                        "cfjax/ops/pallas_mvm.py:253", p1["direct"][2], None),
+            "direct_cols": ("K1 gramian_matmat_direct (many columns, p=16)",
+                            "cfjax_torch/csrc/gramian_mvm.cu", "cfjax/ops/pallas_mvm.py:253",
+                            max([p1["cols"][2]] + [t["abs_err"] for t in k1c.values()]), None),
             "expand": ("K2 gramian_matvec_expand", "cfjax_torch/csrc/expand_mvm.cu",
                        "cfjax/ops/pallas_mvm.py:152", p1["expand"][2], None),
             "grad": ("K3 grad_matvec", "cfjax_torch/csrc/grad_mvm.cu",
@@ -1408,7 +1765,7 @@ def main():
     print("phase 5 kernel table (ms a call and device, bound ms and what sets it, share of "
           "the bound a call and device, launches on the path's run, library call ms a call "
           "and device): " + "; ".join(
-              f"{meta[key][0].split()[0]} {times[key][0]:.4f} ms ({times[key][1]:.4f} device), "
+              f"{' '.join(meta[key][0].split()[:2])} {times[key][0]:.4f} ms ({times[key][1]:.4f} device), "
               f"bound {bounds[key][0]:.4f} ms ({bounds[key][1]}), {share(key, 0):.1f}% "
               f"({share(key, 1):.1f}%), {launches[key]} launches, library {lib_ms(key)}"
               for key in meta), flush=True)
@@ -1423,6 +1780,7 @@ def main():
          "library_ms": None if meta[key][4] is None else meta[key][4][0],
          "library_device_ms": None if meta[key][4] is None else meta[key][4][1]}
         for key in meta]}))
+    print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,8 @@
 shapes of `chip_smoke.py` phase 5, for the `cfjax_torch` of a checkout;
 K2 and K3 at each matmul tier ("highest" under the kernels' names, the
 tf32 tiers as "... @ high" / "... @ default", null where the checkout's
-kernel declines the tier).
+kernel declines the tier); K1's many-column variant at p = 16 (the SLQ
+probe batch), null where the checkout has none.
 
     python3 kernel_times.py [--root DIR] [--label NAME]
 
@@ -115,7 +116,13 @@ def main():
         "K3 MaternP(2) n=d=1024": lambda: gmvm.grad_matvec(km2, xg8, xg8, ag8),
         f"K4 S @ a, phase 11's operator (nnz {S.nnz})": lambda: S @ a11,
     }
-    out = {name: times(fn) for name, fn in runs.items()}
+    x17 = f(131072, 3)
+    for n, x in ((16384, xh), (131072, x17)):
+        A = f(n, 16)
+        runs[f"K1 many-column MaternP(2) n={n} d=3 p=16"] = (
+            (lambda x=x, A=A: mvm.gramian_matmat_direct(k1, x, x, A))
+            if hasattr(mvm, "gramian_matmat_direct") else None)
+    out = {name: None if fn is None else times(fn) for name, fn in runs.items()}
     import cfjax_torch
 
     for tier in ("high", "default"):

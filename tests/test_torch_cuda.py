@@ -574,3 +574,77 @@ def test_float32_solve_with_float64_observations_launches_k1():
         cfjax_torch.set_config(max_cholesky_size=cfjax_torch.config.Config.max_cholesky_size)
     assert post.alpha.dtype == torch.float32
     assert launches >= post.solve_info[0] > 0
+
+
+@needs_gpu
+@pytest.mark.parametrize("d", [1, 3, 5, 16])
+@pytest.mark.parametrize("name", list(K1_KERNELS))
+def test_matmat_kernel_matches_plain(d, name):
+    """The many-column K1 against its float64 plain version at p = 1, 2, 7,
+    16, 17 and 40 (one chunk, or more), ragged n and m, 16 coincident
+    points; one launch a call (one a column for the interpreted spec)."""
+    k = K1_KERNELS[name]
+    rng = np.random.default_rng(d)
+    xs, ys = rng.standard_normal((1003, d)), rng.standard_normal((701, d))
+    ys[:16] = xs[:16]
+    x, y = (torch.tensor(v, dtype=torch.float32, device="cuda") for v in (xs, ys))
+    for p in (1, 2, 7, 16, 17, 40):
+        A = torch.tensor(rng.standard_normal((701, p)), dtype=torch.float32, device="cuda")
+        before = mvm.LAUNCHES["direct_cols"]
+        out = mvm.gramian_matmat_direct(k, x, y, A)
+        torch.cuda.synchronize()
+        assert mvm.LAUNCHES["direct_cols"] == before + (p if name == "SumScaled" else 1)
+        ref = mvm.gramian_matmat_direct_plain(k, x.double(), y.double(), A.double())
+        assert out.shape == (1003, p) and _rel(out, ref) <= 1e-5
+        assert torch.equal(out, mvm.gramian_matmat_direct(k, x, y, A))
+
+
+@needs_gpu
+def test_kernels_run_under_no_grad_with_leaves_that_require_grad():
+    """A kernel whose leaves require grad (an optimizer's iterate) runs K1 and
+    the many-column K1 under torch.no_grad(); with grad enabled the same
+    Gramian takes the plain path, which autograd records."""
+    x, _, a = _cuda_data(500, 500, 3)
+    k = tk.Lengthscale(tk.MaternP(2), 0.7)
+    k.l.requires_grad_(True)
+    G = gramian(k, x)
+    V = torch.randn((500, 16), device="cuda")
+    with torch.no_grad():
+        assert "cuda kernel K1" in explain(k, x)
+        before = dict(mvm.LAUNCHES)
+        b, B = G @ a, G @ V
+        assert mvm.LAUNCHES["direct"] == before["direct"] + 1
+        assert mvm.LAUNCHES["direct_cols"] == before["direct_cols"] + 1
+    assert "autograd records" in explain(k, x)
+    before = dict(mvm.LAUNCHES)
+    b2 = G @ a
+    assert mvm.LAUNCHES == before and b2.grad_fn is not None
+    assert _rel(b, b2.detach().double()) <= 1e-5
+
+
+@needs_gpu
+def test_slq_logml_on_card_matches_float64_plain():
+    """The slq logML on the card: float32 through K1 and the many-column K1
+    against float64 through the plain path, on the same probes (a
+    generator seeded with 0): value and gradient."""
+    from cfjax_torch.gp import log_marginal_likelihood
+
+    rng = np.random.default_rng(4)
+    xs = rng.standard_normal((2000, 3))
+    ys = np.sin(xs[:, 0]) + 0.01 * rng.standard_normal(2000)
+
+    def run(dtype):
+        l = torch.tensor(1.0, dtype=torch.float64, requires_grad=True)
+        x = torch.tensor(xs, dtype=dtype, device="cuda")
+        v = log_marginal_likelihood(tk.Lengthscale(tk.MaternP(2), l), x,
+                                    torch.tensor(ys, dtype=dtype, device="cuda"), noise=1e-2,
+                                    method="slq", solve_maxiter=2000)
+        return float(v.detach()), float(torch.autograd.grad(v, l)[0])
+
+    before = dict(mvm.LAUNCHES)
+    v32, g32 = run(torch.float32)
+    assert mvm.LAUNCHES["direct_cols"] > before["direct_cols"] + 48
+    assert mvm.LAUNCHES["direct"] > before["direct"]
+    v64, g64 = run(torch.float64)
+    assert abs(v32 - v64) <= 1e-3 * abs(v64)
+    assert abs(g32 - g64) <= 1e-2 * abs(g64)

@@ -170,10 +170,22 @@ def test_cholesky_jitter_on_semidefinite_matrix(rng):
     assert torch.isfinite(F.L).all()
 
 
-def test_lml_other_methods_not_ported(problem):
+def test_lml_other_methods_not_ported(problem, monkeypatch):
+    """Every logML method of cfjax is ported: method="slq" (the stochastic
+    Lanczos branch) runs and, on cfjax's own default probes, agrees with
+    cfjax's estimate; an unknown method still raises."""
+    from cfjax.operators import slq as j_slq
+    from cfjax_torch.operators import slq as t_slq
+
     x, y, _ = problem
-    with pytest.raises(NotImplementedError):
-        t_lml(tk.EQ(), torch.tensor(x), torch.tensor(y), NOISE, method="slq")
+    Z = np.asarray(j_slq._rademacher(jax.random.PRNGKey(0), N, 16, jnp.float64))
+    monkeypatch.setattr(t_slq, "_rademacher", lambda gen, n, p, dtype, device: torch.tensor(
+        Z, dtype=dtype, device=device))
+    out = t_lml(tk.EQ(), torch.tensor(x), torch.tensor(y), NOISE, method="slq")
+    ref = j_lml(jk.EQ(), jnp.asarray(x), jnp.asarray(y), NOISE, method="slq")
+    np.testing.assert_allclose(float(out), float(ref), rtol=1e-6)
+    with pytest.raises(ValueError):
+        t_lml(tk.EQ(), torch.tensor(x), torch.tensor(y), NOISE, method="lanczos")
 
 
 def _rel_err(out, ref):
