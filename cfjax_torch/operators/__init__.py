@@ -20,7 +20,8 @@ from .toeplitz import (
     trench,
 )
 from .kronecker import KroneckerCholesky, KroneckerOperator
-from .solvers import (CholeskyFactorization, LowRankFactorization, cg, cg_columns,
-                      factorize, gmres, minres, solve, solve_with_info)
+from .solvers import (CholeskyFactorization, LowRankFactorization, approx_refined_solve, cg,
+                      cg_columns, factorize, gmres, minres, refined_solve, solve,
+                      solve_with_info)
 from .preconditioner import nystrom_preconditioner
 from .dispatch import LambdaKernel, explain, gramian

@@ -6,7 +6,8 @@ CG, MINRES and GMRES are Python loops with one host sync per residual
 check (cfjax's are `lax.while_loop`s). `torch.linalg.cholesky` raises on a
 matrix that is not positive definite where `jnp.linalg.cholesky` returns
 NaN, so the rank-revealing tests use `torch.linalg.cholesky_ex` and its
-`info`. The refinement solvers are not ported yet (ROADMAP.md, queue 1).
+`info`. The refinement solvers run their outer loops on the host, as
+cfjax's do: one residual norm read a refinement.
 """
 
 from __future__ import annotations
@@ -193,6 +194,72 @@ def gmres(matvec, b, x0=None, tol: float = None, maxiter: int = None, restart: i
     return x, (it, res)
 
 
+def refined_solve(matvec_hi, matvec_lo, b, M=None, tol: float = 1e-8,
+                  inner_tol: float = 1e-3, inner_maxiter: int = 60,
+                  refinements: int = 4):
+    """Mixed-precision iterative refinement: inner PCG in float32,
+    residuals recomputed in float64.
+
+    At n ~ 10^5-10^6 the condition number of a GP system crosses
+    1/eps_f32 and plain float32 PCG stalls; one float64 MVM per
+    refinement restores float64-quality solutions while the Krylov work
+    stays in float32.
+
+    matvec_hi: v -> A v in float64 (float64 in and out; anything else
+    raises TypeError: a float32 residual would make the refinement a no-op).
+    matvec_lo: v -> A v in float32. M: callable v -> M^-1 v for the inner
+    PCG. Returns (x, (outer_iters, final float64 residual norm))."""
+    b = torch.as_tensor(b).to(torch.float64)
+
+    def residual(x):
+        Ax = matvec_hi(x)
+        if Ax.dtype != torch.float64:
+            raise TypeError(f"refined_solve needs a float64 matvec_hi, got {Ax.dtype}: the "
+                            "refinement cannot improve on plain float32 CG without it")
+        return b - Ax
+
+    x = torch.zeros_like(b)
+    bnorm = float(torch.linalg.norm(b))
+    it = 0
+    for it in range(1, refinements + 1):
+        r = residual(x)
+        res = torch.linalg.norm(r)
+        if float(res) <= tol * bnorm:
+            return x, (it - 1, res)
+        d, _ = cg(matvec_lo, r.to(torch.float32), tol=inner_tol, maxiter=inner_maxiter, M=M)
+        x = x + d.to(torch.float64)
+    return x, (it, torch.linalg.norm(residual(x)))
+
+
+def approx_refined_solve(matvec_exact, matvec_approx, b, M=None,
+                         tol: float = 1e-4, inner_tol: float = 3e-2,
+                         inner_maxiter: int = 20, refinements: int = 8):
+    """Inexact inner, exact outer: GMRES against a cheap approximate
+    operator (Barnes-Hut, sparsified, low-rank) corrected by residuals of
+    the exact one, so the returned residual is the true system's. Per outer
+    step the error contracts by about max(inner_tol, ||A^-1 E||), E the
+    approximation's error: the steps converge only where E's spectral norm
+    sits below the smallest eigenvalue of A (the noise variance of a GP).
+
+    Runs in b's dtype. The inner solver is GMRES (restart = inner_maxiter):
+    the approximation is usually not symmetric, which breaks CG's
+    recurrence. Returns (x, (outer_iters, final exact-residual norm))."""
+    b = torch.as_tensor(b)
+    x = torch.zeros_like(b)
+    bnorm = float(torch.linalg.norm(b))
+    r = b
+    it = 0
+    for it in range(1, refinements + 1):
+        res = torch.linalg.norm(r)
+        if float(res) <= tol * bnorm:
+            return x, (it - 1, res)
+        d, _ = gmres(matvec_approx, r, tol=inner_tol, maxiter=inner_maxiter,
+                     restart=inner_maxiter, M=M)
+        x = x + d
+        r = b - matvec_exact(x)
+    return x, (it, torch.linalg.norm(r))
+
+
 def _tri_solve(L, b, upper=False, left_transpose=False):
     A = L.mT if left_transpose else L
     B = b[:, None] if b.ndim == 1 else b
@@ -294,7 +361,8 @@ def solve(op, b, tol: float = None, maxiter: int = None, method: str = "auto"):
     """A \\ b for any operator: Cholesky (small symmetric PSD, the
     reference policy up to max_cholesky_size, src/gramian.jl:201-213), CG
     (PSD), MINRES (symmetric indefinite), GMRES (general,
-    method="gmres"), CGNR normal equations (non-symmetric / rectangular
+    method="gmres"), mixed-precision refinement (method="refined", see
+    `solve_with_info`), CGNR normal equations (non-symmetric / rectangular
     least squares, src/lazy_linear_algebra.jl:135-144)."""
     return solve_with_info(op, b, tol, maxiter, method)[0]
 
@@ -302,11 +370,24 @@ def solve(op, b, tol: float = None, maxiter: int = None, method: str = "auto"):
 def solve_with_info(op, b, tol: float = None, maxiter: int = None, method: str = "auto"):
     """`solve`, returning (x, info): info is the iterative solver's
     (iterations, final residual norm) on the CG, MINRES, GMRES and CGNR
-    branches (a list of them for a 2-D b), else None."""
+    branches (a list of them for a 2-D b), and refined_solve's (outer
+    iterations, float64 residual norm) on the "refined" branch, else None.
+
+    method="refined" is `refined_solve` with both products from the
+    operator's own MVM in its dtype, cast to float64 and float32 (tol
+    default 1e-8), as cfjax's: on a float32 operator its "float64"
+    residual carries float32 error, so the refinement cannot beat float32
+    there. For float64 residuals pass a float64 `matvec_hi` to
+    `refined_solve`."""
     if isinstance(op, (CholeskyFactorization, LowRankFactorization)):
         return op.solve(b), None
     b = b if isinstance(b, torch.Tensor) else torch.as_tensor(b, device=getattr(op, "device",
                                                                                   None))
+    if method == "refined":
+        mv, dt = op._matvec, op.dtype
+        return refined_solve(lambda v: mv(v.to(dt)).to(torch.float64),
+                             lambda v: mv(v.to(dt)).to(torch.float32), b,
+                             tol=1e-8 if tol is None else tol)
     if method == "auto":
         if op.is_symmetric and op.is_psd:
             method = "cholesky" if op.shape[0] <= _config.DEFAULT.max_cholesky_size else "cg"
@@ -326,8 +407,7 @@ def solve_with_info(op, b, tol: float = None, maxiter: int = None, method: str =
         it = {"cg": cg, "minres": minres, "gmres": gmres}[method]
         f = lambda bb: it(mv, bb, tol=tol, maxiter=maxiter)
     else:
-        raise NotImplementedError(
-            f"solve method {method!r} is not ported yet (ROADMAP.md, queue 1)")
+        raise ValueError(f"unknown solve method {method!r}")
     if b.ndim == 1:
         return f(b)
     cols = [f(b[:, j]) for j in range(b.shape[1])]

@@ -30,10 +30,18 @@ card, then drives the paths a user runs:
     the many-column K1, CG quadratic form through K1, the VJP on the plain
     path) with its gradient, at n = 16384 against the float64 dense
     Cholesky logML and at n = 2^17 (phase 3's points), then three
-    `fit_kernel` Adam steps at n = 2^17.
+    `fit_kernel` Adam steps at n = 2^17;
+  * phases 17-20, the Barnes-Hut treecode and the refinement solvers:
+    `BarnesHutFactorization` (host plans, plain-torch MVM; K1 computes
+    the exact rows it is held to) at the reference README's n = 65536
+    and at BASELINE config 5's n = 10^6, config 5's GP solve at n = 10^6
+    (`gp_condition`: K1 + rank-2048 Nystrom PCG; `approx_refined_solve`
+    with the treecode inside, K1 outside) and `refined_solve` at
+    n = 10^5 (K1 inside, the float64 Gramian outside).
 Phase 1 holds K1 (its family instances, its many-column instances and its
 interpreted one) and K2,
-phase 6 K3, phase 9 K4 against their float64 plain versions; K2 and K3
+phase 6 K3, phase 9 K4 against their float64 plain versions, and phases
+17-20 K1's products at the sizes that path gives it (up to n = 10^6); K2 and K3
 at each matmul tier ("highest", "high", "default": their tensor-core
 passes) also against their plain version at that tier, on coincident and
 near-coincident points. Phase 0 reads the compiler's report (K1's, K2's
@@ -93,8 +101,20 @@ SLQ_BOUND = 1e-4
 # 16384 (kappa ~ 1e5) is 1.8% of the logdet, 3.1% of the logML (PERF.md)
 CONVERGED_ITERS = 384
 # rows of the many-column K1's product held against its float64 plain
-# version in phase 5: all of them at n = 16384, an eighth at n = 2^17
+# version in phase 5: all of them at n = 16384, an eighth at n = 2^17; and
+# of K1's at n = 10^5 in phase 20
 CHECK_ROWS = 16384
+# the Barnes-Hut phases (17-20). The reference README's treecode errors at
+# n = 65536 (BASELINE.md:29-31): accuracy figures, not times; phase 17
+# holds the card's within 2x of each
+BH_REF_ERR = {0.5: 1.17e-2, 0.25: 4.29e-3}
+# the card's float32 BH MVM against the same plan evaluated in float64 plain
+# torch on the card (relative L2): 6.6x the H100's larger reading, 4.543e-8
+# at theta 1/2 (PERF.md)
+BH_PLAN_BOUND = 3e-7
+BH_N6_ERR = 2e-2           # phase 18: error against 16 exact rows at n = 10^6
+BH_LINEAR_BOUND = 1e-5     # phase 18: matvec_linear's departure from linearity, float32
+RESIDUAL_ROWS = 16384      # phase 19: rows of the float64 residual
 NOISE = 1e-2      # the GP's noise variance
 Y_NOISE = 0.01    # standard deviation of the noise in the observations y
 
@@ -1428,6 +1448,359 @@ def phase16_fit(tk, gp, mvm, p3, step_s):
     return dict(hist=hist.tolist(), walls=walls, launches=launches, l=l_fit, cut=cut, wall=wall)
 
 
+def uncounted_k1(mvm, label, fn):
+    """fn() through K1, for a comparison with K1's plain version: checks
+    that K1 ran, and leaves the launch counts as they were."""
+    saved = dict(mvm.LAUNCHES)
+    try:
+        out = fn()
+        check(mvm.LAUNCHES["direct"] > saved["direct"], f"{label}: the product did not run K1")
+    finally:
+        mvm.LAUNCHES.update(saved)
+    return out
+
+
+def k1_against_plain(label, out, ref64, mag64=None):
+    """K1's product K v against its float64 plain version on the same
+    inputs, at K1_BOUND: the error's L2 norm over the product's, or, where
+    v has entries of both signs, over that of K |v| (mag64), the sum of
+    magnitudes that a float32 product's rounding scales with. A solve's
+    solution cancels in K v (GP weights alpha: K alpha ~ y, |alpha| >> |y|),
+    so there the error over ||K v|| measures the cancellation, not the
+    kernel. Returns (that error, the largest absolute one)."""
+    err = float(torch.linalg.norm(out.double() - ref64)
+                / torch.linalg.norm(ref64 if mag64 is None else mag64))
+    over = "||K v||" if mag64 is None else "||K |v|||"
+    check(err <= K1_BOUND, f"{label}: K1's error over {over} {err:.3e} against float64 plain")
+    return err, float((out.double() - ref64).abs().max())
+
+
+def cancels(Kv64, mag64):
+    """||K |v||| / ||K v||: how far the product cancels."""
+    return float(torch.linalg.norm(mag64) / torch.linalg.norm(Kv64))
+
+
+def bh_plan64(F, bh, v):
+    """F's MVM over its own buckets and plans, evaluated in float64 plain
+    torch on the card: the plain version of the float32 MVM, term for term."""
+    t = F.tree
+    wp = F._permuted_weights(v.double())
+    flat = torch.zeros(F._tgt_P, dtype=torch.float64, device=v.device)
+    for xg, rows, flv, fidx, lidx in F._device_plans():
+        flat[rows] = bh.bh_matvec_planned(F.k, xg.double(), fidx, lidx, t.points.double(), wp,
+                                          flv, t.levels, t.leafsize, F.order).reshape(-1)
+    out = torch.zeros_like(flat)
+    out[F._tgt_perm.long()] = flat
+    return out[:F.n]
+
+
+def bh_without(bh, fn, graph_reps):
+    """Device ms of fn from CUDA graphs with the near field, then the far
+    field, taken out (each returns zeros of its shape; the far field's mask
+    and sum stay): what each half adds to the device's time."""
+    no_near = lambda k, xt, *a: xt.new_zeros(xt.shape[:2])
+    no_far = lambda k, xt, st, ic, order: xt.new_zeros(()).expand(*xt.shape[:2], ic.shape[1])
+    out = []
+    for name, stub in (("_near_field", no_near), ("_far_field", no_far)):
+        orig = getattr(bh, name)
+        setattr(bh, name, stub)
+        try:
+            out.append(float(np.median(graph_ms(fn, graph_reps, 3))))
+        finally:
+            setattr(bh, name, orig)
+    return tuple(out)
+
+
+def bh_times(bh, fn, reps, graph_reps):
+    """(ms of a call, CUDA events around one call, median of reps; device ms
+    from a CUDA graph of graph_reps calls; device ms without the near field
+    and without the far field). Events around each half would hold the
+    host's gaps between launches, which are most of a call at n = 65536."""
+    fn()
+    call = float(np.median(median_ms(fn, reps)))
+    dev = float(np.median(graph_ms(fn, graph_reps, 3)))
+    return call, dev, bh_without(bh, fn, graph_reps)
+
+
+def bh_pairs(F):
+    """(near-field pairs, far-field pairs) an MVM evaluates: per bucket, its
+    group size times the valid slots of its plan (leaf slots times the leaf
+    size for the near field)."""
+    ls = F.tree.leafsize
+    near = far = 0
+    for (_, _, _, rows, _), (_, fidx, lidx) in zip(F.buckets, F.plans):
+        G = rows.shape[1]
+        near += G * ls * int((lidx >= 0).sum())
+        far += G * sum(int((f >= 0).sum()) for f in fidx)
+    return near, far
+
+
+def bh_text(F, t):
+    call, dev, (no_near, no_far) = t
+    pn, pf = bh_pairs(F)
+    bound = (pn + pf) / SFU_RATE * 1e3
+    return (f"{pn:.4e} near-field and {pf:.4e} far-field pairs, at one SFU operation a pair "
+            f"{bound:.3f} ms ({100 * bound / dev:.2f}% of device); "
+            f"MVM {call:.3f} ms a call, {dev:.3f} ms device (graph); device without the near field "
+            f"{no_near:.3f} ms, without the far field {no_far:.3f} ms (near {dev - no_near:.3f} "
+            f"ms = {100 * (dev - no_near) / dev:.1f}%, far {dev - no_far:.3f} ms = "
+            f"{100 * (dev - no_far) / dev:.1f}% of device); F = {F.max_open}, {len(F.buckets)} "
+            f"buckets, {sum(len(b[3]) for b in F.buckets)} groups")
+
+
+def bh_build(bh, k, x, theta, fresh=None):
+    """A warm build's wall (min of 3; on points that `fresh` draws anew
+    each time when given), then the plan: the buckets' gathers, the host
+    sweep and the copy to the card. Returns (F, its points, build s,
+    buckets s, plans s, copy s)."""
+    bh.BarnesHutFactorization(k, x, theta=theta)
+    best, F = float("inf"), None
+    for _ in range(3):
+        x = x if fresh is None else fresh()
+        F, s = sync_time(lambda: bh.BarnesHutFactorization(k, x, theta=theta))
+        best = min(best, s)
+    _, b_s = sync_time(lambda: F.buckets)
+    _, p_s = sync_time(lambda: F.plans)
+    _, c_s = sync_time(F._device_plans)
+    return F, x, best, b_s, p_s, c_s
+
+
+def phase17_treecode(tk, ops, bh, mvm):
+    """The reference README's treecode (BASELINE.md:29-31): EQ, n = 65536,
+    d = 2, x ~ N(0, I), w ~ U(0, 1), theta 1/2 and 1/4, order 1. The error
+    against 256 exact rows through K1 (a 256 x n rectangular Gramian, held
+    against float64), the MVM against the same plan in float64 on the card."""
+    rng = np.random.default_rng(17)
+    n = 65536
+    k = tk.EQ()
+    x = cuda_tensor(rng.standard_normal((n, 2)))
+    w = cuda_tensor(rng.uniform(0, 1, n))
+    idx = torch.as_tensor(rng.integers(0, n, 256), device="cuda")
+    exact = ops.gramian(k, x[idx], x) @ w
+    k1_err, k1_abs = k1_against_plain("phase 17: 256 exact rows", exact,
+                                      mvm.gramian_matvec_direct_plain(k, x[idx].double(),
+                                                                      x.double(), w.double()))
+    for theta in (0.5, 0.25):
+        F, _, build_s, b_s, p_s, c_s = bh_build(bh, k, x, theta)
+        b = F @ w
+        check(tuple(b.shape) == (n,) and b.dtype == torch.float32 and bool(torch.isfinite(b).all()),
+              f"phase 17: theta {theta}: MVM not finite float32 of shape (n,)")
+        err = rel(b[idx], exact.double())
+        plan_err = rel(b, bh_plan64(F, bh, w))
+        t = bh_times(bh, lambda: F @ w, 10, 5)
+        check(plan_err <= BH_PLAN_BOUND,
+              f"phase 17: theta {theta}: float32 MVM vs float64 plan rel {plan_err:.3e}")
+        check(err <= 2 * BH_REF_ERR[theta],
+              f"phase 17: theta {theta}: error {err:.3e} > 2 x the reference's {BH_REF_ERR[theta]}")
+        print(f"phase 17 treecode EQ n=65536 d=2 theta={theta}: build {build_s:.4f} s (warm, min "
+              f"of 3), plan {p_s:.4f} s (buckets {b_s:.4f} s, copy {c_s:.4f} s); {bh_text(F, t)}; "
+              f"rel err vs 256 exact rows (K1) {err:.3e} (reference {BH_REF_ERR[theta]:.2e}); "
+              f"float32 vs the same plan in float64 {plan_err:.3e} (bound "
+              f"{BH_PLAN_BOUND:.0e}); K1's rows vs float64 plain {k1_err:.3e}", flush=True)
+        del F
+    return k1_abs
+
+
+def phase18_treecode_1e6(tk, ops, bh, mvm):
+    """BASELINE config 5's treecode (run_baseline.py:449-479): EQ, n = 10^6,
+    d = 2, x ~ N(0, I), w ~ U(0, 1), theta 1/2: build (min of 3 on fresh
+    points), plan, MVM with its near / far split and its peak memory, the
+    error against 16 exact rows through K1 (held against float64 plain),
+    and the linearity of matvec_linear."""
+    rng = np.random.default_rng(18)
+    n = 1_000_000
+    k = tk.EQ()
+    w = cuda_tensor(rng.uniform(0, 1, n))
+    F, x, build_s, b_s, p_s, c_s = bh_build(
+        bh, k, cuda_tensor(rng.standard_normal((n, 2))), 0.5,
+        fresh=lambda: cuda_tensor(rng.standard_normal((n, 2))))
+    b = F @ w
+    check(tuple(b.shape) == (n,) and bool(torch.isfinite(b).all()),
+          "phase 18: the MVM is not finite of shape (n,)")
+    idx = torch.as_tensor(rng.integers(0, n, 16), device="cuda")
+    exact = ops.gramian(k, x[idx], x) @ w
+    k1_err, k1_abs = k1_against_plain("phase 18: 16 exact rows", exact,
+                                      mvm.gramian_matvec_direct_plain(k, x[idx].double(),
+                                                                      x.double(), w.double()))
+    err = rel(b[idx], exact.double())
+    check(np.isfinite(err) and err <= BH_N6_ERR, f"phase 18: error {err:.3e} > {BH_N6_ERR}")
+    t = bh_times(bh, lambda: F @ w, 5, 2)
+    # the MVM's peak memory above its inputs
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    F @ w
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    u, v = cuda_tensor(rng.standard_normal(n)), cuda_tensor(rng.standard_normal(n))
+    lhs = F.matvec_linear(2.0 * u - 3.0 * v)
+    lin = float(torch.linalg.norm(lhs - (2.0 * F.matvec_linear(u) - 3.0 * F.matvec_linear(v)))
+                / torch.linalg.norm(lhs))
+    check(lin <= BH_LINEAR_BOUND, f"phase 18: matvec_linear departs from linear by {lin:.3e}")
+    print(f"phase 18 treecode EQ n=1000000 d=2 theta=0.5: build {build_s:.4f} s (warm, min of 3 "
+          f"on fresh points), plan {p_s:.4f} s (buckets {b_s:.4f} s, copy {c_s:.4f} s); "
+          f"{bh_text(F, t)}; peak {peak:.2f} GiB at {bh.CHUNK_ELEMENTS} chunk elements; rel err "
+          f"vs 16 exact rows (K1) {err:.3e} (bound {BH_N6_ERR:.0e}); K1's rows vs float64 plain "
+          f"{k1_err:.3e}; matvec_linear linearity {lin:.3e} (bound {BH_LINEAR_BOUND:.0e})",
+          flush=True)
+    return k1_abs
+
+
+def plain_rows(k, x, v, rows, mvm, block=64, dtype=torch.float64):
+    """(K v) on the given rows (all rows for None) through K1's plain
+    version in dtype (blocks of 64 rows: 0.5 GB tiles at n = 10^6)."""
+    xr = x if rows is None else x[rows]
+    return mvm.gramian_matvec_direct_plain(k, xr.to(dtype), x.to(dtype), v.to(dtype), block=block)
+
+
+def relres64(k, x, y, v, noise, rows, mvm, block=64):
+    """(K v) on the given rows (all rows for None) in float64 through K1's
+    plain version, and ||y - (K + noise I) v|| / ||y|| there."""
+    yr, vr = (y, v) if rows is None else (y[rows], v[rows])
+    Kv = plain_rows(k, x, v, rows, mvm, block)
+    r = yr.double() - Kv - noise * vr.double()
+    return Kv, float(torch.linalg.norm(r) / torch.linalg.norm(yr.double()))
+
+
+def phase19_gp_solves(tk, ops, gp, bh, mvm):
+    """BASELINE config 5's GP solve (run_baseline.py:495-548): Lengthscale(EQ,
+    1), n = 10^6, x ~ U(-10, 10)^2, sigma^2 = 1e-2, y = sin(x_0) + 0.1 w.
+    (a) gp_condition, rank-2048 Nystrom PCG through K1, tol 1e-4, maxiter 60;
+    (b) approx_refined_solve: GMRES with the same preconditioner against the
+    theta = 1/2 Barnes-Hut matvec_linear + sigma^2 I, corrected by K1 +
+    sigma^2 I residuals. Whether (b) converges is read, not checked. K1 at
+    n = 10^6 is held against its float64 plain version: on RESIDUAL_ROWS
+    rows of K alpha in (a), on every row of K x in (b), where the reported
+    residual is held to the float64 one of the returned x."""
+    rng = np.random.default_rng(19)
+    n, s2 = 1_000_000, 1e-2
+    k = tk.Lengthscale(tk.EQ(), 1.0)
+    x = cuda_tensor(rng.uniform(-10, 10, (n, 2)))
+    y = torch.sin(x[:, 0]) + 0.1 * cuda_tensor(rng.uniform(0, 1, n))
+    yn = float(torch.linalg.norm(y))
+    rows = torch.as_tensor(rng.choice(n, RESIDUAL_ROWS, replace=False), device="cuda")
+    G = ops.gramian(k, x)
+    before = mvm.LAUNCHES["direct"]
+    post, wall_a = sync_time(lambda: gp.gp_condition(k, x, y, noise=s2, precond_rank=2048,
+                                                     tol=1e-4, maxiter=60))
+    it_a, res_a = post.solve_info
+    launches_a = mvm.LAUNCHES["direct"] - before
+    rel_a = float(res_a) / yn
+    check(it_a < 60 and rel_a <= 1e-4,
+          f"phase 19a: Nystrom PCG did not converge: {it_a} iterations, relres {rel_a:.3e}")
+    # K1 at n = 10^6 against float64 plain on RESIDUAL_ROWS rows: K |alpha|
+    # (no cancellation), then K alpha, beside the plain version in float32
+    a = post.alpha
+    Ka64, r64_a = relres64(k, x, y, a, s2, rows, mvm)
+    mag64 = plain_rows(k, x, a.abs(), rows, mvm)
+    k1_m, k1_abs_m = k1_against_plain(f"phase 19a: K |alpha| on {RESIDUAL_ROWS} rows",
+                                      uncounted_k1(mvm, "phase 19a", lambda: G @ a.abs())[rows],
+                                      mag64)
+    Ka = uncounted_k1(mvm, "phase 19a", lambda: G @ a)[rows]
+    k1_a, k1_abs_a = k1_against_plain(f"phase 19a: K alpha on {RESIDUAL_ROWS} rows", Ka, Ka64,
+                                      mag64)
+    f32_a = float(torch.linalg.norm(plain_rows(k, x, a, rows, mvm, dtype=torch.float32).double()
+                                    - Ka64) / torch.linalg.norm(mag64))
+    can_a, rel_Ka = cancels(Ka64, mag64), rel(Ka, Ka64)
+    check(r64_a <= 2e-4, f"phase 19a: float64 residual on {RESIDUAL_ROWS} rows {r64_a:.3e} "
+          f"> 2 x the tolerance 1e-4")
+    del post, a, Ka, Ka64, mag64
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    M, m_s = sync_time(lambda: ops.nystrom_preconditioner(k, x, s2, rank=2048))
+    F, f_s = sync_time(lambda: bh.BarnesHutFactorization(k, x, theta=0.5))
+    _, plan_s = sync_time(F._device_plans)
+    steps, last, calls = [], {}, [0]
+
+    def exact(v):
+        Kv = G @ v
+        last.update(v=v, Kv=Kv)
+        out = Kv + s2 * v
+        steps.append(float(torch.linalg.norm(y - out)) / yn)
+        return out
+
+    def approx(v):
+        calls[0] += 1
+        return F.matvec_linear(v) + s2 * v
+
+    before = mvm.LAUNCHES["direct"]
+    (xb, (outer, res_b)), solve_s = sync_time(lambda: ops.approx_refined_solve(
+        exact, approx, y, M=M, tol=1e-4, inner_tol=3e-2, inner_maxiter=20, refinements=8))
+    wall_b = time.perf_counter() - t0
+    launches_b = mvm.LAUNCHES["direct"] - before
+    check(bool(torch.isfinite(xb).all()), "phase 19b: x is not finite")
+    check(last["v"] is xb, "phase 19b: the last exact residual is not of the returned x")
+    del M, F
+    torch.cuda.empty_cache()
+    (Kx64, r64_b), check_s = sync_time(lambda: relres64(k, x, y, xb, s2, None, mvm, 128))
+    k1_b, k1_abs_b = k1_against_plain(f"phase 19b: K x on {RESIDUAL_ROWS} rows",
+                                      last["Kv"][rows], Kx64[rows],
+                                      plain_rows(k, x, xb.abs(), rows, mvm))
+    rel_b = float(res_b) / yn
+    check(abs(rel_b - r64_b) <= 1e-3 * r64_b,
+          f"phase 19b: reported relres {rel_b:.6e} vs float64 {r64_b:.6e} of the returned x")
+    print(f"phase 19 config-5 GP solve Lengthscale(EQ, 1) n=1000000 x~U(-10,10)^2 sigma^2=1e-2: "
+          f"(a) gp_condition rank-2048 Nystrom PCG {it_a} iterations, relres {rel_a:.3e}, "
+          f"{wall_a:.3f} s, K1 launches {launches_a}, float64 residual on {RESIDUAL_ROWS} rows "
+          f"{r64_a:.3e}; K1 there vs float64 plain: K |alpha| {k1_m:.3e}, K alpha {k1_a:.3e} "
+          f"of ||K |alpha||| (plain float32 {f32_a:.3e}; {rel_Ka:.3e} of ||K alpha||, which "
+          f"cancels {can_a:.1f}x) | (b) "
+          f"approx_refined_solve (theta 0.5 BH inner, GMRES(20), inner_tol 3e-2, tol 1e-4): "
+          f"{outer} outer steps, exact relres per step "
+          f"{', '.join(f'{r:.3e}' for r in steps)}; converged: {rel_b <= 1e-4}; {calls[0]} BH "
+          f"MVMs, K1 launches {launches_b}; wall {wall_b:.3f} s (Nystrom {m_s:.3f} s, BH build "
+          f"{f_s:.3f} s, plan {plan_s:.3f} s, solve {solve_s:.3f} s) vs (a) {wall_a:.3f} s; "
+          f"reported relres {rel_b:.6e} vs {r64_b:.6e} in float64 on every row ({check_s:.1f} "
+          f"s), K1's K x on {RESIDUAL_ROWS} rows vs float64 plain {k1_b:.3e} of ||K |x|||",
+          flush=True)
+    return max(k1_abs_m, k1_abs_a, k1_abs_b)
+
+
+def phase20_refined(tk, ops, mvm):
+    """refined_solve at n = 10^5 (run_baseline.py:683-765): x ~ N(0, I),
+    d = 2, Lengthscale(EQ, 1), sigma^2 = 4e-3, rank-768 Nystrom, inner_tol
+    1e-2, inner_maxiter 80, refinements 10, tol 1e-8. matvec_lo: K1 +
+    sigma^2 I; matvec_hi: the float64 Gramian on the card (the plain path).
+    Beside it plain float32 PCG (tol 1e-10, maxiter 300) by its true float64
+    residual."""
+    rng = np.random.default_rng(20)
+    n, s2 = 100_000, 4e-3
+    k = tk.Lengthscale(tk.EQ(), 1.0)
+    x = cuda_tensor(rng.standard_normal((n, 2)))
+    G, G64 = ops.gramian(k, x), ops.gramian(k, x.double())
+    M, m_s = sync_time(lambda: ops.nystrom_preconditioner(k, x, s2, rank=768))
+    hi = lambda v: G64 @ v + s2 * v
+    lo = lambda v: G @ v + s2 * v
+    b = hi(torch.tensor(rng.standard_normal(n), device="cuda"))
+    bn = float(torch.linalg.norm(b))
+    true = lambda v: float(torch.linalg.norm(
+        b - mvm.gramian_matvec_direct_plain(k, x.double(), x.double(), v.double()) - s2 * v)) / bn
+    (x32, (it32, _)), s32 = sync_time(lambda: ops.cg(lo, b.float(), tol=1e-10, maxiter=300, M=M))
+    rel32 = true(x32.double())
+    (xr, (outer, res)), sr = sync_time(lambda: ops.refined_solve(
+        hi, lo, b, M=M, tol=1e-8, inner_tol=1e-2, inner_maxiter=80, refinements=10))
+    rel_r = float(res) / bn
+    true_r = true(xr)
+    check(xr.dtype == torch.float64 and bool(torch.isfinite(xr).all()), "phase 20: x not finite")
+    check(abs(true_r - rel_r) <= 1e-3 * true_r,
+          f"phase 20: reported relres {rel_r:.6e} is not the true float64 one {true_r:.6e}")
+    check(rel_r <= rel32, f"phase 20: refinement {rel_r:.3e} above float32 PCG's {rel32:.3e}")
+    # matvec_lo's K1 product on its first CHECK_ROWS rows against float64 plain
+    v = xr.float()
+    Kv = uncounted_k1(mvm, "phase 20", lambda: G @ v)[:CHECK_ROWS]
+    top = slice(CHECK_ROWS)
+    k1_err, k1_abs = k1_against_plain(f"phase 20: K x on {CHECK_ROWS} rows", Kv,
+                                      plain_rows(k, x, v, top, mvm),
+                                      plain_rows(k, x, v.abs(), top, mvm))
+    print(f"phase 20 refined_solve n=100000 d=2 N(0,I) Lengthscale(EQ, 1) sigma^2=4e-3 rank-768 "
+          f"Nystrom: {outer} refinements to float64 relres {rel_r:.3e} (true {true_r:.3e}; reaches "
+          f"1e-8: {rel_r <= 1e-8}) in {sr:.3f} s; plain float32 PCG {it32} iterations, true "
+          f"float64 relres {rel32:.3e} in {s32:.3f} s; Nystrom build {m_s:.3f} s; matvec_lo's K1 "
+          f"on {CHECK_ROWS} rows vs float64 plain {k1_err:.3e} of ||K |x|||", flush=True)
+    return k1_abs
+
+
 def time_k1_cols(mvm, tk, xh, x17, p=16):
     """The many-column K1 at p = 16 columns (the SLQ probe batch), MaternP(2),
     d = 3: at n = 16384 (`kernel_times` against its plain version), and at
@@ -1489,6 +1862,7 @@ def main():
     from cfjax_torch.ops import tile_ell_mvm as tmvm
     from cfjax_torch.kernels.profile_spec import to_spec
     from cfjax_torch.operators import slq
+    from cfjax_torch.barneshut import bh
 
     t_start = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1747,9 +2121,21 @@ def main():
     print(f"phases 15-16 logML path {time.perf_counter() - t_lml:.1f} s: launches many-column "
           f"K1 {mvm.LAUNCHES['direct_cols']}, K1 {mvm.LAUNCHES['direct']}", flush=True)
 
+    # ---- the Barnes-Hut path and the refinement solvers: counts from here to the end of phase 20 ----
+    for key in mvm.LAUNCHES:
+        mvm.LAUNCHES[key] = 0
+    t_bh = time.perf_counter()
+    # the largest absolute error of K1's products held against float64 plain
+    k1_bh = max(phase17_treecode(tk, ops, bh, mvm), phase18_treecode_1e6(tk, ops, bh, mvm),
+                phase19_gp_solves(tk, ops, gp, bh, mvm), phase20_refined(tk, ops, mvm))
+    check(mvm.LAUNCHES["direct"] > 0, "kernel 'direct' was not launched on the Barnes-Hut path")
+    launches["direct"] += mvm.LAUNCHES["direct"]
+    print(f"phases 17-20 Barnes-Hut and refinement path {time.perf_counter() - t_bh:.1f} s: K1 "
+          f"launches {mvm.LAUNCHES['direct']}", flush=True)
+
     # at "highest", the configured tier
     meta = {"direct": ("K1 gramian_matvec_direct", "cfjax_torch/csrc/gramian_mvm.cu",
-                       "cfjax/ops/pallas_mvm.py:253", p1["direct"][2], None),
+                       "cfjax/ops/pallas_mvm.py:253", max(p1["direct"][2], k1_bh), None),
             "direct_cols": ("K1 gramian_matmat_direct (many columns, p=16)",
                             "cfjax_torch/csrc/gramian_mvm.cu", "cfjax/ops/pallas_mvm.py:253",
                             max([p1["cols"][2]] + [t["abs_err"] for t in k1c.values()]), None),

@@ -648,3 +648,58 @@ def test_slq_logml_on_card_matches_float64_plain():
     v64, g64 = run(torch.float64)
     assert abs(v32 - v64) <= 1e-3 * abs(v64)
     assert abs(g32 - g64) <= 1e-2 * abs(g64)
+
+
+@needs_gpu
+@pytest.mark.parametrize("order", [1, 2])
+@pytest.mark.parametrize("d,same", [(2, True), (3, True), (5, True), (2, False)],
+                         ids=["fused-d2", "fused-d3", "generic-d5", "generic-xy"])
+def test_barneshut_on_card_matches_cpu_float64(d, same, order):
+    """The Barnes-Hut build and MVM at n = 4096 in float64 on the card and
+    on the CPU: identical plans (the card's device tree and its float32
+    mirrors are the CPU's), MVMs within 1e-10 relative (the same terms,
+    summed by other kernels)."""
+    from cfjax_torch.barneshut import BarnesHutFactorization
+
+    rng = np.random.default_rng(d + 10 * same)
+    x = rng.standard_normal((4096, d))
+    y = None if same else rng.standard_normal((3000, d))
+    w = rng.standard_normal(4096 if same else 3000)
+    built = {}
+    for dev in ("cpu", "cuda"):
+        t = lambda a: None if a is None else torch.tensor(a, device=dev)
+        F = BarnesHutFactorization(tk.EQ(), t(x), t(y), theta=0.5, group_size=32, order=order)
+        built[dev] = (F, F @ t(w), F.matvec_linear(t(w)))
+    (Fc, bc, lc), (Fg, bg, lg) = built["cpu"], built["cuda"]
+    assert bg.device.type == "cuda" and bg.dtype == torch.float64
+    for pc, pg in zip(Fc.plans, Fg.plans, strict=True):
+        assert pc[0] == pg[0] and np.array_equal(pc[2], pg[2])
+        assert all(np.array_equal(a, b) for a, b in zip(pc[1], pg[1], strict=True))
+    assert _rel(bg.cpu(), bc) <= 1e-10 and _rel(lg.cpu(), lc) <= 1e-10
+
+
+@needs_gpu
+def test_refined_solve_with_k1_on_card():
+    """refined_solve on the card: K1 + sigma^2 I in float32 inside, the
+    float64 Gramian (plain path) for the residuals; cfjax's
+    test_refined_solve_beats_f32_cg system at n = 1024, sigma^2 = 1e-3
+    reaches a float64 relres of 1e-9."""
+    from cfjax_torch.operators import nystrom_preconditioner, refined_solve
+
+    rng = np.random.default_rng(42)
+    n, s2 = 1024, 1e-3
+    x = torch.tensor(rng.uniform(-5, 5, (n, 2)), device="cuda")
+    k = tk.Lengthscale(tk.EQ(), 1.5)
+    G32, G64 = gramian(k, x.float()), gramian(k, x)
+    a = torch.tensor(rng.standard_normal(n), device="cuda")
+    b = G64 @ a + s2 * a
+    M = nystrom_preconditioner(k, x.float(), s2, rank=256)
+    before = mvm.LAUNCHES["direct"]
+    xr, (outer, res) = refined_solve(lambda v: G64 @ v + s2 * v, lambda v: G32 @ v + s2 * v, b,
+                                     M=M, tol=1e-9, inner_tol=1e-3, inner_maxiter=100,
+                                     refinements=8)
+    assert mvm.LAUNCHES["direct"] > before + outer
+    bn = torch.linalg.norm(b)
+    assert float(res / bn) < 1e-9
+    true = torch.linalg.norm(b - mvm.gramian_matvec_direct_plain(k, x, x, xr) - s2 * xr) / bn
+    assert abs(float(true) - float(res / bn)) <= 1e-3 * float(true)

@@ -28,7 +28,7 @@ from cfjax.operators.solvers import factorize as j_factorize
 from cfjax_torch.gp import gp_condition as t_condition
 from cfjax_torch.gp import log_marginal_likelihood as t_lml
 from cfjax_torch.operators import (CholeskyFactorization, LowRankFactorization, cg,
-                                   factorize, solve)
+                                   factorize, solve, solve_with_info)
 from cfjax_torch.operators.dispatch import explain as t_explain
 from cfjax_torch.operators.dispatch import gramian as t_gramian
 from cfjax_torch.operators.preconditioner import nystrom_preconditioner as t_nystrom
@@ -141,8 +141,14 @@ def test_cg_and_solve_methods(problem):
                                np.stack([ref, 2 * ref], axis=1), rtol=1e-6, atol=1e-8)
     np.testing.assert_allclose(solve(K, torch.tensor(y), method="minres", tol=1e-12,
                                      maxiter=2000).numpy(), ref, rtol=1e-6, atol=1e-8)
-    with pytest.raises(NotImplementedError):
-        solve(K, torch.tensor(y), method="refined")
+    # "refined": float32 inner CG, residuals from the float64 operator
+    # (cfjax's semantics). The reported residual is the true one, and it
+    # bounds the error: ||x - ref|| <= ||r|| / lambda_min <= ||r|| / NOISE
+    xr, (outer, res) = solve_with_info(K, torch.tensor(y), method="refined")
+    assert xr.dtype == torch.float64 and 1 <= outer <= 4
+    np.testing.assert_allclose(float(res), np.linalg.norm(y - dense @ xr.numpy()), rtol=1e-6)
+    assert float(res) < 1e-3 * np.linalg.norm(y)
+    assert np.linalg.norm(xr.numpy() - ref) <= float(res) / NOISE
 
 
 def test_factorize_rank_revealing_matches_reference(rng):

@@ -156,5 +156,5 @@ def test_solve_explicit_methods(rng):
     for method in ("minres", "gmres", "cgnr"):
         np.testing.assert_allclose(solve(op, b, tol=1e-12, maxiter=1000, method=method).numpy(),
                                    ref, atol=1e-8)
-    with pytest.raises(NotImplementedError, match="refined"):
-        solve(op, b, method="refined")
+    with pytest.raises(ValueError, match="unknown solve method"):
+        solve(op, b, method="refine")
