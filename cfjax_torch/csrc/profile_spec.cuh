@@ -12,7 +12,11 @@
 //                    entries per decode, three floats per stack slot;
 //   family_value<FAM, P>: the value of a one-leaf spec's family form
 //                    (ProfileSpec.family), with its folded constants, in
-//                    registers: no stack, no opcode reads.
+//                    registers: no stack, no opcode reads;
+//   matern_nu<JET>:  Matern(nu).profile at real nu (and its jet), the
+//                    MATERN_NU / MATERN_NU_JET opcodes, with x^nu K_nu(x)
+//                    computed here by Temme's series, Steed's continued
+//                    fraction and the order recurrence: no library Bessel.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -30,6 +34,8 @@
 #define OP_POWI 10
 #define OP_MATERNP 11
 #define OP_MATERNP_JET 12
+#define OP_MATERN_NU 13
+#define OP_MATERN_NU_JET 14
 
 #define MAX_OPS 64
 #define MAX_CONSTS 64
@@ -72,6 +78,158 @@ __device__ __forceinline__ float ipow(float x, int p) {
         e >>= 1;
     }
     return p < 0 ? 1.f / r : r;
+}
+
+// ---------------------------------------------------------------------------
+// Real-nu Matern: f(s) = c x^nu K_nu(x), x = sqrt(2 nu s), c = 2^(1-nu) /
+// Gamma(nu), and its jet f' = -c nu x^(nu-1) K_(nu-1)(x), f'' = c nu^2
+// x^(nu-2) K_|nu-2|(x). cfjax's Pallas kernels run this profile as a jnp
+// closure, a 400-node exp-sinh quadrature in log space (cfjax/utils/
+// besselk.py) per entry; here K is evaluated as Numerical Recipes' `bessik`
+// does (Temme 1975; Steed's CF2), in float32: about 15 terms either side of
+// x = 2 against 400 nodes of exp and log, and accurate at small x, where the
+// quadrature is not (cfjax_torch/utils/besselk.py). The constants t[] come
+// from `matern_nu_table` (cfjax_torch/utils/besselk.py), which documents
+// each index; matern_nu_reference there is this code in float64.
+// ---------------------------------------------------------------------------
+
+#define KV_EPS 1.0e-7f
+#define KV_MAX_TERMS 64
+
+// (A, B) = (x^l K_l(x), x^(l+1) K_(l+1)(x)) for |l| <= 1/2, each times
+// 1 / tail: tail = exp(-x / 2) above x = 2 (the rest of exp(-x) is in A and
+// B; the caller multiplies by tail last, so that x up to ~170 stays in
+// range), 1 below.
+__device__ __forceinline__ void kv_pair(const float* t, float x, float& A, float& B,
+                                        float& tail) {
+    const float l = t[7];
+    if (x <= 2.f) {
+        // Temme's series: K_l = sum c_k f_k, K_(l+1) = (2 / x) sum c_k (p_k - k f_k)
+        const float x2 = 0.5f * x;
+        const float d = -logf(x2);
+        const float e = l * d;
+        const float fact2 = fabsf(e) < 1e-3f ? fmaf(e * e, 1.f / 6.f, 1.f) : sinhf(e) / e;
+        float ff = t[14] * (t[10] * coshf(e) + t[11] * fact2 * d);
+        float sum = ff;
+        const float ee = expf(e);               // (x/2)^-l
+        float p = 0.5f * ee / t[12];            // (x/2)^-l Gamma(1+l) / 2
+        float q = 0.5f / (ee * t[13]);          // (x/2)^l Gamma(1-l) / 2
+        float c = 1.f, sum1 = p;
+        const float dd = x2 * x2;
+        for (int i = 1; i < KV_MAX_TERMS; ++i) {
+            const float fi = (float)i;
+            ff = (fi * ff + p + q) / (fi * fi - l * l);
+            c *= dd / fi;
+            p /= fi - l;
+            q /= fi + l;
+            const float del = c * ff;
+            sum += del;
+            sum1 += c * (p - fi * ff);
+            if (fabsf(del) < fabsf(sum) * KV_EPS) break;
+        }
+        const float xl = exp2f(l) / ee;         // x^l
+        A = xl * sum;
+        B = 2.f * xl * sum1;
+        tail = 1.f;
+    } else {
+        // Steed's CF2 for K_l and the ratio K_(l+1) / K_l
+        float b = 2.f * (1.f + x), dd = 1.f / b, h = dd, delh = dd;
+        float q1 = 0.f, q2 = 1.f;
+        const float a1 = 0.25f - l * l;
+        float q = a1, c = a1, a = -a1, sum = fmaf(a1, delh, 1.f);
+        for (int i = 1; i < KV_MAX_TERMS; ++i) {
+            const float fi = (float)i;
+            a -= 2.f * fi;
+            c = -a * c / (fi + 1.f);
+            const float qn = (q1 - b * q2) / a;
+            q1 = q2;
+            q2 = qn;
+            q += c * qn;
+            b += 2.f;
+            dd = 1.f / (b + a * dd);
+            delh = (b * dd - 1.f) * delh;
+            h += delh;
+            const float dels = q * delh;
+            sum += dels;
+            if (fabsf(dels) < fabsf(sum) * KV_EPS) break;
+        }
+        h *= a1;
+        tail = expf(-0.5f * x);
+        // sqrt(pi / 2) x^(l - 1/2) exp(-x / 2) / sum
+        A = 1.2533141373155003f * exp2f((l - 0.5f) * log2f(x)) * tail / sum;
+        B = A * (l + x + 0.5f - h);
+    }
+}
+
+// f (and with JET f', f'') of Matern(nu).profile at s. Below the guard's
+// bound t[6] (and at s = 0, the limit 1 for every nu) the Taylor
+// polynomial 1 + t1 s + t2 s^2, as Matern.profile; above it the closed
+// forms, from the scaled values g_k = x^(mu+k) K_(mu+k)(x) run up from
+// (g_0, g_1) = kv_pair by g_(k+1) = x^2 g_(k-1) + 2 (mu + k) g_k: every
+// term positive, so no cancellation. g grows like 2^(nu-1) Gamma(nu) as
+// x -> 0, past float32 near nu = 28: the three carried values are scaled
+// by 2^-64 whenever the top one passes 2^64, and the count joins c's
+// exponent t[3] in one ldexpf at the end. x = sqrt(s) sqrt(2 nu) is
+// rounded three times (the root, the constant, the product), and exp(-x)
+// turns that into a relative error of up to x 2^-23, 1e-5 at x = 100: its
+// rounding error xlo (the root's residual, an FMA, and the constant's
+// remainder t[15]) corrects each result to first order, by its
+// logarithmic derivative in x.
+template <bool JET>
+__device__ __forceinline__ void matern_nu(const float* t, float s, float& f0, float& f1,
+                                          float& f2) {
+    if (s < t[6] || s <= 0.f) {
+        f0 = fmaf(fmaf(t[5], s, t[4]), s, 1.f);
+        f1 = fmaf(2.f * t[5], s, t[4]);
+        f2 = 2.f * t[5];
+        return;
+    }
+    const float sq = sqrtf(s);
+    const float x = t[1] * sq;
+    const float sqlo = fmaf(-sq, sq, s) / (2.f * sq);   // sqrtf's rounding error
+    const float xlo = fmaf(t[1], sqlo, fmaf(sq, t[15], fmaf(sq, t[1], -x)));
+    float A, B, tail;
+    kv_pair(t, x, A, B, tail);
+    const int n = (int)t[9];
+    const float xx = x * x;
+    float gm = 0.f, g0 = A, g1 = B;   // orders nu - 2, nu - 1, nu once run up
+    int e = (int)t[3];
+    if (JET && t[8] != 0.f) {
+        // 1 < nu < 3/2: A = x^-mu K_mu, B = x^(1-mu) K_(1-mu), mu = -l
+        const float mu = -t[7];
+        const float x2m = exp2f(2.f * mu * log2f(x));
+        gm = B * x2m / xx;
+        g0 = A * x2m;
+        g1 = fmaf(xx, gm, 2.f * mu * g0);
+    } else {
+        float al = t[7] + 1.f;
+        for (int k = 1; k < n; ++k) {
+            const float g2 = fmaf(xx, g0, 2.f * al * g1);
+            gm = g0;
+            g0 = g1;
+            g1 = g2;
+            al += 1.f;
+            if (g1 > 18446744073709551616.f) {
+                gm *= 5.42101086242752217e-20f;
+                g0 *= 5.42101086242752217e-20f;
+                g1 *= 5.42101086242752217e-20f;
+                e += 64;
+            }
+        }
+    }
+    // d/dx x^a K_a(x) = -x x^(a-1) K_(a-1)(x), and (recurrence down)
+    // x^(a-1) K_(a-1) = (g_(a+1) - 2 a g_a) / x^2
+    const float ct = t[2] * tail;
+    const float top = n == 0 ? g0 : g1;
+    const float d0 = n == 0 ? -(B - 2.f * t[7] * A) / (x * A) : -x * g0 / g1;
+    f0 = top > 0.f ? ldexpf(ct * top * fmaf(d0, xlo, 1.f), e) : 0.f;
+    if (JET) {
+        const float nu = t[0];
+        const float d1 = -x * gm / g0;
+        const float d2 = -(g0 - 2.f * (nu - 2.f) * gm) / (x * gm);
+        f1 = gm > 0.f ? ldexpf(-nu * ct * g0 * fmaf(d1, xlo, 1.f), e) : 0.f;
+        f2 = gm > 0.f ? ldexpf(nu * nu * ct * gm * fmaf(d2, xlo, 1.f), e) : 0.f;
+    }
 }
 
 // Evaluate the profile program on V arguments at once (one decode per V
@@ -148,6 +306,15 @@ __device__ __forceinline__ void eval_profile(const ProfileSpec& sp, float (&s)[V
             }
             break;
         }
+        case OP_MATERN_NU:
+            // one copy of the routine, the V entries in turn
+#pragma unroll 1
+            for (int v = 0; v < V; ++v) {
+                float f0, f1, f2;
+                matern_nu<false>(&sp.c[a], st[top - 1][v], f0, f1, f2);
+                st[top - 1][v] = f0;
+            }
+            break;
         default:
             break;
         }
@@ -465,6 +632,14 @@ __device__ __forceinline__ void eval_jet(const ProfileSpec& sp, const float (&s)
             }
             break;
         }
+        case OP_MATERN_NU_JET:
+#pragma unroll 1
+            for (int v = 0; v < V; ++v) {
+                float g0, g1, g2;
+                matern_nu<true>(&sp.c[a], st[top - 1][v][0], g0, g1, g2);
+                chain(st[top - 1][v], g0, g1, g2);
+            }
+            break;
         default:
             break;
         }

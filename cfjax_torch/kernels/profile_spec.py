@@ -9,9 +9,10 @@ constants. The CUDA kernels (`csrc/gramian_mvm.cu`) interpret it per
 element with a small register stack; every thread runs the same opcode
 sequence, so warps never diverge on it.
 
-Covered: EQ, Exp, GammaExp, MaternP(p), RQ, Cauchy, IMQ, Constant, Dot and
-ExponentialDot, closed under Sum, Product, Power, Lengthscale and Constant
-scaling. `to_spec(k)` returns `(spec, None)` or `(None, reason)`.
+Covered: EQ, Exp, GammaExp, MaternP(p), Matern(nu), RQ, Cauchy, IMQ,
+Constant, Dot and ExponentialDot, closed under Sum, Product, Power,
+Lengthscale and Constant scaling. `to_spec(k)` returns `(spec, None)` or
+`(None, reason)`.
 `ProfileSpec.evaluate` is the plain torch evaluator of a program; it
 agrees with `k.profile_value` op for op.
 
@@ -36,6 +37,20 @@ Taylor branch below eps^(1/p), the closed form above it), and kernels
 whose profile has no finite f' or f'' at s = 0 (Exp, MaternP(0), GammaExp)
 decline. `ProfileSpec.evaluate_jet(s)` propagates the
 second-order jet (f, f', f'') through a program, one rule per opcode.
+
+Real-nu Matern. MATERN_NU (value specs) and MATERN_NU_JET (derivative
+specs) are one opcode each, over a table of constants that depend on nu
+alone, computed on the host in float64 (`utils/besselk.py`
+`matern_nu_table`): the kernels evaluate x^nu K_nu(x) by Temme's series
+(x <= 2) or Steed's continued fraction (x > 2) at an order mu in
+[-1/2, 1/2], then run the recurrence on the scaled values
+g_k = x^(mu+k) K_(mu+k)(x) up to nu (`csrc/profile_spec.cuh` `matern_nu`).
+The jet needs no second quadrature: with r = sqrt(2 nu s) and
+c = 2^(1-nu) / Gamma(nu), f' = -c nu r^(nu-1) K_(nu-1)(r) and
+f'' = c nu^2 r^(nu-2) K_|nu-2|(r), orders of the same recurrence. The
+plain rules are `Matern.profile`'s (cfjax's quadrature), its jet by
+autograd. A derivative spec declines nu <= 1, where the profile has no
+finite f' at s = 0.
 
 A derivative spec of a one-leaf iso kernel (EQ, MaternP(1..3), RQ,
 Cauchy, IMQ under lengthscales, times at most one Constant) carries a
@@ -65,8 +80,12 @@ from .stationary import (
     Exp,
     GammaExp,
     InverseMultiQuadratic,
+    Matern,
     MaternP,
+    matern_profile,
 )
+from ..utils.besselk import matern_nu_table
+from .derivatives import elementwise_derivatives
 from .transforms import Lengthscale
 
 # opcodes; the same numbers are #defined in csrc/gramian_mvm.cu
@@ -85,6 +104,9 @@ MATERNP = 11  # Matern-(p+1/2) closed form of t = (2p+1) s; consts[arg] = p,
               # consts[arg+1 .. arg+1+p] = Horner coefficients of (2r)^j
 MATERNP_JET = 12  # MaternP.profile of s (derivative specs only); consts[arg] = p,
                   # then the tables of `_maternp_jet_table` (4p + 1 values)
+MATERN_NU = 13      # Matern(nu).profile of s; consts[arg ..] = matern_nu_table(nu, False)
+MATERN_NU_JET = 14  # the same with f' and f'' (derivative specs only);
+                    # consts[arg ..] = matern_nu_table(nu, True)
 
 MAX_OPS = 64
 MAX_CONSTS = 64
@@ -106,7 +128,8 @@ FAMILY_CONSTS = 6  # the largest folded table (MaternP(3): c0, c1 and 4 coeffici
 JET_CONSTS = 16    # the largest derivative-family table (MaternP(3): 3 + 13 values)
 
 _POP = {PUSH_S: -1, PUSH_C: -1, ADD: 1, MUL: 1, DIV: 1, POWC: 0, POWI: 0,
-        NEG: 0, EXP: 0, SQRT: 0, ROOT: 0, MATERNP: 0, MATERNP_JET: 0}
+        NEG: 0, EXP: 0, SQRT: 0, ROOT: 0, MATERNP: 0, MATERNP_JET: 0, MATERN_NU: 0,
+        MATERN_NU_JET: 0}
 
 
 def _maternp_jet_table(p: int):
@@ -267,6 +290,8 @@ class ProfileSpec:
             elif op == MATERNP_JET:
                 p = int(c[a])
                 st.append(_maternp_jet(p, c[a + 1:a + 4 * p + 2], st.pop())[0])
+            elif op in (MATERN_NU, MATERN_NU_JET):
+                st.append(matern_profile(c[a], st.pop()))
             else:
                 raise ValueError(f"unknown opcode {op}")
         (out,) = st
@@ -374,6 +399,13 @@ class ProfileSpec:
                 p = int(c[a])
                 u = st.pop()
                 st.append(_chain(u, *_maternp_jet(p, c[a + 1:a + 4 * p + 2], u[0])))
+            elif op == MATERN_NU_JET:
+                u = st.pop()
+                nu = c[a]
+                with torch.enable_grad():
+                    g = elementwise_derivatives(lambda t: matern_profile(nu, t),
+                                                u[0].detach(), 2)
+                st.append(_chain(u, *g))
             else:
                 raise ValueError(f"unknown opcode {op}")
         (out,) = st
@@ -435,6 +467,15 @@ def _emit(k, b, push_s, jet: bool):
         b.push(2.0)
         b.emit(DIV)
         b.emit(EXP)
+    elif isinstance(k, Matern):
+        nu = _scalar(k, "nu")
+        if jet and nu <= 1:
+            raise _Decline(f"Matern({nu}): nu <= 1 has no finite f' at s = 0")
+        push_s()
+        off = len(b.consts)
+        for v in matern_nu_table(nu, jet):
+            b.const(v)
+        b.emit(MATERN_NU_JET if jet else MATERN_NU, off)
     elif isinstance(k, MaternP) and jet:
         if k.p == 0:
             raise _Decline("MaternP(0): exp(-sqrt(s)) has no finite derivative at s = 0")

@@ -15,6 +15,7 @@ from fractions import Fraction
 import numpy as np
 import torch
 
+from ..utils.besselk import besselkxv
 from .base import (
     InputTrait,
     IsotropicKernel,
@@ -197,19 +198,52 @@ class MaternP(IsotropicKernel):
         return val * torch.exp(-r)
 
 
-class Matern(IsotropicKernel):
-    """Matern kernel with real smoothness nu (src/stationary.jl:87-114).
+def matern_taylor(nu, s):
+    """Matern(nu).profile's guard near s = 0: (the bound below which it
+    holds, in s's dtype, and its value 1 + t1 s + t2 s^2). nu may be a
+    float or a tensor."""
+    eps = torch.finfo(s.dtype).eps
+    nu = torch.as_tensor(nu, dtype=s.dtype, device=s.device)
+    zero = torch.zeros_like(nu)
+    bound = torch.where(nu > 2, zero + math.sqrt(eps), torch.where(nu > 1, zero + eps, zero))
+    t1 = torch.where(nu > 1, nu / (2 * (1 - nu)) * s, torch.zeros_like(s))
+    t2 = torch.where(nu > 2, nu ** 2 / (8 * (2 - 3 * nu + nu ** 2)) * s ** 2, torch.zeros_like(s))
+    return bound, 1.0 + t1 + t2
 
-    Not ported yet: its profile needs the K_nu Bessel quadrature of
-    `utils/besselk.py`, which lands with the samplers (ROADMAP.md,
-    queue 1, item 12)."""
+
+def matern_profile(nu, s):
+    """Matern(nu).profile of s: the closed form 2^(1-nu) / Gamma(nu)
+    r^nu K_nu(r), r = sqrt(2 nu s), through the differentiable quadrature
+    of `utils/besselk.py`, and below the guard's bound its Taylor
+    polynomial (`matern_taylor`), selected with nan-safe wheres as in
+    cfjax. At s = 0 it is the limit 1 for every nu: cfjax's quadrature
+    takes log 0 there and returns 0 for nu <= 1, which its guard does not
+    cover. nu: a float or a tensor."""
+    s = torch.as_tensor(s)
+    if not s.is_floating_point():
+        s = s.to(torch.get_default_dtype())
+    nu = torch.as_tensor(nu, dtype=s.dtype, device=s.device)
+    bound, taylor = matern_taylor(nu, s)
+    use_taylor = (s < bound) | (s <= 0)
+    s_safe = torch.where(use_taylor, torch.ones_like(s), s)
+    r = torch.sqrt(2 * nu * s_safe)
+    closed = torch.exp((1 - nu) * math.log(2.0) - torch.lgamma(nu)) * besselkxv(nu, r)
+    return torch.where(use_taylor, taylor, closed)
+
+
+class Matern(IsotropicKernel):
+    """Matern kernel with real smoothness nu (src/stationary.jl:87-114),
+    profile `matern_profile`. nu is a hyperparameter (`parameters`,
+    `similar`), as in cfjax."""
 
     FIELDS = (("nu", 1.5),)
 
     def __post_init__(self):
-        raise NotImplementedError(
-            "real-nu Matern is not ported yet: it needs utils/besselk.py "
-            "(ROADMAP.md, queue 1, item 12); use MaternP for half-integer nu")
+        check(lambda v: v > 0, self.nu, "nu must be positive")
+
+    def profile(self, s):
+        s = torch.as_tensor(s)
+        return matern_profile(hp(self.nu, s), s)
 
 
 class Cosine(StationaryKernel):

@@ -20,6 +20,7 @@ from .toeplitz import (
     trench,
 )
 from .kronecker import KroneckerCholesky, KroneckerOperator
+from .woodbury import WoodburyOperator
 from .solvers import (CholeskyFactorization, LowRankFactorization, approx_refined_solve, cg,
                       cg_columns, factorize, gmres, minres, refined_solve, solve,
                       solve_with_info)

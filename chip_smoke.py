@@ -37,7 +37,19 @@ card, then drives the paths a user runs:
     and at BASELINE config 5's n = 10^6, config 5's GP solve at n = 10^6
     (`gp_condition`: K1 + rank-2048 Nystrom PCG; `approx_refined_solve`
     with the treecode inside, K1 outside) and `refined_solve` at
-    n = 10^5 (K1 inside, the float64 Gramian outside).
+    n = 10^5 (K1 inside, the float64 Gramian outside);
+  * phase 21, the real-nu Matern kernel through K1, K2 and K3 (the K_nu
+    routine of the profile interpreter): its profile through K1 at 10^5
+    distances for nu from 0.3 to 25, K1 at BASELINE config 1's shape, K2
+    at d = 64 and K3 at config 4's shape at each tier, each against a
+    float64 reference by the kernels' method and against cfjax's
+    quadrature where that is accurate, then `gp_condition` at n = 2^15
+    (Nystrom PCG through K1's interpreted instance);
+  * phases 22-23, BASELINE config 5's hyperparameter inference as the
+    north-star demo runs it: NUTS and HMC over (log l, log v) on the
+    Cholesky logML of a 4096-point subset of n = 2^20 points, then host
+    NUTS over the slq logML at n = 2^16 (the demo's knobs; its full
+    n = 2^20 waits for a fused VJP: PERF.md).
 Phase 1 holds K1 (its family instances, its many-column instances and its
 interpreted one) and K2,
 phase 6 K3, phase 9 K4 against their float64 plain versions, and phases
@@ -63,6 +75,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
@@ -1847,6 +1860,480 @@ def time_k1_cols(mvm, tk, xh, x17, p=16):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 21-23: real-nu Matern on K1-K3, and BASELINE config 5's
+# hyperparameter sampling
+# ---------------------------------------------------------------------------
+
+# phase 21a: K1's Matern profile against the float64 reference, relative,
+# at every point whose value is above 1e-30
+MATERN_BOUND = 1e-5
+# phase 21a: where cfjax's quadrature (the float64 plain version) is within
+# this of the reference, K1 is held to it at MATERN_BOUND too
+PLAIN_SOUND = 1e-6
+MATERN_NUS = (0.3, 0.5, 1.3, 2.3, 2.5, 3.7, 10.2, 25.0)
+# fp32 instructions and SFU operations of the K_nu routine
+# (csrc/profile_spec.cuh `matern_nu`, `kv_pair`), counted from the source
+# with IEEE division 9 + 1 (rcp and its Newton step), sqrt 5 + 1, expf 4 +
+# 1, exp2f 2 + 1, logf and log2f 20 + 0, sinhf and coshf 15 + 1: the guard,
+# x and its rounding error, the correction and the scaling (value; the jet
+# adds f' and f''), each recurrence step, and the fixed and per-term work of
+# Temme's series and Steed's fraction
+MATERN_OPS = {"value": (45, 3), "jet": (33, 2), "step": (4, 0), "temme": (103, 8),
+              "temme_term": (53, 4), "steed": (54, 4), "steed_term": (43, 3)}
+
+
+def exact_matern(tk, nu):
+    """Matern(nu) whose profile is the kernels' method in float64
+    (`matern_nu_reference`): the reference the kernels are held to, where
+    cfjax's quadrature is not accurate (small s)."""
+    from cfjax_torch.utils.besselk import matern_nu_reference
+
+    class ExactMatern(tk.Matern):
+        def profile(self, s):
+            return matern_nu_reference(float(self.nu), s.double())[0].to(s.dtype)
+
+    return ExactMatern(nu)
+
+
+def matern_entry_ops(nu, s, jet=False):
+    """(fp32, SFU) operations of the K_nu routine per entry, averaged over
+    the squared distances s of a run (a (bins,) histogram: (centres, counts)),
+    from the terms each entry's x needs (`kv_terms`)."""
+    from cfjax_torch.utils.besselk import kv_terms, matern_nu_table
+
+    centres, counts = s
+    t = matern_nu_table(nu, jet)
+    closed = centres >= max(t[6], 1e-300)     # above the guard's float32 bound
+    terms, small = kv_terms(nu, torch.sqrt(2 * nu * centres))
+    w = counts.double() / counts.sum()
+    n_steps = max(int(t[9]) - 1, 0)
+    out = []
+    for k in (0, 1):
+        per = (MATERN_OPS["value"][k] + (MATERN_OPS["jet"][k] if jet else 0)
+               + n_steps * MATERN_OPS["step"][k]
+               + torch.where(small, MATERN_OPS["temme"][k] + terms * MATERN_OPS["temme_term"][k],
+                             MATERN_OPS["steed"][k] + terms * MATERN_OPS["steed_term"][k]))
+        taylor = 6 if k == 0 else 0    # the guard's polynomial
+        out.append(float(torch.sum(w * torch.where(closed, per, torch.full_like(per, taylor)))))
+    return tuple(out)
+
+
+def pair_histogram(x, y, scale=1.0, bins=4096, block=2048):
+    """Histogram of the squared distances s = |x_i - y_j|^2 / scale over
+    every pair (on the card, in row blocks), on log-spaced bins from 1e-12
+    to 1e6 (s outside them in the end bins): (centres, counts)."""
+    edges = torch.logspace(-12, 6, bins + 1, dtype=torch.float64, device=x.device)
+    counts = torch.zeros(bins, dtype=torch.float64, device=x.device)
+    for i in range(0, x.shape[0], block):
+        s = (torch.cdist(x[i:i + block].double(), y.double()) ** 2 / scale).reshape(-1)
+        idx = torch.bucketize(s.clamp(1e-12, 1e6), edges[1:-1])
+        counts += torch.bincount(idx, minlength=bins).double()
+    return torch.sqrt(edges[:-1] * edges[1:]), counts
+
+
+def call_and_device_ms(fn, reps=10):
+    """(median ms of one call between CUDA events, host included; device ms
+    of a call from CUDA graphs of 5 calls)."""
+    fn()
+    return float(np.median(median_ms(fn, reps))), float(np.median(graph_ms(fn, 5, 3)))
+
+
+def phase21a_profile(tk, mvm):
+    """K1 returns the profile itself for x (N, 1) = r, y = 0 and a = [1]: N =
+    10^5 log-spaced r in [1e-6, 80] at each of MATERN_NUS, held against the
+    float64 reference (`matern_nu_reference`) at every point above 1e-30,
+    and against the float64 plain version (cfjax's quadrature) where that
+    is within PLAIN_SOUND of the reference; where it is not, its own error
+    is reported."""
+    from cfjax_torch.kernels.profile_spec import to_spec
+    from cfjax_torch.utils.besselk import matern_nu_reference
+
+    N = 100000
+    r = torch.logspace(-6, math.log10(80.0), N, dtype=torch.float64, device="cuda")
+    x = r.float()[:, None].contiguous()
+    y, a = torch.zeros((1, 1), device="cuda"), torch.ones(1, device="cuda")
+    s = x.double()[:, 0] ** 2
+    rows = []
+    for nu in MATERN_NUS:
+        spec, why = to_spec(tk.Matern(nu))
+        check(spec is not None and spec.family == 0, f"phase 21a: Matern({nu}) spec: {why}")
+        out = mvm.gramian_matvec_direct(tk.Matern(nu), x, y, a, spec=spec).double()
+        ref = matern_nu_reference(nu, s)[0]
+        plain = spec.evaluate(s)
+        live = ref > 1e-30
+        check(bool(torch.isfinite(out).all()), f"phase 21a: Matern({nu}) non-finite profile")
+        err = float(((out - ref).abs() / ref)[live].max())
+        sound = live & ((plain - ref).abs() <= PLAIN_SOUND * ref)
+        err_plain = float(((out - plain).abs() / plain)[sound].max())
+        off = live & ~sound
+        plain_off = float(((plain - ref).abs() / ref)[off].max()) if off.any() else 0.0
+        check(err <= MATERN_BOUND and err_plain <= MATERN_BOUND,
+              f"phase 21a: Matern({nu}) through K1: relative error {err:.3e} against the float64 "
+              f"reference, {err_plain:.3e} against the float64 plain version where it is sound "
+              f"(bound {MATERN_BOUND:.0e})")
+        rows.append((nu, int(live.sum()), err, int(sound.sum()), err_plain, int(off.sum()),
+                     plain_off, float(r[off].max()) if off.any() else 0.0,
+                     float((out - ref).abs().max())))
+    print("phase 21a K1 Matern profile (x = r, N = 100000 log-spaced r in [1e-6, 80], y = 0, "
+          f"a = 1): against the float64 reference at every value above 1e-30, and against the "
+          f"float64 plain version (cfjax's quadrature) where it is within {PLAIN_SOUND:.0e} of "
+          f"the reference (bound {MATERN_BOUND:.0e}): " + "; ".join(
+              f"nu={nu}: {lv} points max rel {e:.3e}, vs plain on {sd} {ep:.3e}; the plain version "
+              f"misses by more than {PLAIN_SOUND:.0e} on {no} points (r <= {rmax:.3e}), by up to "
+              f"{po:.3e}" for nu, lv, e, sd, ep, no, po, rmax, _ in rows), flush=True)
+    return max(row[-1] for row in rows)
+
+
+def phase21a_headline(tk, mvm):
+    """K1 at BASELINE config 1's shape (d = 3, n = 16384, N(0, I) points)
+    with Matern(2.3) and Matern(2.5) through the interpreted instance, its
+    first 4096 rows against the float64 plain version and the float64
+    reference at K1_BOUND; Matern(2.5) against the MaternP(2) family
+    instance; times and the bound of Matern(2.3)."""
+    from cfjax_torch.kernels.profile_spec import to_spec
+
+    rng = np.random.default_rng(21)
+    n = 16384
+    x = cuda_tensor(rng.standard_normal((n, 3)))
+    a = cuda_tensor(rng.standard_normal(n))
+    res = {}
+    for nu in (2.3, 2.5):
+        k = tk.Matern(nu)
+        check(to_spec(k)[0].family == 0, "phase 21a: Matern has no K1 family")
+        out = mvm.gramian_matvec_direct(k, x, x, a)
+        rows = slice(4096)
+        with torch.no_grad():
+            plain = mvm.gramian_matvec_direct_plain(k, x[rows].double(), x.double(), a.double(),
+                                                    block=32)
+            exact = mvm.gramian_matvec_direct_plain(exact_matern(tk, nu), x[rows].double(),
+                                                    x.double(), a.double(), block=256)
+        res[nu] = (rel(out[rows], plain), rel(out[rows], exact),
+                   float((out[rows].double() - exact).abs().max()))
+        check(bool(torch.isfinite(out).all()) and max(res[nu][:2]) <= K1_BOUND,
+              f"phase 21a: K1 Matern({nu}) n={n} d=3: relative error {res[nu][0]:.3e} vs float64 "
+              f"plain, {res[nu][1]:.3e} vs the float64 reference (bound {K1_BOUND:.0e})")
+        if nu == 2.5:
+            fam = mvm.gramian_matvec_direct(tk.MaternP(2), x, x, a)
+            res["family"] = rel(out, fam.double())
+            check(res["family"] <= 1e-5, f"phase 21a: Matern(2.5) vs MaternP(2)'s family "
+                                         f"instance {res['family']:.3e} > 1e-5")
+    k = tk.Matern(2.3)
+    before = mvm.LAUNCHES["direct"]
+    call, dev = call_and_device_ms(lambda: mvm.gramian_matvec_direct(k, x, x, a))
+    _, plain_s = sync_time(lambda: mvm.gramian_matvec_direct_plain(k, x, x, a, block=32))
+    mvm.LAUNCHES["direct"] = before   # the timing's launches are not the path's
+    hist = pair_histogram(x, x)
+    fp32, sfu = matern_entry_ops(2.3, hist)
+    bound = op_bound(n * n, 2 * 3 + 4 + fp32, sfu)
+    res.update(call_ms=call, ms=dev, plain_ms=plain_s * 1e3, bound=bound, ops=(fp32, sfu))
+    print(f"phase 21a K1 n={n} d=3 N(0, I) (BASELINE config 1's shape), the interpreted "
+          f"instance, rows 0..4095: Matern(2.3) rel {res[2.3][0]:.3e} vs float64 plain, {res[2.3][1]:.3e} vs the "
+          f"float64 reference; Matern(2.5) {res[2.5][0]:.3e} / {res[2.5][1]:.3e} (bound "
+          f"{K1_BOUND:.0e}), vs MaternP(2)'s family instance {res['family']:.3e} (bound 1e-5); "
+          f"Matern(2.3) {call:.4f} ms a call ({dev:.4f} ms device), plain (float32, cfjax's "
+          f"quadrature, 32-row blocks) {plain_s * 1e3:.1f} ms; the K_nu routine {fp32:.1f} fp32 + "
+          f"{sfu:.2f} SFU an entry on this run's distances, bound {bound[0]:.4f} ms ({bound[1]}) "
+          f"= {100 * bound[0] / dev:.1f}% of device", flush=True)
+    return res
+
+
+def phase21b_k2(tk, mvm):
+    """K2: Lengthscale(Matern(1.3), 4) at d = 64, n = 16384 (N(0, I) points,
+    the first 16 rows of y rows of x and the next 16 those rows moved by
+    1e-3), at each tier: against the float64 reference, and against the
+    reference's profile on the tier's squared distances (`check_tiers`, the
+    TIER_BOUND["K2"] limits); times and the bound at "highest" and
+    "default"."""
+    from cfjax_torch.ops.tiles import tier_passes
+
+    rng = np.random.default_rng(212)
+    n, d = 16384, 64
+    xs = rng.standard_normal((n, d))
+    xs[16:32] = xs[:16] + 1e-3 * rng.standard_normal((16, d))
+    x, a = cuda_tensor(xs), cuda_tensor(rng.standard_normal(n))
+    k, kx = tk.Lengthscale(tk.Matern(1.3), 4.0), tk.Lengthscale(exact_matern(tk, 1.3), 4.0)
+    with torch.no_grad():
+        ref = mvm.gramian_matvec_direct_plain(kx, x.double(), x.double(), a.double(), block=256)
+    tiers = tier_record()
+    check_tiers(tiers, "K2", "phase 21b K2 Lengthscale(Matern(1.3), 4) d=64", ref,
+                lambda tier: mvm.gramian_matvec_expand(k, x, x, a, precision=tier),
+                lambda tier: mvm.gramian_matvec_expand_plain(kx, x, x, a, precision=tier,
+                                                             block=256))
+    out = mvm.gramian_matvec_expand(k, x, x, a)
+    abs_err = float((out.double() - ref).abs().max())
+    hist = pair_histogram(x, x, scale=16.0)
+    fp32, sfu = matern_entry_ops(1.3, hist)
+    times = {}
+    before = mvm.LAUNCHES["expand"]
+    for tier in ("highest", "default"):
+        call, dev = call_and_device_ms(lambda: mvm.gramian_matvec_expand(k, x, x, a,
+                                                                         precision=tier))
+        b = tc_bound(n * n, 2 * d, tier_passes(tier), 5 + fp32, sfu)
+        times[tier] = (call, dev, b)
+    mvm.LAUNCHES["expand"] = before
+    print(f"phase 21b K2 Lengthscale(Matern(1.3), 4) n={n} d={d}, 16 coincident and 16 "
+          f"near-coincident rows: {tier_text(tiers, 'K2')}; max abs {abs_err:.3e}; the K_nu "
+          f"routine {fp32:.1f} fp32 + {sfu:.2f} SFU an entry; " + "; ".join(
+              f"{tier} {c:.4f} ms a call ({dv:.4f} device), bound {b[0]:.4f} ms ({b[1]}) = "
+              f"{100 * b[0] / dv:.1f}% of device" for tier, (c, dv, b) in times.items()), flush=True)
+    return dict(tiers=tiers, times=times, abs_err=abs_err, ops=(fp32, sfu))
+
+
+def k3_matern_reference(nu, x, y, A, precision=None, block=256):
+    """The gradient-block product of Matern(nu) (grad_matvec_plain's closed
+    form) with f' and f'' from the kernels' method in float64
+    (`matern_nu_reference`), the products at `precision`."""
+    from cfjax_torch.ops.tiles import inner_tile, map_rows, matmul_p, sqdist_tile
+    from cfjax_torch.utils.besselk import matern_nu_reference
+
+    t = torch.sum(y * A, dim=1)
+
+    def body(xb):
+        s = sqdist_tile(xb, y, precision)
+        _, f1, f2 = (v.to(xb.dtype) for v in matern_nu_reference(nu, s.double()))
+        W = f2 * (inner_tile(xb, A, precision) - t[None, :])
+        return -2.0 * matmul_p(f1, A, precision) - 4.0 * (torch.sum(W, dim=1)[:, None] * xb
+                                                          - matmul_p(W, y, precision))
+
+    return map_rows(body, x, block, x.shape[1])
+
+
+def phase21c_k3(tk, gmvm):
+    """K3: GradientKernel(Matern(2.7)) at BASELINE config 4's shape (n =
+    4096, d = 16, 0.5 N(0, I) points; the gradient gramian of x with
+    itself: every diagonal pair coincident, and rows 16..31 rows 0..15
+    moved by 1e-3 / sqrt(d)), and Matern(1.5) once, at each tier against
+    the float64 reference and the reference's jet on the tier's products
+    (`check_tiers`, the K3 limits); K3 against the float64 plain version
+    (cfjax's quadrature, autograd's jet) on rows 0..255, reported; times
+    and the bound of Matern(2.7)."""
+    from cfjax_torch.ops.tiles import tier_passes
+
+    rng = np.random.default_rng(213)
+    n, d = 4096, 16
+    xs = 0.5 * rng.standard_normal((n, d))
+    xs[16:32] = xs[:16] + 1e-3 * rng.standard_normal((16, d)) / np.sqrt(d)
+    x, A = cuda_tensor(xs), cuda_tensor(rng.standard_normal((n, d)))
+    tiers, plain_err, out, abs_err = tier_record(), {}, {}, 0.0
+    for nu in (2.7, 1.5):
+        k = tk.Matern(nu)
+        ref = k3_matern_reference(nu, x.double(), x.double(), A.double())
+        check_tiers(tiers, "K3", f"phase 21c K3 Matern({nu}) n={n} d={d}", ref,
+                    lambda tier: gmvm.grad_matvec(k, x, x, A, precision=tier),
+                    lambda tier: k3_matern_reference(nu, x, x, A, precision=tier))
+        out[nu] = gmvm.grad_matvec(k, x, x, A)
+        abs_err = max(abs_err, float((out[nu].double() - ref).abs().max()))
+        with torch.no_grad():
+            plain = gmvm.grad_matvec_plain(k, x[:256].double(), x.double(), A.double(), block=8)
+        plain_err[nu] = (rel(out[nu][:256], plain), rel(plain, ref[:256]))
+    from cfjax_torch.ops import gramian_mvm as mvm
+
+    k = tk.Matern(2.7)
+    before = mvm.LAUNCHES["grad"]
+    times = {}
+    hist = pair_histogram(x, x)
+    fp32, sfu = matern_entry_ops(2.7, hist, jet=True)
+    for tier in ("highest", "default"):
+        call, dev = call_and_device_ms(lambda: gmvm.grad_matvec(k, x, x, A, precision=tier))
+        times[tier] = (call, dev, tc_bound(n * n, 8 * d, tier_passes(tier), 13 + fp32, sfu))
+    mvm.LAUNCHES["grad"] = before
+    print(f"phase 21c K3 GradientKernel(Matern(2.7)) and (Matern(1.5)) n={n} d={d} (config 4's "
+          f"shape, coincident and near-coincident pairs): {tier_text(tiers, 'K3')}; against the "
+          f"float64 plain version (cfjax's quadrature, autograd's jet) on rows 0..255: " + ", ".join(
+              f"Matern({nu}) {e:.3e} (the plain version vs the reference {p:.3e})"
+              for nu, (e, p) in plain_err.items()) + f"; the K_nu jet {fp32:.1f} fp32 + {sfu:.2f} "
+          f"SFU an entry; " + "; ".join(
+              f"{tier} {c:.4f} ms a call ({dv:.4f} device), bound {b[0]:.4f} ms ({b[1]}) = "
+              f"{100 * b[0] / dv:.1f}% of device" for tier, (c, dv, b) in times.items()), flush=True)
+    return dict(tiers=tiers, times=times, ops=(fp32, sfu), abs_err=abs_err)
+
+
+def phase21d_solve(tk, ops, gp, mvm):
+    """gp_condition(Lengthscale(Matern(2.3), 1), x, y) at n = 2^15, d = 3,
+    N(0, I) points, y = sin(x_0) + 0.01 N(0, 1): above max_cholesky_size,
+    so Nystrom PCG through K1's interpreted instance; the float64 residual
+    of alpha on 4096 rows through the float64 reference (<= 2e-4)."""
+    rng = np.random.default_rng(214)
+    n = 1 << 15
+    x = cuda_tensor(rng.standard_normal((n, 3)))
+    y = torch.sin(x[:, 0]) + Y_NOISE * cuda_tensor(rng.standard_normal(n))
+    k = tk.Lengthscale(tk.Matern(2.3), 1.0)
+    how = ops.explain(k, x)
+    check("K1 gramian_matvec_direct" in how and "interpreted" in how,
+          f"phase 21d: explain() {how!r}")
+    before = mvm.LAUNCHES["direct"]
+    torch.cuda.reset_peak_memory_stats()
+    post, wall = sync_time(lambda: gp.gp_condition(k, x, y, noise=NOISE, tol=1e-5, maxiter=500))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = mvm.LAUNCHES["direct"] - before
+    it = int(post.solve_info[0])
+    check(it < 500 and launches >= it, f"phase 21d: {it} PCG iterations, {launches} K1 launches")
+    rows = slice(4096)
+    with torch.no_grad():
+        Ka = mvm.gramian_matvec_direct_plain(tk.Lengthscale(exact_matern(tk, 2.3), 1.0),
+                                             x[rows].double(), x.double(),
+                                             post.alpha.double(), block=64)
+    res64 = float(torch.linalg.norm(Ka + NOISE * post.alpha[rows].double() - y[rows].double())
+                  / torch.linalg.norm(y[rows].double()))
+    check(res64 <= 2e-4, f"phase 21d: float64 residual on 4096 rows {res64:.3e} > 2e-4")
+    a = cuda_tensor(rng.standard_normal(n))
+    call, dev = call_and_device_ms(lambda: mvm.gramian_matvec_direct(k, x, x, a), reps=5)
+    mvm.LAUNCHES["direct"] = before + launches
+    fp32, sfu = matern_entry_ops(2.3, pair_histogram(x, x))
+    bound = op_bound(n * n, 2 * 3 + 4 + fp32, sfu)
+    print(f"phase 21d gp_condition Lengthscale(Matern(2.3), 1) n={n} d=3 noise {NOISE}: "
+          f"{it} Nystrom-PCG iterations, {launches} K1 launches, {wall:.3f} s (peak "
+          f"{peak:.2f} GiB: the Nystrom panel through cfjax's quadrature), float64 residual on "
+          f"4096 rows {res64:.3e} (bound 2e-4); K1 at this shape {call:.3f} ms a call ({dev:.3f} "
+          f"ms device), the K_nu routine {fp32:.1f} fp32 + {sfu:.2f} SFU an entry, bound "
+          f"{bound[0]:.3f} ms ({bound[1]}) = {100 * bound[0] / dev:.1f}% of device | {how}",
+          flush=True)
+    return dict(iters=it, wall=wall, res64=res64, call_ms=call, ms=dev, launches=launches,
+                bound=bound)
+
+
+def config5_data(n, seed=22):
+    """BASELINE config 5's data law (examples/northstar_demo.py): n points
+    uniform on [-10, 10]^2, float32, on the card, y = sin(x_0) cos(x_1 / 2)
+    + 0.1 N(0, 1)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = 20 * torch.rand((n, 2), generator=g, device="cuda") - 10
+    y = torch.sin(x[:, 0]) * torch.cos(0.5 * x[:, 1]) + 0.1 * torch.randn(
+        n, generator=g, device="cuda")
+    return x, y
+
+
+def config5_logpost(tk, gp, x, y, counter, **slq):
+    """log p(theta) = logML of exp(log v) Lengthscale(EQ(), exp(log l)) with
+    noise 0.01 at (x, y), minus |theta|^2 / 2; theta = (log l, log v)
+    float64 on the host. Counts its calls in counter["evals"]."""
+    def logpost(theta):
+        counter["evals"] += 1
+        k = tk.Lengthscale(tk.EQ(), torch.exp(theta[0])) * torch.exp(theta[1])
+        lml = gp.log_marginal_likelihood(k, x, y, noise=0.01, **slq)
+        return lml.double().cpu() - 0.5 * torch.sum(theta ** 2)
+    return logpost
+
+
+def chain_text(label, wall, evals, astat, samples):
+    m, sd = samples.mean(0).tolist(), samples.std(0).tolist()
+    return (f"{label} {wall:.1f} s, {evals} log-density evaluations ({1e3 * wall / evals:.1f} ms "
+            f"each), accept-stat {astat:.3f}, log l {m[0]:.4f} +- {sd[0]:.4f}, log v {m[1]:.4f} "
+            f"+- {sd[1]:.4f}")
+
+
+def phase22_subset_chain(tk, gp, hmc):
+    """BASELINE config 5's hyperparameter inference on the exact subset, as
+    the north-star demo runs it, uncut: n = 2^20 points, a subset of m =
+    4096, the Cholesky logML (float32 on the card) under a standard normal
+    prior on (log l, log v). NUTS (128 warmup, 128 samples, tree depth 6,
+    from 0), then HMC (32 + 32, 16 leapfrog steps). Checks: finite samples,
+    NUTS's accept-stat in [0.5, 1], and at the chain's mean the float32
+    log density within 1e-4 of float64's on the card (relative), its
+    gradient within 1e-4 of the scale of the gradient's two terms (the
+    data fit's and the log determinant's, float64: at the mean they
+    cancel)."""
+    from cfjax_torch.operators import gramian
+
+    x, y = config5_data(1 << 20)
+    idx = torch.as_tensor(np.random.default_rng(22).choice(x.shape[0], 4096, replace=False),
+                          device="cuda")
+    xs, ys = x[idx].contiguous(), y[idx].contiguous()
+    del x, y
+    cnt = {"evals": 0}
+    logpost = config5_logpost(tk, gp, xs, ys, cnt)
+    (s_nuts, a_nuts), w_nuts = sync_time(lambda: hmc.nuts_sample(
+        logpost, torch.zeros(2, dtype=torch.float64), torch.Generator().manual_seed(1),
+        num_samples=128, num_warmup=128, max_tree_depth=6))
+    e_nuts, cnt["evals"] = cnt["evals"], 0
+    (s_hmc, a_hmc), w_hmc = sync_time(lambda: hmc.hmc_sample(
+        logpost, torch.zeros(2, dtype=torch.float64), torch.Generator().manual_seed(2),
+        num_samples=32, num_warmup=32, num_leapfrog=16))
+    e_hmc = cnt["evals"]
+    check(bool(torch.isfinite(s_nuts).all() and torch.isfinite(s_hmc).all()),
+          "phase 22: non-finite samples")
+    check(0.5 <= float(a_nuts) <= 1.0, f"phase 22: NUTS accept-stat {float(a_nuts):.3f}")
+    # the log density and its gradient at NUTS's mean: float32 against float64
+    mean = s_nuts.mean(0)
+    vals = {}
+    for dt in (torch.float32, torch.float64):
+        th = mean.clone().requires_grad_(True)
+        v = config5_logpost(tk, gp, xs.to(dt), ys.to(dt), {"evals": 0})(th)
+        (g,) = torch.autograd.grad(v, th)
+        vals[dt] = (float(v.detach()), g)
+    th = mean.clone().requires_grad_(True)
+    k = tk.Lengthscale(tk.EQ(), torch.exp(th[0])) * torch.exp(th[1])
+    K = gramian(k, xs.double()).todense()
+    L = torch.linalg.cholesky(K + 0.01 * torch.eye(K.shape[0], dtype=K.dtype, device=K.device))
+    z = torch.linalg.solve_triangular(L, ys.double()[:, None], upper=False)
+    g_fit = torch.autograd.grad(0.5 * torch.sum(z * z), th, retain_graph=True)[0]
+    g_det = torch.autograd.grad(torch.sum(torch.log(torch.diagonal(L))), th)[0]
+    scale = float(torch.linalg.norm(g_fit) + torch.linalg.norm(g_det))
+    (v32, g32), (v64, g64) = vals[torch.float32], vals[torch.float64]
+    err_v = abs(v32 - v64) / abs(v64)
+    err_g = float(torch.linalg.norm(g32 - g64)) / scale
+    check(err_v <= 1e-4 and err_g <= 1e-4,
+          f"phase 22: float32 log density {v32:.8e} vs float64 {v64:.8e} (rel {err_v:.3e}), "
+          f"gradient {g32.tolist()} vs {g64.tolist()} ({err_g:.3e} of the terms' scale "
+          f"{scale:.3e}; bound 1e-4)")
+    print(f"phase 22 config 5's exact-subset chain (n = 2^20 uniform on [-10, 10]^2, m = 4096, "
+          f"Cholesky logML float32 on the card, EQ, noise 0.01, N(0, I) prior on (log l, log v)): "
+          f"{chain_text('NUTS 128 + 128, depth 6:', w_nuts, e_nuts, float(a_nuts), s_nuts)}; "
+          f"{chain_text('HMC 32 + 32, 16 leapfrog steps:', w_hmc, e_hmc, float(a_hmc), s_hmc)}; "
+          f"at NUTS's mean float32 vs float64: log density {v32:.8e} / {v64:.8e} (rel "
+          f"{err_v:.3e}), gradient {[round(v, 6) for v in g32.tolist()]} / "
+          f"{[round(v, 6) for v in g64.tolist()]} ({err_g:.3e} of its terms' scale "
+          f"{scale:.3e}; bound 1e-4 each)", flush=True)
+    return dict(mean=mean, sd=s_nuts.std(0), w_nuts=w_nuts, e_nuts=e_nuts, a_nuts=float(a_nuts),
+                w_hmc=w_hmc, e_hmc=e_hmc, a_hmc=float(a_hmc))
+
+
+def phase23_host_chain(tk, gp, hmc, mvm, slq, p22):
+    """nuts_sample_host over the lazy slq logML at n = 2^16 (config 5's data
+    law, kernel and prior), with the north-star demo's knobs (2 probes, 10
+    Lanczos steps, solves to 3e-2 in at most 15 iterations; 3 warmup, 8
+    samples, tree depth 2, initial step 0.02), from phase 22's posterior
+    mean. Reports the wall of an evaluation by stage (`slq_stages`), the
+    evaluations, the accept-stat and log l's mean beside phase 22's;
+    checks finite samples and that the many-column K1 and K1 ran."""
+    x, y = config5_data(1 << 16, seed=23)
+    cnt = {"evals": 0}
+    logpost = config5_logpost(tk, gp, x, y, cnt, probes=2, lanczos_iters=10, solve_tol=3e-2,
+                              solve_maxiter=15)
+    before = dict(mvm.LAUNCHES)
+    with slq_stages(slq, 15) as st:
+        (s, a), wall = sync_time(lambda: hmc.nuts_sample_host(
+            logpost, p22["mean"], 3, num_samples=8, num_warmup=3, max_tree_depth=2,
+            init_step=0.02))
+    cols = mvm.LAUNCHES["direct_cols"] - before["direct_cols"]
+    one = mvm.LAUNCHES["direct"] - before["direct"]
+    e = cnt["evals"]
+    check(bool(torch.isfinite(s).all()), "phase 23: non-finite samples")
+    # the estimator's gradient against a central difference of its value,
+    # along log l, at the start and at the step size: a leapfrog step is
+    # accepted only where the two agree
+    th0 = p22["mean"].clone()
+    g = hmc._value_and_grad(logpost, th0)[1]
+    h = torch.tensor([0.02, 0.0], dtype=torch.float64)
+    fd = (hmc._value(logpost, th0 + h) - hmc._value(logpost, th0 - h)) / 0.04
+    check(cols > 0 and one > 0, f"phase 23: many-column K1 {cols}, K1 {one} launches")
+    per = {key: st[key] / e for key in ("lanczos_s", "cols_s", "quad_s", "vjp_s")}
+    m, sd = float(s[:, 0].mean()), float(s[:, 0].std())
+    print(f"phase 23 host NUTS over the slq logML (n = 2^16, config 5's data law, kernel and "
+          f"prior; 2 probes, 10 Lanczos steps, solve_tol 3e-2, solve_maxiter 15; 3 warmup, 8 "
+          f"samples, depth 2, step 0.02, from phase 22's mean): {wall:.1f} s, {e} evaluations, "
+          f"{wall / e:.3f} s each: Lanczos {per['lanczos_s']:.3f} s, cg_columns "
+          f"{per['cols_s']:.3f} s, the quadratic form's CG {per['quad_s']:.3f} s, the VJP (plain) "
+          f"{per['vjp_s']:.3f} s; accept-stat {float(a):.3f}; log l {m:.4f} +- {sd:.4f} (phase "
+          f"22's exact subset: {float(p22['mean'][0]):.4f} +- {float(p22['sd'][0]):.4f}); "
+          f"launches: many-column K1 {cols}, K1 {one}; at the start d/dlog l {float(g[0]):.4e} "
+          f"(the estimator's gradient) against {fd:.4e} (a central difference of its value at "
+          f"+-0.02)", flush=True)
+    return dict(wall=wall, evals=e, per=per, launches=(cols, one), grad=float(g[0]), fd=fd,
+                astat=float(a))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2133,16 +2620,47 @@ def main():
     print(f"phases 17-20 Barnes-Hut and refinement path {time.perf_counter() - t_bh:.1f} s: K1 "
           f"launches {mvm.LAUNCHES['direct']}", flush=True)
 
+    # ---- phase 21: real-nu Matern on K1-K3 (checks, then the GP solve path) ----
+    t21 = time.perf_counter()
+    k1_21 = phase21a_profile(tk, mvm)
+    p21h = phase21a_headline(tk, mvm)
+    p21b = phase21b_k2(tk, mvm)
+    p21c = phase21c_k3(tk, gmvm)
+    for key in mvm.LAUNCHES:
+        mvm.LAUNCHES[key] = 0
+    p21d = phase21d_solve(tk, ops, gp, mvm)
+    check(mvm.LAUNCHES["direct"] > 0, "kernel 'direct' was not launched on the Matern GP path")
+    launches["direct"] += mvm.LAUNCHES["direct"]
+    print(f"phase 21 real-nu Matern {time.perf_counter() - t21:.1f} s: K1 launches on the GP "
+          f"path {mvm.LAUNCHES['direct']}", flush=True)
+
+    # ---- phases 22-23: config 5's hyperparameter sampling: counts from here to the end of 23 ----
+    from cfjax_torch.gp import hmc
+
+    for key in mvm.LAUNCHES:
+        mvm.LAUNCHES[key] = 0
+    t22 = time.perf_counter()
+    p22 = phase22_subset_chain(tk, gp, hmc)
+    p23 = phase23_host_chain(tk, gp, hmc, mvm, slq, p22)
+    check(mvm.LAUNCHES["direct_cols"] > 0 and mvm.LAUNCHES["direct"] > 0,
+          "the many-column K1 or K1 was not launched on the sampling path")
+    launches["direct_cols"] += mvm.LAUNCHES["direct_cols"]
+    launches["direct"] += mvm.LAUNCHES["direct"]
+    print(f"phases 22-23 sampling path {time.perf_counter() - t22:.1f} s: launches many-column "
+          f"K1 {mvm.LAUNCHES['direct_cols']}, K1 {mvm.LAUNCHES['direct']}", flush=True)
+
     # at "highest", the configured tier
     meta = {"direct": ("K1 gramian_matvec_direct", "cfjax_torch/csrc/gramian_mvm.cu",
-                       "cfjax/ops/pallas_mvm.py:253", max(p1["direct"][2], k1_bh), None),
+                       "cfjax/ops/pallas_mvm.py:253",
+                       max(p1["direct"][2], k1_bh, k1_21, p21h[2.3][2], p21h[2.5][2]), None),
             "direct_cols": ("K1 gramian_matmat_direct (many columns, p=16)",
                             "cfjax_torch/csrc/gramian_mvm.cu", "cfjax/ops/pallas_mvm.py:253",
                             max([p1["cols"][2]] + [t["abs_err"] for t in k1c.values()]), None),
             "expand": ("K2 gramian_matvec_expand", "cfjax_torch/csrc/expand_mvm.cu",
-                       "cfjax/ops/pallas_mvm.py:152", p1["expand"][2], None),
+                       "cfjax/ops/pallas_mvm.py:152", max(p1["expand"][2], p21b["abs_err"]),
+                       None),
             "grad": ("K3 grad_matvec", "cfjax_torch/csrc/grad_mvm.cu",
-                     "cfjax/ops/pallas_mvm.py:374", p6[2], None),
+                     "cfjax/ops/pallas_mvm.py:374", max(p6[2], p21c["abs_err"]), None),
             "tile_ell": ("K4 rows_matvec", "cfjax_torch/csrc/tile_ell_mvm.cu",
                          "cfjax/operators/tile_ell.py:344", f32[2],
                          (k4["library_call_ms"], k4["library_ms"]))}

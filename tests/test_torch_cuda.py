@@ -42,7 +42,8 @@ def test_port_source_has_no_jax_import():
 def test_port_import_loads_no_jax():
     code = ("import sys, cfjax_torch, cfjax_torch.gp, cfjax_torch.operators, cfjax_torch.ops,"
             " cfjax_torch.derivative, cfjax_torch.utils.linalg, cfjax_torch.barneshut,"
-            " cfjax_torch.operators.sparse_op, cfjax_torch.operators.tile_ell;"
+            " cfjax_torch.operators.sparse_op, cfjax_torch.operators.tile_ell,"
+            " cfjax_torch.gp.hmc, cfjax_torch.utils.besselk, cfjax_torch.operators.woodbury;"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'cfjax.'))];"
             "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=PACKAGE.parent,
@@ -703,3 +704,82 @@ def test_refined_solve_with_k1_on_card():
     assert float(res / bn) < 1e-9
     true = torch.linalg.norm(b - mvm.gramian_matvec_direct_plain(k, x, x, xr) - s2 * xr) / bn
     assert abs(float(true) - float(res / bn)) <= 1e-3 * float(true)
+
+
+def _matern_reference(nu):
+    """Matern(nu) whose profile is the kernels' method in float64
+    (`matern_nu_reference`), for the references of the Matern kernels:
+    cfjax's quadrature loses accuracy at small s."""
+    from cfjax_torch.utils.besselk import matern_nu_reference
+
+    class Reference(tk.Matern):
+        def profile(self, s):
+            return matern_nu_reference(float(self.nu), s.double())[0].to(s.dtype)
+
+    return Reference(nu)
+
+
+@needs_gpu
+@pytest.mark.parametrize("nu", [0.5, 1.3, 2.3, 3.7, 25.0])
+def test_matern_kernels_match_reference(nu):
+    """Real-nu Matern through K1 (d = 1, 3), K2 (d = 64) and K3 (d = 3, 16,
+    nu > 1) against float64 references built from the kernels' method, with
+    coincident and near-coincident points; explain() names the kernel."""
+    from cfjax_torch.utils.besselk import matern_nu_reference
+
+    k, kr = tk.Lengthscale(tk.Matern(nu), 0.9), tk.Lengthscale(_matern_reference(nu), 0.9)
+    for d in (1, 3, 64):
+        x, y, a = _cuda_data(700, 500, d, scale=1 / np.sqrt(d), seed=d)
+        y[:16] = x[:16]
+        y[16:32] = x[:16] + 1e-3 / np.sqrt(d)
+        kern = mvm.gramian_matvec_direct if d <= 16 else mvm.gramian_matvec_expand
+        ref = mvm.gramian_matvec_direct_plain(kr, x.double(), y.double(), a.double())
+        assert _rel(kern(k, x, y, a), ref) <= (1e-5 if d <= 16 else 1e-4)
+    x, _, _ = _cuda_data(300, 1, 3, seed=5)
+    assert "cuda kernel K1" in explain(k, x)
+    if nu <= 1:
+        assert "nu <= 1" in explain(GradientKernel(tk.Matern(nu)), x)
+        return
+    for d in (3, 16):
+        x, y, _ = _cuda_data(400, 300, d, scale=1 / np.sqrt(d), seed=10 + d)
+        y[:16] = x[:16]
+        y[16:32] = x[:16] + 1e-3 / np.sqrt(d)
+        A = torch.randn((300, d), device="cuda", generator=torch.Generator("cuda").manual_seed(d))
+        xd, yd, Ad = x.double(), y.double(), A.double()
+        s = torch.cdist(xd, yd) ** 2 / 0.81
+        _, f1, f2 = matern_nu_reference(nu, s)
+        f1, f2 = f1 / 0.81, f2 / 0.81 ** 2
+        r = xd[:, None, :] - yd[None, :, :]
+        ref = -2 * f1 @ Ad - 4 * torch.einsum("ij,ijk->ik", f2 * torch.einsum("ijk,jk->ij", r, Ad), r)
+        assert _rel(grad_mvm.grad_matvec(k, x, y, A), ref) <= 1e-4
+
+
+@needs_gpu
+def test_nuts_host_step_on_card():
+    """One host-NUTS transition over the slq logML on the card (n = 2048 >
+    a lowered max_cholesky_size): finite, the K1 kernels launched."""
+    import cfjax_torch
+    from cfjax_torch.gp import log_marginal_likelihood
+    from cfjax_torch.gp.hmc import nuts_sample_host
+
+    rng = np.random.default_rng(9)
+    x = torch.tensor(rng.uniform(-3, 3, (2048, 2)), dtype=torch.float32, device="cuda")
+    y = torch.sin(x[:, 0]) + 0.1 * torch.randn(2048, device="cuda")
+
+    def logpost(th):
+        k = tk.Lengthscale(tk.EQ(), torch.exp(th[0])) * torch.exp(th[1])
+        v = log_marginal_likelihood(k, x, y, noise=0.01, probes=2, lanczos_iters=10,
+                                    solve_tol=3e-2, solve_maxiter=15)
+        return v.double().cpu() - 0.5 * torch.sum(th ** 2)
+
+    shipped = cfjax_torch.config.DEFAULT.max_cholesky_size
+    cfjax_torch.set_config(max_cholesky_size=1024)
+    try:
+        before = dict(mvm.LAUNCHES)
+        s, a = nuts_sample_host(logpost, torch.zeros(2, dtype=torch.float64), 3,
+                                num_samples=1, num_warmup=0, max_tree_depth=2, init_step=0.02)
+    finally:
+        cfjax_torch.set_config(max_cholesky_size=shipped)
+    assert s.shape == (1, 2) and bool(torch.isfinite(s).all()) and 0.0 <= float(a) <= 1.0
+    assert mvm.LAUNCHES["direct_cols"] > before["direct_cols"]
+    assert mvm.LAUNCHES["direct"] > before["direct"]

@@ -148,7 +148,7 @@ def test_csrc_sources_declare_every_opcode():
                for m in re.finditer(r"#define OP_(\w+) (\d+)", header)}
     for name, value in defined.items():
         assert getattr(ps, name) == value
-    assert len(defined) == 13
+    assert len(defined) == 15
     for limit in ("MAX_OPS", "MAX_CONSTS", "MAX_STACK"):
         assert f"#define {limit} {getattr(ps, limit)}" in header
 

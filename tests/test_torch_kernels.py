@@ -5,6 +5,9 @@ The same numpy inputs go to both packages: cfjax in x64 on the CPU
 profile specs agree to rtol 1e-12 — both evaluate the same float64
 formulas, so only the last bits of exp/pow/rsqrt may differ."""
 
+import functools
+import operator
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -187,8 +190,8 @@ def test_constructor_validation_and_matern():
         tk.Constant(-2.0)
     with pytest.raises(ValueError):
         tk.MaternP(-1)
-    with pytest.raises(NotImplementedError, match="besselk"):
-        tk.Matern(1.5)
+    with pytest.raises(ValueError):
+        tk.Matern(-1.0)
     assert tk.MaternP(3)._derivs == jk.MaternP(3)._derivs
     assert tk.MaternP(3)._poly == jk.MaternP(3)._poly
 
@@ -223,3 +226,179 @@ def test_config_and_grids_match_reference():
     lg_t = tg.LazyGrid((tg.UniformGrid(0.0, 0.5, 3), np.array([1.0, 2.0])))
     np.testing.assert_allclose(lg_t.points().numpy(), np.asarray(lg_j.points()))
     assert tuple(tg.as_points(torch.ones(4)).shape) == (4, 1)
+
+
+# --------------------------------------------------------------------------
+# real-nu Matern: the profile (cfjax's quadrature), its jet, its specs
+# --------------------------------------------------------------------------
+
+MATERN_NUS = [0.7, 1.5, 2.3, 2.5, 3.7]
+
+
+def _matern_args(nu, rng, dtype=np.float64):
+    """0, either side of the Taylor guard's bound in `dtype`, the region
+    where the quadrature is accurate, and ordinary squared distances."""
+    eps = float(np.finfo(dtype).eps)
+    bound = np.sqrt(eps) if nu > 2 else eps if nu > 1 else 1e-6
+    return np.concatenate([[0.0, bound * (1 - 1e-6), bound * (1 + 1e-6), 1e-3, 0.1],
+                           np.abs(rng.standard_normal(20)) * 4.0]).astype(dtype)
+
+
+@pytest.mark.parametrize("nu", MATERN_NUS)
+def test_matern_profile_matches_reference(nu, rng):
+    """Matern(nu).profile against cfjax's in float64 and float32, and the
+    value spec's plain evaluator against the profile. At s = 0 and nu <= 1
+    cfjax's quadrature takes log 0 and returns 0; the port returns the
+    limit 1, as the guard does for nu > 1."""
+    for dtype, rtol in ((np.float64, RTOL), (np.float32, 1e-5)):
+        s = _matern_args(nu, rng, dtype)
+        ref = np.asarray(jk.Matern(nu).profile(jnp.asarray(s)))
+        out = tk.Matern(nu).profile(torch.tensor(s)).numpy()
+        assert out.dtype == dtype
+        assert out[0] == 1.0 and ref[0] == (0.0 if nu <= 1 else 1.0)
+        np.testing.assert_allclose(out[1:], ref[1:], rtol=rtol)
+    spec, why = to_spec(tk.Matern(nu))
+    assert why is None
+    np.testing.assert_allclose(spec.evaluate(torch.tensor(s)).numpy(), out, rtol=RTOL)
+
+
+@pytest.mark.parametrize("nu", [1.5, 2.3, 2.5, 3.7])
+def test_matern_jet_matches_reference(nu, rng):
+    """The derivative spec's plain jet against cfjax's profile through
+    jax.jvp twice: the Taylor branch below the bound (f'' = 0 for
+    1 < nu <= 2, as cfjax's), the closed form above it."""
+    import jax
+
+    kj = jk.Matern(nu)
+    eps = np.finfo(np.float64).eps
+    bound = np.sqrt(eps) if nu > 2 else eps
+    s = np.concatenate([[0.0, 0.5 * bound, 1e-3, 0.1], np.abs(rng.standard_normal(10)) * 4.0])
+
+    def jet(t):
+        d1 = lambda u: jax.jvp(kj.profile, (u,), (1.0,))[1]
+        return kj.profile(t), d1(t), jax.jvp(d1, (t,), (1.0,))[1]
+
+    ref = [np.asarray(jax.vmap(lambda t, i=i: jet(t)[i])(jnp.asarray(s))) for i in range(3)]
+    spec, why = to_spec(tk.Matern(nu), derivative=True)
+    assert why is None and spec.jet
+    out = [v.numpy() for v in spec.evaluate_jet(torch.tensor(s))]
+    for o, r in zip(out, ref):
+        np.testing.assert_allclose(o, r, rtol=1e-8, atol=1e-12)
+    if nu <= 2:
+        assert out[2][0] == 0.0
+
+
+@pytest.mark.parametrize("p", [0, 1, 2, 3])
+def test_matern_half_integer_is_maternp(p):
+    """Matern(p + 1/2) is MaternP(p): the quadrature from s = 1e-3 (below,
+    it loses accuracy: tests/test_torch_besselk.py), the kernels' method
+    (`matern_nu_reference`) from 0."""
+    from cfjax_torch.utils.besselk import matern_nu_reference
+
+    s = torch.tensor(np.concatenate([np.logspace(-3, 1.5, 40)]))
+    np.testing.assert_allclose(tk.Matern(p + 0.5).profile(s).numpy(),
+                               tk.MaternP(p).profile(s).numpy(), rtol=1e-9)
+    s0 = torch.tensor(np.concatenate([[0.0, 1e-14, 1e-9], np.logspace(-6, 2, 40)]))
+    np.testing.assert_allclose(matern_nu_reference(p + 0.5, s0)[0].numpy(),
+                               tk.MaternP(p).profile(s0).numpy(), rtol=1e-12)
+
+
+def test_matern_specs_and_decline():
+    from cfjax_torch.kernels import profile_spec as ps
+    from cfjax_torch.utils.besselk import matern_nu_table
+
+    k = tk.Lengthscale(tk.Matern(2.3), 0.8)
+    spec, _ = to_spec(k)
+    assert spec.ops[-1] == ps.MATERN_NU and spec.family == ps.FAMILY_NONE
+    off = spec.args[-1]
+    assert spec.consts[off:off + 16] == matern_nu_table(2.3, False)
+    dspec, _ = to_spec(k, derivative=True)
+    assert dspec.ops[-1] == ps.MATERN_NU_JET and dspec.jet
+    assert dspec.consts[dspec.args[-1]:] == matern_nu_table(2.3, True)
+    for nu in (0.5, 1.0):
+        spec, why = to_spec(tk.Matern(nu), derivative=True)
+        assert spec is None and "nu <= 1" in why
+        assert to_spec(tk.Matern(nu))[0] is not None
+    # four Materns fit the constant table; a fifth does not
+    matern_sum = lambda m: functools.reduce(operator.add, [tk.Matern(1.3 + i) for i in range(m)])
+    assert to_spec(matern_sum(4))[0] is not None
+    assert "too long" in to_spec(matern_sum(5))[1]
+
+
+def test_matern_parameters_similar_and_reference(rng):
+    kj = jk.Lengthscale(jk.Matern(2.3), 0.8)
+    kt = tk.from_reference(kj)
+    np.testing.assert_array_equal(tk.parameters(kt).numpy(), np.asarray(jk.parameters(kj)))
+    kt2 = tk.similar(kt, torch.tensor([3.7, 1.2], dtype=torch.float64))
+    assert float(kt2.k.nu) == 3.7 and float(kt2.l) == 1.2
+    x, y = _x(rng, 6, 3), _x(rng, 5, 3)
+    ref = np.asarray(j_pairwise(jk.similar(kj, jnp.asarray([3.7, 1.2])), jnp.asarray(x),
+                                jnp.asarray(y)))
+    np.testing.assert_allclose(t_pairwise(kt2, torch.tensor(x), torch.tensor(y)).numpy(), ref,
+                               rtol=RTOL)
+
+
+def test_matern_gramian_mvms_match_reference(rng):
+    """gramian(Lengthscale(Matern(2.3), 0.8), x) @ a and the gradient
+    gramian's MVM (GradientKernel) against cfjax: both plain on the CPU,
+    the same quadrature in float64."""
+    from cfjax.derivative import GradientKernel as JGrad
+    from cfjax.operators.dispatch import gramian as j_gramian
+    from cfjax_torch.derivative import GradientKernel as TGrad
+    from cfjax_torch.operators.dispatch import gramian as t_gramian
+
+    x = _x(rng, 40, 3)
+    a, A = rng.standard_normal(40), rng.standard_normal(40 * 3)
+    kj, kt = jk.Lengthscale(jk.Matern(2.3), 0.8), tk.Lengthscale(tk.Matern(2.3), 0.8)
+    np.testing.assert_allclose((t_gramian(kt, torch.tensor(x)) @ torch.tensor(a)).numpy(),
+                               np.asarray(j_gramian(kj, jnp.asarray(x)) @ jnp.asarray(a)),
+                               rtol=1e-11)
+    for nu in (2.7, 1.5):
+        gj = j_gramian(JGrad(jk.Matern(nu)), jnp.asarray(x))
+        gt = t_gramian(TGrad(tk.Matern(nu)), torch.tensor(x))
+        np.testing.assert_allclose((gt @ torch.tensor(A)).numpy(), np.asarray(gj @ jnp.asarray(A)),
+                                   rtol=1e-10)
+
+
+def test_matern_log_marginal_likelihood_and_gradient(rng):
+    """The Cholesky logML of Lengthscale(Matern(nu), l) and its gradient in
+    (l, nu) against jax.grad."""
+    import jax
+
+    from cfjax.gp import log_marginal_likelihood as j_lml
+    from cfjax_torch.gp import log_marginal_likelihood as t_lml
+
+    x = _x(rng, 30, 2)
+    y = np.sin(x[:, 0]) + 0.1 * rng.standard_normal(30)
+
+    def lj(th):
+        return j_lml(jk.Lengthscale(jk.Matern(th[1]), th[0]), jnp.asarray(x), jnp.asarray(y),
+                     noise=1e-2)
+
+    th0 = np.array([0.9, 2.3])
+    vj, gj = jax.value_and_grad(lj)(jnp.asarray(th0))
+    th = torch.tensor(th0, requires_grad=True)
+    vt = t_lml(tk.Lengthscale(tk.Matern(th[1]), th[0]), torch.tensor(x), torch.tensor(y),
+               noise=1e-2)
+    (gt,) = torch.autograd.grad(vt, th)
+    np.testing.assert_allclose(float(vt.detach()), float(vj), rtol=1e-11)
+    np.testing.assert_allclose(gt.numpy(), np.asarray(gj), rtol=1e-8)
+
+
+def test_property_probes_match_reference():
+    """The four probes, on the kernels cfjax's tests probe, and on Matern."""
+    from cfjax.utils import testing as jt
+    from cfjax_torch.utils import testing as tt
+
+    cases = [(jk.EQ(), tk.EQ()), (jk.Cosine(jnp.ones(3)), tk.Cosine(np.ones(3))),
+             (jk.Cosine(jnp.asarray([1.0, 2.0, 0.5])), tk.Cosine(np.array([1.0, 2.0, 0.5]))),
+             (jk.Dot(), tk.Dot()), (jk.Matern(2.3), tk.Matern(2.3))]
+    for kj, kt in cases:
+        assert tt.isstationary_probe(kt) == jt.isstationary_probe(kj)
+        assert tt.isisotropic_probe(kt) == jt.isisotropic_probe(kj)
+    assert [tt.isstationary_probe(kt) for _, kt in cases] == [True, True, True, False, True]
+    assert [tt.isisotropic_probe(kt) for _, kt in cases] == [True, False, False, False, True]
+    x = np.random.default_rng(3).standard_normal((12, 2))
+    K = t_pairwise(tk.Matern(0.7), torch.tensor(x))
+    assert tt.iscov(K) == jt.iscov(np.asarray(j_pairwise(jk.EQ(), jnp.asarray(x)))) is True
+    assert tt.ispsd(K.numpy()) and not tt.ispsd(-K) and not tt.iscov(K + torch.triu(K, 1))
