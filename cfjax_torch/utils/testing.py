@@ -6,9 +6,15 @@ reference src/util.jl:91-149).
 independent of the trait-specialized tiles. The Nystrom build uses
 `pairwise_xy` for its landmark panels. `ispsd` and `iscov` test a matrix;
 `isstationary_probe` and `isisotropic_probe` test a kernel on numpy draws
-from the same seeds as cfjax's, on the CPU in float64."""
+from the same seeds as cfjax's, on the CPU in float64. `run_world` runs a
+function on every rank of a spawned `torch.distributed` world (the tests
+of `cfjax_torch.parallel` and the card's multi-rank smoke phase)."""
 
 from __future__ import annotations
+
+import os
+import pickle
+import tempfile
 
 import numpy as np
 import torch
@@ -65,3 +71,57 @@ def isisotropic_probe(k, d: int = 3, n: int = 16, seed: int = 0, tol=1e-8) -> bo
     Q, _ = np.linalg.qr(rng.standard_normal((d, d)))
     a, b = _probe_matrices(k, x, y, lambda z: z @ Q.T)
     return isstationary_probe(k, d, n, seed, tol) and bool(np.allclose(a, b, atol=tol))
+
+
+def _to_numpy(out):
+    """`out` with every tensor in it (nested in dicts, lists, tuples) as a
+    numpy array, so the result unpickles without torch's device state."""
+    if isinstance(out, torch.Tensor):
+        return out.detach().cpu().numpy()
+    if isinstance(out, dict):
+        return {k: _to_numpy(v) for k, v in out.items()}
+    if isinstance(out, (list, tuple)):
+        return type(out)(_to_numpy(v) for v in out)
+    return out
+
+
+def _rank_main(rank, world, backend, device, tmp, fn, args):
+    import torch.distributed as dist
+
+    from .. import config
+
+    config.set_config(device=device)
+    if torch.device(device).type == "cpu":
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    store = dist.FileStore(os.path.join(tmp, "store"), world)
+    dist.init_process_group(backend, store=store, rank=rank, world_size=world)
+    try:
+        out = fn(*args)
+        if rank == 0:
+            with open(os.path.join(tmp, "result.pkl"), "wb") as f:
+                pickle.dump(_to_numpy(out), f)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_world(fn, world: int, *args, backend: str = "gloo", device: str = "cpu"):
+    """Run `fn(*args)` on each of `world` ranks and return rank 0's result,
+    its tensors as numpy arrays.
+
+    The ranks are processes started by `torch.multiprocessing` with the
+    "spawn" method. They meet through a `FileStore` in a fresh temporary
+    directory, never a TCP port, so worlds started at once (test workers)
+    cannot collide. Each rank sets the port's default device to `device`
+    and joins a process group of `backend` before it calls `fn`; several
+    ranks may share one card. A rank that raises or dies fails the call
+    (`torch.multiprocessing.ProcessRaisedException` or
+    `ProcessExitedException`). `fn` is pickled by name: it must be a
+    module-level function of a module that imports no jax, since each rank
+    imports that module anew."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(_rank_main, args=(world, backend, device, tmp, fn, args),
+                           nprocs=world, join=True, start_method="spawn")
+        with open(os.path.join(tmp, "result.pkl"), "rb") as f:
+            return pickle.load(f)

@@ -49,7 +49,18 @@ card, then drives the paths a user runs:
     north-star demo runs it: NUTS and HMC over (log l, log v) on the
     Cholesky logML of a 4096-point subset of n = 2^20 points, then host
     NUTS over the slq logML at n = 2^16 (the demo's knobs; its full
-    n = 2^20 waits for a fused VJP: PERF.md).
+    n = 2^20 waits for a fused VJP: PERF.md);
+  * phase 24, the parallel layer (`cfjax_torch.parallel`) on
+    torch.distributed: 24a, NCCL at world size 1 in this process
+    (`init_distributed`, `default_mesh`): phase 3's solve through
+    `ShardedGramian` and `sharded_cg` beside the single-GPU one, and
+    `sharded_bh_matvec` on phase 18's n = 10^6 treecode; 24b, four ranks
+    spawned on the one card over gloo (NCCL refuses two ranks on one GPU),
+    a 2 x 2 mesh: the multi-rank dry run, the 2-D PCG at n = 2^17, a 1-D
+    `ShardedGramian` MVM, config 4's gradient CG with the column sum,
+    config 3's Kronecker MVM, config 2's Toeplitz with 16 columns and
+    Barnes-Hut at n = 10^5, each held to the single-GPU operator; the
+    ranks count their K1 and K3 launches, summed here.
 Phase 1 holds K1 (its family instances, its many-column instances and its
 interpreted one) and K2,
 phase 6 K3, phase 9 K4 against their float64 plain versions, and phases
@@ -563,7 +574,7 @@ def phase7_gradient_gp(tk, ops, gp, mvm, gmvm):
           f"{mean_wall:.4f} s, mean rows rel {mean_err:.3e}, off-diagonal share "
           f"||G a - a|| / ||G a|| = {share:.3f} | {how}", flush=True)
     return dict(cg_iters=it, launches=launches, residual=res, residual64=res64,
-                wall_s=wall, mean_err=mean_err, share=share, solve=solve)
+                wall_s=wall, mean_err=mean_err, share=share, solve=solve, x=x, y=y)
 
 
 def at_tiers(label, solve):
@@ -1656,7 +1667,7 @@ def phase18_treecode_1e6(tk, ops, bh, mvm):
           f"vs 16 exact rows (K1) {err:.3e} (bound {BH_N6_ERR:.0e}); K1's rows vs float64 plain "
           f"{k1_err:.3e}; matvec_linear linearity {lin:.3e} (bound {BH_LINEAR_BOUND:.0e})",
           flush=True)
-    return k1_abs
+    return k1_abs, F, w
 
 
 def plain_rows(k, x, v, rows, mvm, block=64, dtype=torch.float64):
@@ -2334,6 +2345,307 @@ def phase23_host_chain(tk, gp, hmc, mvm, slq, p22):
                 astat=float(a))
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: the parallel layer (cfjax_torch.parallel) on torch.distributed
+# ---------------------------------------------------------------------------
+
+# a sharded product against the single-GPU operator's on the same inputs
+# (relative L2): float32, and the float64 Kronecker product
+SHARD_BOUND = 1e-6
+SHARD_BOUND64 = 1e-12
+PARALLEL_RANKS = 4   # 24b: ranks sharing the one card over gloo, a 2 x 2 mesh
+
+
+def collective_checks(mesh):
+    """The three collectives of the parallel layer's helpers on CUDA tensors,
+    each held to its value: `_psum` (all_reduce) and `_psum_scatter`
+    (reduce_scatter, list form) over "cols", `_gather_rows` (all_gather, list
+    form) over "rows". Returns (what ran, over which backend)."""
+    import torch.distributed as dist
+    from cfjax_torch.parallel.mesh import _coord, _gather_rows, _psum, _psum_scatter
+
+    nc, c = _coord(mesh, "cols")
+    nr, r = _coord(mesh, "rows")
+    base = torch.arange(4 * nc, dtype=torch.float32, device="cuda")
+    s = _psum(base + c, mesh, "cols")
+    check(torch.equal(s, nc * base + nc * (nc - 1) / 2), "phase 24b: all_reduce over gloo on CUDA")
+    rs = _psum_scatter(base + c, mesh, "cols")
+    check(torch.equal(rs, s.chunk(nc)[c]), "phase 24b: reduce_scatter over gloo on CUDA")
+    g = _gather_rows(torch.full((3, 2), float(r), device="cuda"), mesh, "rows", 3 * nr)
+    check(torch.equal(g[:, 0], torch.arange(nr, device="cuda").repeat_interleave(3).float()),
+          "phase 24b: all_gather over gloo on CUDA")
+    return ("all_reduce, reduce_scatter (list form), all_gather (list form)",
+            str(dist.get_backend(mesh.get_group("cols"))))
+
+
+def collective_ms(mesh, n, reps=20):
+    """ms of one sharded MVM's collectives at n rows on the 2-D mesh: the
+    psum of an (n / rows) partial over "cols", then the all-gather of the
+    row blocks; host clock around `reps` rounds ending in a synchronize."""
+    from cfjax_torch.parallel.mesh import _coord, _gather_rows, _psum
+
+    nr, _ = _coord(mesh, "rows")
+    part = torch.ones(n // nr, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        _gather_rows(_psum(part, mesh, "cols"), mesh, "rows", n)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def same_on_every_rank(label, t):
+    """Checks that `t` is bit for bit the same on every rank."""
+    import torch.distributed as dist
+
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, t.contiguous())
+    check(all(torch.equal(p, parts[0]) for p in parts), f"{label}: the ranks disagree")
+
+
+def phase24b_rank(data):
+    """Phase 24b on each rank of a gloo world whose ranks share the card:
+    the dry run, the 2-D PCG at n = 2^17, a 1-D ShardedGramian MVM at n =
+    2^17, config 4's gradient CG on the 2-D mesh with the column sum, the
+    Kronecker MVM at 128^3, the Toeplitz matmat with 16 columns and the
+    Barnes-Hut MVM at n = 10^5. Counts its own launches from zero; the
+    single-GPU products it is held to (plain torch) launch nothing. Rank 0
+    returns the results, every rank's launches and times."""
+    import torch.distributed as dist
+
+    import cfjax_torch.kernels as tk
+    import cfjax_torch.operators as ops
+    from cfjax_torch import parallel as par
+    from cfjax_torch.barneshut import BarnesHutFactorization
+    from cfjax_torch.operators.preconditioner import nystrom_preconditioner
+    from cfjax_torch.operators.solvers import cg
+    from cfjax_torch.ops import gramian_mvm as mvm
+    from cfjax_torch.parallel.dryrun import dryrun_multichip
+    from cfjax_torch.parallel.mesh import sharded_gramian_matvec_2d
+    from cfjax_torch.utils.grids import LazyGrid, UniformGrid
+
+    mesh2 = par.init_distributed()
+    mesh1 = par.default_mesh()
+    check(tuple(mesh2.mesh.shape) == (2, 2), f"phase 24b: mesh {tuple(mesh2.mesh.shape)}")
+    coll = collective_checks(mesh2)
+    out = {"collectives": coll}
+    for key in mvm.LAUNCHES:
+        mvm.LAUNCHES[key] = 0
+    t_path = time.perf_counter()
+
+    dry, out["dry_s"] = sync_time(lambda: dryrun_multichip(PARALLEL_RANKS))
+    out["dry"] = {key: dry[key] for key in ("loss", "cg_iters", "grad_iters", "pcg_iters")}
+
+    # the 2-D PCG at n = 2^17: phase 3's points, kernel, noise and preconditioner
+    k = tk.MaternP(2)
+    x, y = cuda_tensor(data["x3"]), cuda_tensor(data["y3"])
+    M = nystrom_preconditioner(k, x, NOISE, rank=512)
+    mv = lambda v: sharded_gramian_matvec_2d(k, x, x, v, "iso", mesh2) + NOISE * v
+    before = mvm.LAUNCHES["direct"]
+    (alpha, (it, _)), out["pcg_s"] = sync_time(lambda: cg(mv, y, tol=1e-5, maxiter=500, M=M))
+    out["pcg_launches"] = mvm.LAUNCHES["direct"] - before
+    check(out["pcg_launches"] == it + 1,
+          f"phase 24b: {out['pcg_launches']} K1 launches for {it} PCG iterations")
+    same_on_every_rank("phase 24b PCG", alpha)
+    out["pcg_iters"], out["alpha"] = it, alpha
+    out["coll_ms"] = collective_ms(mesh2, x.shape[0])
+
+    # a 1-D ShardedGramian MVM at n = 2^17 against the parent's single-GPU K1
+    G = par.ShardedGramian(k, x, mesh=mesh1)
+    check(G.kernel_reason is None and G.kernel == "direct",
+          f"phase 24b: the 1-D shard does not run K1: {G.kernel_reason}")
+    b1, out["mvm1_s"] = sync_time(lambda: G @ cuda_tensor(data["a3"]))
+    ref = torch.as_tensor(data["ref1"], device="cuda")
+    out["mvm1_err"] = rel(b1, ref.double())
+    out["mvm1_max"] = float((b1 - ref).abs().max())
+    check(out["mvm1_err"] <= SHARD_BOUND, f"phase 24b: 1-D MVM rel {out['mvm1_err']:.3e}")
+
+    # config 4's gradient CG: rows on "rows", the column sum on "cols"
+    x7, y7 = cuda_tensor(data["x7"]), cuda_tensor(data["y7"])
+    Gg = par.ShardedGradientGramian(tk.EQ(), x7, mesh=mesh2, row_axis="rows", col_axis="cols")
+    check(Gg.kernel_reason is None, f"phase 24b: the gradient shard declines K3: {Gg.kernel_reason}")
+    before = mvm.LAUNCHES["grad"]
+    (alpha_g, (it_g, _)), out["grad_s"] = sync_time(
+        lambda: cg(lambda v: Gg @ v + NOISE * v, y7, tol=1e-5, maxiter=1000))
+    out["grad_launches"] = mvm.LAUNCHES["grad"] - before
+    check(out["grad_launches"] == it_g + 1,
+          f"phase 24b: {out['grad_launches']} K3 launches for {it_g} CG iterations")
+    same_on_every_rank("phase 24b gradient CG", alpha_g)
+    out["grad_iters"], out["alpha_g"] = it_g, alpha_g
+
+    # config 3's Kronecker MVM at 128^3 (float64, phase 14's solve dtype)
+    m = 128
+    grid = LazyGrid(tuple(UniformGrid(0.0, 1.0 / m, m) for _ in range(3)), device="cuda",
+                    dtype=torch.float64)
+    K = ops.gramian(tk.separable("^", tk.EQ(), d=3), grid)
+    a = torch.as_tensor(np.random.default_rng(24).standard_normal(m ** 3), device="cuda")
+    bk, out["kron_s"] = sync_time(lambda: par.sharded_kronecker_matvec(K, a, mesh1))
+    out["kron_err"] = rel(bk, K @ a)
+    check(out["kron_err"] <= SHARD_BOUND64, f"phase 24b: Kronecker rel {out['kron_err']:.3e}")
+
+    # config 2's Toeplitz at n = 65536 with 16 columns
+    n2 = 65536
+    T = ops.gramian(tk.Exp(), UniformGrid(0.0, 1.0 / n2, n2, device="cuda", dtype=torch.float32))
+    V = cuda_tensor(np.random.default_rng(25).standard_normal((n2, 16)))
+    bt, out["toep_s"] = sync_time(lambda: par.sharded_toeplitz_matmat(T, V, mesh1))
+    out["toep_err"] = rel(bt, (T @ V).double())
+    check(out["toep_err"] <= SHARD_BOUND, f"phase 24b: Toeplitz rel {out['toep_err']:.3e}")
+
+    # Barnes-Hut at n = 10^5, theta 1/2, as phase 18 builds it
+    r = np.random.default_rng(26)
+    xb, wb = cuda_tensor(r.standard_normal((100_000, 2))), cuda_tensor(r.uniform(0, 1, 100_000))
+    F, out["bh_build_s"] = sync_time(lambda: BarnesHutFactorization(tk.EQ(), xb, theta=0.5))
+    F.plans   # the host sweep, before the timed MVM
+    bb, out["bh_s"] = sync_time(lambda: par.sharded_bh_matvec(F, wb, mesh1))
+    out["bh_err"] = rel(bb, (F @ wb).double())
+    check(out["bh_err"] <= SHARD_BOUND, f"phase 24b: Barnes-Hut rel {out['bh_err']:.3e}")
+
+    torch.cuda.synchronize()
+    out["path_s"] = time.perf_counter() - t_path
+    mine = {"launches": dict(mvm.LAUNCHES), "path_s": out["path_s"]}
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, mine)
+    for i, rk in enumerate(ranks):
+        check(rk["launches"]["direct"] > 0 and rk["launches"]["grad"] > 0,
+              f"phase 24b: rank {i} launched K1 {rk['launches']['direct']}, K3 "
+              f"{rk['launches']['grad']} times")
+    out["ranks"] = ranks
+    return out
+
+
+def phase24a_nccl(tk, ops, mvm, p3, F18, w18):
+    """24a, the production backend: NCCL at world size 1 in this process,
+    through `init_distributed()` and `default_mesh()`. BASELINE config 1's
+    lazy solve at full size (phase 3's points: ShardedGramian(MaternP(2))
+    + noise I, the rank-512 Nystrom preconditioner, `sharded_cg`) beside
+    the same solve through the single-GPU Gramian, and config 5's
+    `sharded_bh_matvec` at n = 10^6 on phase 18's factorization. The
+    single-GPU solve's launches are taken back out of the counts."""
+    import torch.distributed as dist
+
+    from cfjax_torch import parallel as par
+    from cfjax_torch.operators.preconditioner import nystrom_preconditioner
+    from cfjax_torch.operators.solvers import cg
+
+    mesh2 = par.init_distributed()
+    mesh = par.default_mesh()
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1
+          and tuple(mesh2.mesh.shape) == (1, 1),
+          f"phase 24a: {dist.get_backend()} world {dist.get_world_size()}, mesh "
+          f"{tuple(mesh2.mesh.shape)}")
+    k = tk.MaternP(2)
+    x, y = p3["x"], p3["y"]
+    M = nystrom_preconditioner(k, x, NOISE, rank=512)
+    G = par.ShardedGramian(k, x, mesh=mesh)
+    check(G.kernel_reason is None and G.kernel == "direct",
+          f"phase 24a: the shard does not run K1: {G.kernel_reason}")
+    op = G.add_diagonal(NOISE)
+    before = mvm.LAUNCHES["direct"]
+    (alpha, (it, _)), wall = sync_time(
+        lambda: par.sharded_cg(op._matvec, y, tol=1e-5, maxiter=500, M=M))
+    launches = mvm.LAUNCHES["direct"] - before
+    check(launches == it + 1, f"phase 24a: {launches} K1 launches for {it} PCG iterations")
+    check(abs(it - p3["cg_iters"]) <= 3,
+          f"phase 24a: {it} PCG iterations against phase 3's {p3['cg_iters']}")
+    xd = x.double()
+    res64 = residual(mvm.gramian_matvec_direct_plain(k, xd, xd, alpha.double()), alpha, y)
+    check(res64 <= 2e-5, f"phase 24a: float64 residual {res64:.3e} > 2e-5")
+    op1 = ops.Gramian(k, x).add_diagonal(NOISE)
+    (_, (it1, _)), wall1 = uncounted_k1(mvm, "phase 24a single-GPU solve", lambda: sync_time(
+        lambda: cg(op1._matvec, y, tol=1e-5, maxiter=500, M=M)))
+    coll_ms = collective_ms(mesh2, x.shape[0])
+    # config 5's treecode at n = 10^6, target groups over the one rank
+    b, bh_s = sync_time(lambda: par.sharded_bh_matvec(F18, w18, mesh))
+    ref, bh1_s = sync_time(lambda: F18 @ w18)
+    bh_err = rel(b, ref.double())
+    check(bh_err <= SHARD_BOUND, f"phase 24a: sharded Barnes-Hut rel {bh_err:.3e}")
+    dist.destroy_process_group()
+    return dict(iters=it, iters1=it1, wall=wall, wall1=wall1, launches=launches, res64=res64,
+                coll_ms=coll_ms, bh_err=bh_err, bh_max=float((b - ref).abs().max()), bh_s=bh_s, bh1_s=bh1_s)
+
+
+def phase24(tk, ops, mvm, p3, p7, F18, w18):
+    """Phase 24, the parallel layer: 24a in this process (NCCL, world 1),
+    then 24b on `PARALLEL_RANKS` spawned ranks sharing the card over gloo.
+    The kernels were built before: the ranks only load them. Returns the
+    K1 and K3 launches of the phase's path, the ranks' summed: the counts
+    are set to 0 before it."""
+    from cfjax_torch.utils.testing import run_world
+
+    t24 = time.perf_counter()
+    a = phase24a_nccl(tk, ops, mvm, p3, F18, w18)
+    t_a = time.perf_counter() - t24
+    print(f"phase 24a parallel layer, NCCL at world size 1 (init_distributed, default_mesh): "
+          f"ShardedGramian(MaternP(2)) n=131072 d=3 + noise, rank-512 Nystrom, sharded_cg: "
+          f"{a['iters']} PCG iterations (phase 3: {p3['cg_iters']}; the single-GPU Gramian "
+          f"here: {a['iters1']}), float64 residual {a['res64']:.3e} (bound 2e-5), K1 launches "
+          f"{a['launches']}, solve {a['wall']:.3f} s against {a['wall1']:.3f} s through the "
+          f"single-GPU Gramian ({1e3 * (a['wall'] - a['wall1']) / max(a['iters'], 1):.3f} ms an "
+          f"iteration; phase 3's gp_condition {p3['wall_s']:.3f} s with its Nystrom build), "
+          f"collectives {a['coll_ms']:.3f} ms an iteration | "
+          f"sharded_bh_matvec n=10^6 theta 1/2 (phase 18's F): rel {a['bh_err']:.3e} (bound "
+          f"{SHARD_BOUND:.0e}), max abs {a['bh_max']:.3e}, {a['bh_s']:.4f} s against F @ w "
+          f"{a['bh1_s']:.4f} s | {t_a:.1f} s", flush=True)
+
+    x3 = p3["x"]
+    a3 = cuda_tensor(np.random.default_rng(24).standard_normal(x3.shape[0]))
+    ref1 = uncounted_k1(mvm, "phase 24b reference", lambda: ops.Gramian(tk.MaternP(2), x3) @ a3)
+    data = {"x3": x3.cpu().numpy(), "y3": p3["y"].cpu().numpy(), "a3": a3.cpu().numpy(),
+            "ref1": ref1.cpu().numpy(), "x7": p7["x"].cpu().numpy(),
+            "y7": p7["y"].cpu().numpy()}
+    t_b = time.perf_counter()
+    b = run_world(phase24b_rank, PARALLEL_RANKS, data, backend="gloo", device="cuda")
+    wall_b = time.perf_counter() - t_b
+    alpha = torch.as_tensor(b["alpha"], device="cuda")
+    xd = x3.double()
+    res64 = residual(mvm.gramian_matvec_direct_plain(tk.MaternP(2), xd, xd, alpha.double()),
+                     alpha, p3["y"])
+    check(res64 <= 2e-5, f"phase 24b: 2-D PCG float64 residual {res64:.3e} > 2e-5")
+    check(abs(b["pcg_iters"] - p3["cg_iters"]) <= 3,
+          f"phase 24b: {b['pcg_iters']} PCG iterations against phase 3's {p3['cg_iters']}")
+    from cfjax_torch.ops import grad_mvm as gmvm
+
+    x7, y7 = p7["x"], p7["y"]
+    ag = torch.as_tensor(b["alpha_g"], device="cuda")
+    n7, d7 = x7.shape
+    plain = gmvm.grad_matvec_plain(tk.EQ(), x7.double(), x7.double(),
+                                   ag.double().reshape(n7, d7)).reshape(-1)
+    res_g = residual(plain, ag, y7)
+    check(res_g <= 1e-4, f"phase 24b: gradient CG float64 residual {res_g:.3e} > 1e-4")
+    check(abs(b["grad_iters"] - p7["cg_iters"]) <= 3,
+          f"phase 24b: {b['grad_iters']} gradient CG iterations against phase 7's "
+          f"{p7['cg_iters']}")
+    launches = {key: mvm.LAUNCHES[key] for key in ("direct", "grad")}
+    for rk in b["ranks"]:
+        for key in launches:
+            launches[key] += rk["launches"][key]
+    per_rank = ", ".join(f"rank {i} K1 {rk['launches']['direct']} K3 {rk['launches']['grad']} "
+                         f"({rk['path_s']:.1f} s)" for i, rk in enumerate(b["ranks"]))
+    dry = b["dry"]
+    print(f"phase 24b collectives over gloo on CUDA tensors (torch {torch.__version__}): "
+          f"{b['collectives'][0]} run and agree with their values on backend "
+          f"{b['collectives'][1]}; nothing is staged through host memory", flush=True)
+    print(f"phase 24b parallel layer, {PARALLEL_RANKS} ranks on one card over gloo, a 2 x 2 "
+          f"mesh: dry run (float32) loss {float(dry['loss']):.4e}, CG {int(dry['cg_iters'])} / "
+          f"gradient CG {int(dry['grad_iters'])} / Nystrom PCG {int(dry['pcg_iters'])} "
+          f"iterations, {b['dry_s']:.2f} s | sharded_gramian_matvec_2d Nystrom PCG n=131072 d=3: "
+          f"{b['pcg_iters']} iterations (phase 3: {p3['cg_iters']}), float64 residual "
+          f"{res64:.3e} (bound 2e-5), {b['pcg_launches']} K1 launches a rank, {b['pcg_s']:.3f} s "
+          f"(24a at world 1: {a['wall']:.3f} s), collectives {b['coll_ms']:.3f} ms an "
+          f"iteration | 1-D ShardedGramian MVM n=131072: rel {b['mvm1_err']:.3e} (bound "
+          f"{SHARD_BOUND:.0e}) max abs {b['mvm1_max']:.3e} against the single-GPU K1 product, "
+          f"{b['mvm1_s']:.4f} s | ShardedGradientGramian(EQ) n=4096 d=16, the column sum on "
+          f"'cols': {b['grad_iters']} CG iterations (phase 7: {p7['cg_iters']}), float64 "
+          f"residual {res_g:.3e} (bound 1e-4), {b['grad_launches']} K3 launches a rank, "
+          f"{b['grad_s']:.3f} s | Kronecker 128^3 float64 rel {b['kron_err']:.3e} (bound "
+          f"{SHARD_BOUND64:.0e}) {b['kron_s']:.4f} s | Toeplitz n=65536 x 16 columns rel "
+          f"{b['toep_err']:.3e} {b['toep_s']:.4f} s | Barnes-Hut n=10^5 theta 1/2 rel "
+          f"{b['bh_err']:.3e}, build {b['bh_build_s']:.2f} s a rank, MVM {b['bh_s']:.4f} s | "
+          f"launches: {per_rank} | spawn and run {wall_b:.1f} s; phase 24 "
+          f"{time.perf_counter() - t24:.1f} s", flush=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2613,8 +2925,10 @@ def main():
         mvm.LAUNCHES[key] = 0
     t_bh = time.perf_counter()
     # the largest absolute error of K1's products held against float64 plain
-    k1_bh = max(phase17_treecode(tk, ops, bh, mvm), phase18_treecode_1e6(tk, ops, bh, mvm),
-                phase19_gp_solves(tk, ops, gp, bh, mvm), phase20_refined(tk, ops, mvm))
+    k1_17 = phase17_treecode(tk, ops, bh, mvm)
+    k1_18, F18, w18 = phase18_treecode_1e6(tk, ops, bh, mvm)
+    k1_bh = max(k1_17, k1_18, phase19_gp_solves(tk, ops, gp, bh, mvm),
+                phase20_refined(tk, ops, mvm))
     check(mvm.LAUNCHES["direct"] > 0, "kernel 'direct' was not launched on the Barnes-Hut path")
     launches["direct"] += mvm.LAUNCHES["direct"]
     print(f"phases 17-20 Barnes-Hut and refinement path {time.perf_counter() - t_bh:.1f} s: K1 "
@@ -2648,6 +2962,15 @@ def main():
     launches["direct"] += mvm.LAUNCHES["direct"]
     print(f"phases 22-23 sampling path {time.perf_counter() - t22:.1f} s: launches many-column "
           f"K1 {mvm.LAUNCHES['direct_cols']}, K1 {mvm.LAUNCHES['direct']}", flush=True)
+
+    # ---- phase 24: the parallel layer: counts from here to its end, the ranks' included ----
+    for key in mvm.LAUNCHES:
+        mvm.LAUNCHES[key] = 0
+    l24 = phase24(tk, ops, mvm, p3, p7, F18, w18)
+    check(l24["direct"] > 0 and l24["grad"] > 0,
+          f"phase 24: K1 {l24['direct']}, K3 {l24['grad']} launches on the parallel path")
+    launches["direct"] += l24["direct"]
+    launches["grad"] += l24["grad"]
 
     # at "highest", the configured tier
     meta = {"direct": ("K1 gramian_matvec_direct", "cfjax_torch/csrc/gramian_mvm.cu",

@@ -43,7 +43,8 @@ def test_port_import_loads_no_jax():
     code = ("import sys, cfjax_torch, cfjax_torch.gp, cfjax_torch.operators, cfjax_torch.ops,"
             " cfjax_torch.derivative, cfjax_torch.utils.linalg, cfjax_torch.barneshut,"
             " cfjax_torch.operators.sparse_op, cfjax_torch.operators.tile_ell,"
-            " cfjax_torch.gp.hmc, cfjax_torch.utils.besselk, cfjax_torch.operators.woodbury;"
+            " cfjax_torch.gp.hmc, cfjax_torch.utils.besselk, cfjax_torch.operators.woodbury,"
+            " cfjax_torch.parallel, cfjax_torch.parallel.dryrun;"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'cfjax.'))];"
             "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=PACKAGE.parent,
@@ -783,3 +784,48 @@ def test_nuts_host_step_on_card():
     assert s.shape == (1, 2) and bool(torch.isfinite(s).all()) and 0.0 <= float(a) <= 1.0
     assert mvm.LAUNCHES["direct_cols"] > before["direct_cols"]
     assert mvm.LAUNCHES["direct"] > before["direct"]
+
+
+@needs_gpu
+def test_sharded_shards_run_k1_and_k3_at_world_one():
+    """A one-rank NCCL group on the card: the local operators of
+    ShardedGramian and ShardedGradientGramian take K1 and K3, launch once
+    an MVM, and agree with the single-GPU operators."""
+    import torch.distributed as dist
+    from cfjax_torch.parallel import ShardedGradientGramian, ShardedGramian, default_mesh
+
+    mesh = default_mesh()
+    try:
+        assert dist.get_backend() == "nccl"
+        x, _, a = _cuda_data(1000, 1000, 3)
+        G = ShardedGramian(tk.MaternP(2), x, mesh=mesh)
+        assert G.kernel_reason is None and G.kernel == "direct"
+        before = mvm.LAUNCHES["direct"]
+        b = G @ a
+        assert mvm.LAUNCHES["direct"] == before + 1
+        assert torch.equal(b, gramian(tk.MaternP(2), x) @ a)
+        xg, _, _ = _cuda_data(300, 300, 16, scale=0.5, seed=1)
+        A = torch.randn(300 * 16, device="cuda")
+        Gg = ShardedGradientGramian(tk.EQ(), xg, mesh=mesh)
+        assert Gg.kernel_reason is None
+        before = mvm.LAUNCHES["grad"]
+        bg = Gg @ A
+        assert mvm.LAUNCHES["grad"] == before + 1
+        assert _rel(bg, gramian(GradientKernel(tk.EQ()), xg.double()) @ A.double()) <= 1e-5
+    finally:
+        dist.destroy_process_group()
+
+
+@needs_gpu
+def test_sharded_shards_run_k1_and_k3_on_four_ranks():
+    """Four ranks sharing the card over gloo, a 2 x 2 mesh: every rank's
+    dense and gradient shards take K1 and K3 (kernel_reason None) and
+    launch them; the products agree with the single-GPU operators."""
+    import torch_parallel_cases as cases
+    from cfjax_torch.utils.testing import run_world
+
+    out = run_world(cases.shard_kernels, 4, backend="gloo", device="cuda")
+    for rank in out["ranks"]:
+        assert rank["reasons"] == [None, None]
+        assert rank["launches"]["direct"] == 2 and rank["launches"]["grad"] == 1
+    assert max(out["errors"]) <= 1e-5
