@@ -36,6 +36,7 @@ from ..operators.linop import LinearOperator, SumOperator, ZeroOperator
 from ..ops import grad_mvm as _grad_mvm
 from ..ops.tiles import inner_tile, map_rows, matmul_p, sqdist_tile
 from ..utils.grids import as_points
+from ..utils.roofline import Work
 
 
 # --------------------------------------------------------------------------
@@ -212,6 +213,21 @@ class GradientGramian(LinearOperator):
     def _matvec(self, v):
         A = v.reshape(self.y.shape[0], self.d)
         return self._apply(A).reshape(-1)
+
+
+def work_gradient_mvm(n: int, d: int) -> Work:
+    """The least work of a gradient-gramian MVM on this card, x (n, d) and
+    a flat v of n d, counted as cfjax's benchmark counts it
+    (`benchmarks/run_baseline.py` `work_gradient_mvm`): four (n, d) x (d, n)
+    products, 8 n^2 d tensor-core flops at "highest"'s 3 tf32 passes; per
+    pair the derivative evaluations off one shared exp (one SFU operation)
+    and ~12 elementwise fp32 instructions (the weights, row sums and
+    epilogue). A composite in the "pair" form shares one tile and one set
+    of contractions whatever its terms, so it counts as one. Bytes: x and v
+    read once, the product written once, float32."""
+    e = float(n) * n
+    return Work(fp32=12 * e, sfu=e, tc_flops=8 * d * e, tc_passes=3,
+                hbm_bytes=4.0 * 3 * n * d)
 
 
 def _grad_mode(k) -> str:

@@ -35,6 +35,7 @@ from ..kernels.derivatives import elementwise_derivatives
 from ..operators.linop import LinearOperator
 from ..ops.tiles import inner_tile, map_rows, sqdist_tile
 from ..utils.grids import as_points
+from ..utils.roofline import Work
 
 _es = torch.einsum
 
@@ -200,6 +201,19 @@ class HessianGramian(LinearOperator):
         kws = {} if self.block is None else dict(block=self.block)
         fn = {"iso": hess_matvec_iso, "dot": hess_matvec_dot}.get(self.mode, hess_matvec_generic)
         return fn(self.k, self.x, self.y, A, **kws).reshape(-1)
+
+
+def work_hessian_mvm(n: int, d: int) -> Work:
+    """The least work of an isotropic Hessian-gramian MVM on this card, x
+    (n, d) and a flat v of n d^2, counted as cfjax's benchmark counts it
+    (`benchmarks/run_baseline.py` `work_hessian_mvm`): the closed form's
+    O(d^2) block contractions, 8 n^2 d^2 tensor-core flops at "highest"'s
+    3 tf32 passes, ~20 fp32 instructions a pair for the profile's
+    derivatives and weights. Bytes: x and v read once, the product written
+    once, float32."""
+    e = float(n) * n
+    return Work(fp32=20 * e, tc_flops=8 * d * d * e, tc_passes=3,
+                hbm_bytes=4.0 * (n * d + 2 * n * d * d))
 
 
 @dataclasses.dataclass(frozen=True)

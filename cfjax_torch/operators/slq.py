@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import config as _config
 from .solvers import cg, cg_columns
 
 
@@ -141,9 +142,15 @@ def slq_logdet(matvec_fn, n, probes, iters, solve_tol, solve_maxiter, params, ge
     sequence of tensors (kernel hyperparameters, noise, ...); the
     estimate is differentiable in them through the Hutchinson / CG
     backward. The probes are drawn from `generator` (default: a generator
-    seeded with 0 on `device`), in `dtype` (default torch's)."""
+    seeded with 0 on `device`), in `dtype` (default torch's), on `device`:
+    when it is not given, the device of the first tensor among `params`,
+    else the configured default (`config.default_device()`), as cfjax
+    puts them on its default device."""
     dtype = torch.get_default_dtype() if dtype is None else dtype
-    device = torch.device("cpu") if device is None else torch.device(device)
+    if device is None:
+        device = next((p.device for p in params if isinstance(p, torch.Tensor)),
+                      _config.default_device())
+    device = torch.device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     return _SLQLogdet.apply(matvec_fn, n, probes, iters, solve_tol, solve_maxiter,

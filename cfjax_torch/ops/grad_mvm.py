@@ -29,7 +29,8 @@ import functools
 import torch
 
 from ..kernels.derivatives import elementwise_derivatives
-from ..kernels.profile_spec import JET_CONSTS, ProfileSpec, to_spec
+from ..kernels.profile_spec import FAMILY_EQ, FAMILY_MATERN, JET_CONSTS, ProfileSpec, to_spec
+from ..utils.roofline import Work
 from . import build as _build
 from .gramian_mvm import _cdiv, _CSpec, _cspec, _launch, _ptr, column_split, vec4_ok
 from .tiles import inner_tile, map_rows, matmul_p, sqdist_tile, tier_passes
@@ -65,6 +66,34 @@ def library() -> ctypes.CDLL:
     lib.k3_grad_matvec.argtypes = [p] * 8 + [i] * 10 + [_CSpec, _CJet, p]
     lib.k3_grad_matvec.restype = i
     return lib
+
+
+# (fp32 instructions, SFU operations) of a derivative family's jet f', f''
+# per entry, by (family, p): EQ's FMUL, ex2 and two FMUL; MaternP(2)'s
+# eleven fp32 and rsqrt, ex2, rcp
+JET_OPS = {(FAMILY_EQ, 0): (3, 1), (FAMILY_MATERN, 2): (11, 3)}
+
+
+def jet_ops(spec: ProfileSpec) -> tuple:
+    """(fp32, SFU) of a derivative spec's family jet per entry (`JET_OPS`)."""
+    try:
+        return JET_OPS[spec.family, spec.family_p]
+    except KeyError:
+        raise ValueError(f"no operation count for the jet of family {spec.family} "
+                         f"p={spec.family_p}") from None
+
+
+def work_grad(n: int, m: int, d: int, jet: tuple, passes: int) -> Work:
+    """The least work of K3's function on this card: out_i = sum_j B_ij A_j
+    over the d x d gradient blocks, x (n, d), y and A (m, d). Its four
+    (n, d) x (d, m) products, 8d tensor-core flops a pair at the tier's tf32
+    `passes`; per pair the expansion and tau test (4), w (1), alpha, beta
+    and rowsum(beta) (4), the clamp (1), and the jet's (fp32, SFU) `jet`
+    (`jet_ops`). Bytes: x, y and A read once, out written once, float32."""
+    fp32, sfu = jet
+    e = float(n) * m
+    return Work(fp32=e * (10 + fp32), sfu=e * sfu, tc_flops=e * 8 * d, tc_passes=passes,
+                hbm_bytes=4.0 * (2 * n * d + 2 * m * d))
 
 
 def grad_matvec_plain(k, x, y, A, mode: str = "iso", block: int = 256, precision=None):

@@ -37,8 +37,10 @@ import functools
 
 import torch
 
-from ..kernels.profile_spec import (FAMILY_CONSTS, FAMILY_NONE, MAX_CONSTS, MAX_OPS,
+from ..kernels.profile_spec import (FAMILY_CAUCHY, FAMILY_CONSTS, FAMILY_EQ, FAMILY_IMQ,
+                                    FAMILY_MATERN, FAMILY_NONE, FAMILY_RQ, MAX_CONSTS, MAX_OPS,
                                     ProfileSpec, to_spec)
+from ..utils.roofline import Work
 from . import build as _build
 from .tiles import inner_tile, sqdist_tile, tier_passes
 
@@ -231,6 +233,47 @@ def gramian_matvec_expand_plain(k, x, y, a, mode: str = "iso", precision=None,
     else:
         tile = lambda xb, yy: inner_tile(xb, yy, precision)
     return _blocked(tile, k, x, y, a, block)
+
+
+def profile_ops(spec: ProfileSpec) -> tuple:
+    """(fp32 instructions, SFU operations) of a one-leaf value profile per
+    entry: its family's least work (EQ: FMUL, ex2; MaternP(p): max, 2 FMUL,
+    the Horner steps, rsqrt, ex2; RQ: FFMA, FMUL, lg2, ex2; Cauchy and
+    IMQ: FFMA, rcp / rsqrt). An interpreted profile has no fixed count:
+    its caller counts it (e.g. `utils.besselk.matern_nu_ops`)."""
+    p = spec.family_p
+    ops = {FAMILY_EQ: (1, 1), FAMILY_MATERN: (3 + p + (p > 0), 2), FAMILY_RQ: (2, 2),
+           FAMILY_CAUCHY: (1, 1), FAMILY_IMQ: (1, 1)}
+    if spec.jet or spec.family not in ops:
+        raise ValueError("profile_ops counts the value families; an interpreted or "
+                         "derivative spec is counted by its caller")
+    return ops[spec.family]
+
+
+def work_direct(n: int, m: int, d: int, profile: tuple, p: int = None) -> Work:
+    """The least work of K1's function on this card: b = K a for x (n, d),
+    y (m, d), a (m,), or with `p` columns B = K A. Per entry: 2d fp32 for
+    the difference-form distance, the profile's (fp32, SFU) `profile`
+    (`profile_ops`), one FFMA a column into the row sums. Bytes: x, y and
+    a (A) read once, b (B) written once, float32."""
+    fp32, sfu = profile
+    cols = 1 if p is None else p
+    e = float(n) * m
+    return Work(fp32=e * (2 * d + fp32 + cols), sfu=e * sfu,
+                hbm_bytes=4.0 * ((n + m) * d + (m + n) * cols))
+
+
+def work_expand(n: int, m: int, d: int, profile: tuple, passes: int,
+                mode: str = "iso") -> Work:
+    """The least work of K2's function on this card: b = K a through the
+    x.y tile, 2d tensor-core flops an entry at the tier's tf32 `passes`;
+    per entry the expansion (FADD, FFMA, FMNMX; iso only), the profile's
+    (fp32, SFU) and the row sum's FFMA. Bytes as `work_direct`."""
+    fp32, sfu = profile
+    e = float(n) * m
+    return Work(fp32=e * ((3 if mode == "iso" else 0) + fp32 + 1), sfu=e * sfu,
+                tc_flops=e * 2 * d, tc_passes=passes,
+                hbm_bytes=4.0 * ((n + m) * d + m + n))
 
 
 def gramian_matvec_direct(k, x, y, a, spec: ProfileSpec = None):

@@ -28,6 +28,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.roofline import Work
 from . import build as _build
 from .gramian_mvm import _launch, _ptr, sm_count
 
@@ -78,6 +79,14 @@ def slab_matvec_plain(a2, off, val):
     idx = off.long() + (torch.arange(nt, device=off.device) * LANES)[:, None]
     g = a2.reshape(-1)[idx]
     return torch.sum(val * g, dim=(1, 2))
+
+
+def work_rows(nnz: int, n: int, m: int, itemsize: int = 4) -> Work:
+    """The least work of K4's function on this card: out = S a over the
+    operator's nnz nonzeros, an (n, m) operator. Bytes: each nonzero's
+    4-byte column and its value read once, a read once, out written once;
+    the FMAs are negligible beside them."""
+    return Work(hbm_bytes=float(nnz) * (4 + itemsize) + (n + m) * itemsize)
 
 
 def rows_matvec_plain(rs: RowSlices, a):

@@ -178,6 +178,39 @@ def kv_terms(nu: float, x):
     return _kv_pair(matern_nu_table(nu, nu > 1), x)[2], x <= 2
 
 
+# fp32 instructions and SFU operations of the kernels' K_nu routine
+# (csrc/profile_spec.cuh `matern_nu`, `kv_pair`), counted from the source
+# with IEEE division 9 + 1 (rcp and its Newton step), sqrt 5 + 1, expf 4 +
+# 1, exp2f 2 + 1, logf and log2f 20 + 0, sinhf and coshf 15 + 1: the guard,
+# x and its rounding error, the correction and the scaling (value; the jet
+# adds f' and f''), each recurrence step, and the fixed and per-term work of
+# Temme's series and Steed's fraction
+MATERN_OPS = {"value": (45, 3), "jet": (33, 2), "step": (4, 0), "temme": (103, 8),
+              "temme_term": (53, 4), "steed": (54, 4), "steed_term": (43, 3)}
+
+
+def matern_nu_ops(nu: float, s, jet: bool = False) -> tuple:
+    """(fp32, SFU) operations of the K_nu routine per entry, averaged over
+    the squared distances of a run given as a histogram s = (centres,
+    counts), from the terms each entry's x needs (`kv_terms`); below the
+    guard's float32 bound an entry costs the guard's polynomial (6 fp32)."""
+    centres, counts = s
+    t = matern_nu_table(nu, jet)
+    closed = centres >= max(t[6], 1e-300)     # above the guard's float32 bound
+    terms, small = kv_terms(nu, torch.sqrt(2 * nu * centres))
+    w = counts.double() / counts.sum()
+    n_steps = max(int(t[9]) - 1, 0)
+    out = []
+    for k in (0, 1):
+        per = (MATERN_OPS["value"][k] + (MATERN_OPS["jet"][k] if jet else 0)
+               + n_steps * MATERN_OPS["step"][k]
+               + torch.where(small, MATERN_OPS["temme"][k] + terms * MATERN_OPS["temme_term"][k],
+                             MATERN_OPS["steed"][k] + terms * MATERN_OPS["steed_term"][k]))
+        taylor = 6 if k == 0 else 0
+        out.append(float(torch.sum(w * torch.where(closed, per, torch.full_like(per, taylor)))))
+    return tuple(out)
+
+
 def matern_nu_reference(nu: float, s):
     """(f, f', f'') of Matern(nu).profile at s >= 0 in float64 by the
     kernels' method (`csrc/profile_spec.cuh` `matern_nu`): the guard's

@@ -60,7 +60,20 @@ card, then drives the paths a user runs:
     `ShardedGramian` MVM, config 4's gradient CG with the column sum,
     config 3's Kronecker MVM, config 2's Toeplitz with 16 columns and
     Barnes-Hut at n = 10^5, each held to the single-GPU operator; the
-    ranks count their K1 and K3 launches, summed here.
+    ranks count their K1 and K3 launches, summed here;
+  * phase 25, the north-star demo as a user runs it:
+    `cfjax_torch.examples.northstar_demo.main(2^20, quick=True)` (BASELINE
+    config 5: the exact-subset NUTS chain, rank-1024 Nystrom PCG through
+    K1 at n = 2^20, the Barnes-Hut posterior mean and the exact one through
+    K1), its stage walls (warm: phases 1-24 ran in this process), K1's
+    launches during the PCG, the residual and the mean's miss in float64
+    against a tf32 control, and the RMSE;
+  * phase 26, BASELINE's two derivative-MVM rows, which no kernel takes:
+    the HessianKernel MVM (EQ, n = 128, d = 16) and the composite
+    gradient MVM (MaternP(2) + Line(1)^2 + NN(0.1), n = d = 1024, the
+    "pair" mode), each against float64 and its share of the least work
+    (`cfjax_torch.utils.roofline`), and the composite's ms a call with its
+    hyperparameters on the host, as built.
 Phase 1 holds K1 (its family instances, its many-column instances and its
 interpreted one) and K2,
 phase 6 K3, phase 9 K4 against their float64 plain versions, and phases
@@ -72,7 +85,9 @@ and K3's family instances keep no stack frame and spill nothing);
 phase 5 times each kernel against its plain version and, for K4, against
 one PyTorch call that computes the same product (a CSR SpMV), K2 and K3 at
 each tier, and computes each kernel's bound, the least time the card
-could take for the same work. Phases 7 and 8 run again at the tf32
+could take for the same work (each kernel's `work_*` function beside
+its wrapper, over the card's peaks in `cfjax_torch.utils.roofline`; the
+timers are `cfjax_torch.utils.timing`'s). Phases 7 and 8 run again at the tf32
 tiers once the path's launches are counted. One line per phase, then a
 JSON line of kernel results, the card's name and power limit, and a last
 JSON line
@@ -94,6 +109,11 @@ import time
 
 import numpy as np
 import torch
+
+from cfjax_torch.utils.besselk import matern_nu_ops
+from cfjax_torch.utils.roofline import Work, summarize
+from cfjax_torch.utils.timing import (call_and_device_ms, event_ms, graph_ms, kernel_times,
+                                      sync_time)
 
 K1_BOUND = 1e-5   # relative L2 error of K1 vs its float64 plain version
 K2_BOUND = 1e-4   # K2: the expansion cancels (cfjax's interpret tolerance is 2e-4)
@@ -142,46 +162,6 @@ RESIDUAL_ROWS = 16384      # phase 19: rows of the float64 residual
 NOISE = 1e-2      # the GP's noise variance
 Y_NOISE = 0.01    # standard deviation of the noise in the observations y
 
-# The H100 SXM's peaks at its 1.98 GHz boost clock and 700 W: 132 SMs x 128
-# fp32 lanes (67 TFLOP/s counting an FMA as two), x 16 SFU lanes (MUFU:
-# rsqrt, ex2, lg2, rcp), and 3.35 TB/s of HBM3. A bound is the larger of
-# the operations over their pipe's rate and the bytes over the HBM rate.
-FP32_RATE = 132 * 128 * 1.98e9   # fp32 instructions per second
-SFU_RATE = 132 * 16 * 1.98e9     # SFU operations per second
-HBM_RATE = 3.35e12               # bytes per second
-TC_RATE = 495e12                 # dense tf32 tensor-core flops per second
-
-
-def op_bound(pairs, fp32, sfu=0):
-    """(ms, what sets it) for `pairs` entries of fp32 and SFU operations each."""
-    t_fp32, t_sfu = pairs * fp32 / FP32_RATE * 1e3, pairs * sfu / SFU_RATE * 1e3
-    return (t_sfu, "operations (SFU)") if t_sfu > t_fp32 else (t_fp32, "operations (fp32)")
-
-
-def tc_bound(pairs, flops, passes, fp32, sfu):
-    """(ms, what sets it) of a tensor-core kernel: `flops` per entry in
-    products at `passes` tf32 passes over the dense tf32 rate, against the
-    per-entry fp32 instructions and SFU operations over theirs."""
-    t = {"operations (tensor cores, tf32)": pairs * flops * passes / TC_RATE * 1e3,
-         "operations (fp32)": pairs * fp32 / FP32_RATE * 1e3,
-         "operations (SFU)": pairs * sfu / SFU_RATE * 1e3}
-    key = max(t, key=t.get)
-    return t[key], key
-
-
-def k1_ops(spec, d):
-    """(fp32, SFU) operations per entry of K1's family form at d: 2d for the
-    difference-form distance, the profile, one FFMA into the row sum. The
-    least work: without the 4 fp32 instructions per exp2 that K1 spends to
-    make its argument exact."""
-    p = spec.family_p
-    prof = {1: (1, 1),                                  # EQ: FMUL, ex2
-            2: (3 + p + (p > 0), 2),                    # MaternP: max, 2 FMUL, Horner, rsqrt, ex2
-            3: (2, 2),                                  # RQ: FFMA, FMUL, lg2, ex2
-            4: (1, 1), 5: (1, 1)}[spec.family]          # Cauchy, IMQ: FFMA, rcp / rsqrt
-    return 2 * d + prof[0] + 1, prof[1]
-
-
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"check failed: {msg}")
@@ -191,72 +171,13 @@ def rel(out, ref):
     return float(torch.linalg.norm(out.double() - ref) / torch.linalg.norm(ref))
 
 
+def roof(work):
+    """(ms, what sets it) of a Work's roofline on this card."""
+    return work.roofline_seconds() * 1e3, work.bound()
+
+
 def cuda_tensor(arr):
     return torch.tensor(arr, dtype=torch.float32, device="cuda")
-
-
-def sync_time(fn):
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    return out, time.perf_counter() - t0
-
-
-def median_ms(fn, reps):
-    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    ts = []
-    for _ in range(reps):
-        e0.record()
-        fn()
-        e1.record()
-        torch.cuda.synchronize()
-        ts.append(e0.elapsed_time(e1))
-    return ts
-
-
-def graph_ms(fn, reps=20, replays=5):
-    """Device time of one call of fn: `reps` calls captured in a CUDA graph,
-    the graph replayed `replays` times between CUDA events; the per-call
-    times of the replays. No host time enters: the wrapper's Python runs
-    once, at capture."""
-    fn()
-    torch.cuda.synchronize()
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for _ in range(reps):
-            fn()
-    g.replay()
-    torch.cuda.synchronize()
-    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    ts = []
-    for _ in range(replays):
-        e0.record()
-        g.replay()
-        e1.record()
-        torch.cuda.synchronize()
-        ts.append(e0.elapsed_time(e1) / reps)
-    del g
-    return ts
-
-
-def kernel_times(kern, plain, reps=20):
-    """(ms of one call between CUDA events, the wrapper's host time
-    included, as the solvers' loops pay it; device ms of a call from CUDA
-    graphs; ms of one plain call), in turns: plain, call, graph, graph,
-    call, plain; medians."""
-    kern(), plain()   # warm-up
-    t = {"plain": [], "call": [], "graph": []}
-    for key in ("plain", "call", "graph", "graph", "call", "plain"):
-        t[key] += graph_ms(kern, reps) if key == "graph" else \
-            median_ms(plain if key == "plain" else kern, 10)
-    return tuple(float(np.median(t[key])) for key in ("call", "graph", "plain"))
 
 
 def phase1_kernels(tk, mvm):
@@ -871,7 +792,7 @@ def k4_times(S, S10, tmvm):
     lib_call, lib_dev = [], []
     for key in ("call", "graph", "graph", "call"):
         (lib_call if key == "call" else lib_dev).extend(
-            median_ms(lib, 10) if key == "call" else graph_ms(lib))
+            event_ms(lib, 10) if key == "call" else graph_ms(lib))
     a10 = cuda_tensor(rng.standard_normal(S10.shape[1]))
     sweep = {}
     for label, op, v in (("phase 11", S, a), ("phase 10", S10, a10)):
@@ -880,12 +801,12 @@ def k4_times(S, S10, tmvm):
             warps[w] += graph_ms(lambda: tmvm.rows_matvec(op.rows, v, warps=w))
         sweep[label] = (slice_warps(op.rows, tmvm), op.rows.ptr.shape[0] - 1,
                         {w: float(np.median(t)) for w, t in warps.items()})
-    bound_bytes = S.nnz * (4 + 4) + (m + n) * 4
+    bound_bytes = tmvm.work_rows(S.nnz, n, m).hbm_bytes
     layout_bytes = int(rs.ptr[-1]) * (4 + rs.val.element_size())
     return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                 library_call_ms=float(np.median(lib_call)),
                 library_ms=float(np.median(lib_dev)), bound_bytes=bound_bytes,
-                bound_ms=bound_bytes / HBM_RATE * 1e3, layout_bytes=layout_bytes,
+                bound_ms=roof(tmvm.work_rows(S.nnz, n, m))[0], layout_bytes=layout_bytes,
                 lib_err=lib_err, sweep=sweep)
 
 
@@ -971,7 +892,7 @@ def phase12_toeplitz(tk, ops, gp, mvm):
     idx = torch.tensor(np.sort(rng.choice(n, 256, replace=False)), device="cuda")
     mvm_err = rel(b[idx], rows64(k, x[idx], x, a))
     check(mvm_err <= TOEPLITZ_BOUND, f"phase 12: FFT MVM rows rel {mvm_err:.3e}")
-    mvm_ms = float(np.median(median_ms(lambda: T @ a, 20)))
+    mvm_ms = float(np.median(event_ms(lambda: T @ a, 20)))
     T64 = ops.gramian(k, g64)
 
     def resid64(v, rhs):
@@ -1019,7 +940,7 @@ def phase12_toeplitz(tk, ops, gp, mvm):
     lev, lev_s = sync_time(lambda: ops.levinson(col, b2))
     lev_res = float(torch.linalg.norm(T2n @ lev - b2) / torch.linalg.norm(b2))
     check(lev_res <= 1e-8, f"phase 12: levinson float64 residual {lev_res:.3e}")
-    lev_ms = median_ms(lambda: ops.levinson(col, b2), 1)[0]
+    lev_ms = event_ms(lambda: ops.levinson(col, b2), 1)[0]
 
     # a non-symmetric grid Gramian: y = x + h/2
     gy = UniformGrid(0.5 / n, 1.0 / n, n, device="cuda", dtype=torch.float32)
@@ -1065,7 +986,7 @@ def phase13_circulant(tk, ops, gp):
     rows_err = rel(b[idx], ops.Gramian(k, x[idx].double(), x.double()) @ a.double())
     check(max(mvm_err, rows_err) <= TOEPLITZ_BOUND,
           f"phase 13: MVM rel {mvm_err:.3e} vs float64 FFT, {rows_err:.3e} vs direct rows")
-    mvm_ms = float(np.median(median_ms(lambda: C @ a, 20)))
+    mvm_ms = float(np.median(event_ms(lambda: C @ a, 20)))
     e0 = torch.zeros(n, device="cuda")
     e0[0] = NOISE
     Cn = ops.CirculantOperator(C.c + e0)
@@ -1119,7 +1040,7 @@ def phase14_kronecker(tk, ops, gp):
     check(mvm_err <= 1e-5 and rows_err <= 1e-12,
           f"phase 14: Kronecker MVM rel {mvm_err:.3e} vs float64, float64 rows "
           f"{rows_err:.3e} vs direct sums")
-    mvm_ms = float(np.median(median_ms(lambda: K @ a, 20)))
+    mvm_ms = float(np.median(event_ms(lambda: K @ a, 20)))
 
     # per-factor Cholesky (jitter 1e-10 x mean diagonal): the factors are
     # numerically singular, so the solve is held to its backward error
@@ -1231,11 +1152,12 @@ def time_k1(mvm, tk, xh, ah, x17, a17):
     itp = kernel_times(lambda: mvm.gramian_matvec_direct(k, xh, xh, ah, spec=interp), plain)
     k17 = lambda: mvm.gramian_matvec_direct(k, x17, x17, a17, spec=spec)
     ms17 = float(np.median(graph_ms(k17, 3, 3)))
-    call17 = float(np.median(median_ms(k17, 3)))
-    fp32, sfu = k1_ops(spec, 3)
+    call17 = float(np.median(event_ms(k17, 3)))
+    prof = mvm.profile_ops(spec)
     return dict(ms=fam[1], call_ms=fam[0], plain_ms=fam[2], interp_ms=itp[1],
-                interp_call_ms=itp[0], ms17=ms17, call17=call17, bound=op_bound(16384 ** 2, fp32, sfu),
-                bound17=op_bound(131072 ** 2, fp32, sfu))
+                interp_call_ms=itp[0], ms17=ms17, call17=call17,
+                bound=roof(mvm.work_direct(16384, 16384, 3, prof)),
+                bound17=roof(mvm.work_direct(131072, 131072, 3, prof)))
 
 
 def cols_text(k1c):
@@ -1541,7 +1463,7 @@ def bh_times(bh, fn, reps, graph_reps):
     and without the far field). Events around each half would hold the
     host's gaps between launches, which are most of a call at n = 65536."""
     fn()
-    call = float(np.median(median_ms(fn, reps)))
+    call = float(np.median(event_ms(fn, reps)))
     dev = float(np.median(graph_ms(fn, graph_reps, 3)))
     return call, dev, bh_without(bh, fn, graph_reps)
 
@@ -1562,7 +1484,7 @@ def bh_pairs(F):
 def bh_text(F, t):
     call, dev, (no_near, no_far) = t
     pn, pf = bh_pairs(F)
-    bound = (pn + pf) / SFU_RATE * 1e3
+    bound = roof(Work(sfu=pn + pf))[0]
     return (f"{pn:.4e} near-field and {pf:.4e} far-field pairs, at one SFU operation a pair "
             f"{bound:.3f} ms ({100 * bound / dev:.2f}% of device); "
             f"MVM {call:.3f} ms a call, {dev:.3f} ms device (graph); device without the near field "
@@ -1860,14 +1782,16 @@ def time_k1_cols(mvm, tk, xh, x17, p=16):
             singles_ms = float(np.median(graph_ms(singles, 1, 5)))
         else:
             dev = float(np.median(graph_ms(kern, 3, 3)))
-            call, plain = float(np.median(median_ms(kern, 3))), None
+            call, plain = float(np.median(event_ms(kern, 3))), None
             singles_ms = float(np.median(graph_ms(singles, 1, 3)))
         check(dev < singles_ms, f"many-column K1 n={n} p={p}: {dev:.4f} ms device, not below "
                                 f"{p} single-column calls ({singles_ms:.4f} ms)")
-        fp32, sfu = k1_ops(spec, 3)
+        work = mvm.work_direct(n, n, 3, mvm.profile_ops(spec), p=p)
+        # beside it the fp32 issue with the 4 instructions an entry that K1
+        # spends on exp2's split argument
         out[n] = dict(call_ms=call, ms=dev, plain_ms=plain, singles_ms=singles_ms, rows=rows,
-                      err=err, abs_err=abs_err, bound=op_bound(n * n, fp32 - 1 + p, sfu),
-                      issue=op_bound(n * n, fp32 - 1 + p + 4, 0))
+                      err=err, abs_err=abs_err, bound=roof(work),
+                      issue=roof(Work(fp32=work.fp32 + 4.0 * n * n)))
     return out
 
 
@@ -1883,17 +1807,6 @@ MATERN_BOUND = 1e-5
 # this of the reference, K1 is held to it at MATERN_BOUND too
 PLAIN_SOUND = 1e-6
 MATERN_NUS = (0.3, 0.5, 1.3, 2.3, 2.5, 3.7, 10.2, 25.0)
-# fp32 instructions and SFU operations of the K_nu routine
-# (csrc/profile_spec.cuh `matern_nu`, `kv_pair`), counted from the source
-# with IEEE division 9 + 1 (rcp and its Newton step), sqrt 5 + 1, expf 4 +
-# 1, exp2f 2 + 1, logf and log2f 20 + 0, sinhf and coshf 15 + 1: the guard,
-# x and its rounding error, the correction and the scaling (value; the jet
-# adds f' and f''), each recurrence step, and the fixed and per-term work of
-# Temme's series and Steed's fraction
-MATERN_OPS = {"value": (45, 3), "jet": (33, 2), "step": (4, 0), "temme": (103, 8),
-              "temme_term": (53, 4), "steed": (54, 4), "steed_term": (43, 3)}
-
-
 def exact_matern(tk, nu):
     """Matern(nu) whose profile is the kernels' method in float64
     (`matern_nu_reference`): the reference the kernels are held to, where
@@ -1907,29 +1820,6 @@ def exact_matern(tk, nu):
     return ExactMatern(nu)
 
 
-def matern_entry_ops(nu, s, jet=False):
-    """(fp32, SFU) operations of the K_nu routine per entry, averaged over
-    the squared distances s of a run (a (bins,) histogram: (centres, counts)),
-    from the terms each entry's x needs (`kv_terms`)."""
-    from cfjax_torch.utils.besselk import kv_terms, matern_nu_table
-
-    centres, counts = s
-    t = matern_nu_table(nu, jet)
-    closed = centres >= max(t[6], 1e-300)     # above the guard's float32 bound
-    terms, small = kv_terms(nu, torch.sqrt(2 * nu * centres))
-    w = counts.double() / counts.sum()
-    n_steps = max(int(t[9]) - 1, 0)
-    out = []
-    for k in (0, 1):
-        per = (MATERN_OPS["value"][k] + (MATERN_OPS["jet"][k] if jet else 0)
-               + n_steps * MATERN_OPS["step"][k]
-               + torch.where(small, MATERN_OPS["temme"][k] + terms * MATERN_OPS["temme_term"][k],
-                             MATERN_OPS["steed"][k] + terms * MATERN_OPS["steed_term"][k]))
-        taylor = 6 if k == 0 else 0    # the guard's polynomial
-        out.append(float(torch.sum(w * torch.where(closed, per, torch.full_like(per, taylor)))))
-    return tuple(out)
-
-
 def pair_histogram(x, y, scale=1.0, bins=4096, block=2048):
     """Histogram of the squared distances s = |x_i - y_j|^2 / scale over
     every pair (on the card, in row blocks), on log-spaced bins from 1e-12
@@ -1941,13 +1831,6 @@ def pair_histogram(x, y, scale=1.0, bins=4096, block=2048):
         idx = torch.bucketize(s.clamp(1e-12, 1e6), edges[1:-1])
         counts += torch.bincount(idx, minlength=bins).double()
     return torch.sqrt(edges[:-1] * edges[1:]), counts
-
-
-def call_and_device_ms(fn, reps=10):
-    """(median ms of one call between CUDA events, host included; device ms
-    of a call from CUDA graphs of 5 calls)."""
-    fn()
-    return float(np.median(median_ms(fn, reps))), float(np.median(graph_ms(fn, 5, 3)))
 
 
 def phase21a_profile(tk, mvm):
@@ -2035,8 +1918,8 @@ def phase21a_headline(tk, mvm):
     _, plain_s = sync_time(lambda: mvm.gramian_matvec_direct_plain(k, x, x, a, block=32))
     mvm.LAUNCHES["direct"] = before   # the timing's launches are not the path's
     hist = pair_histogram(x, x)
-    fp32, sfu = matern_entry_ops(2.3, hist)
-    bound = op_bound(n * n, 2 * 3 + 4 + fp32, sfu)
+    fp32, sfu = matern_nu_ops(2.3, hist)
+    bound = roof(mvm.work_direct(n, n, 3, (fp32, sfu)))
     res.update(call_ms=call, ms=dev, plain_ms=plain_s * 1e3, bound=bound, ops=(fp32, sfu))
     print(f"phase 21a K1 n={n} d=3 N(0, I) (BASELINE config 1's shape), the interpreted "
           f"instance, rows 0..4095: Matern(2.3) rel {res[2.3][0]:.3e} vs float64 plain, {res[2.3][1]:.3e} vs the "
@@ -2074,13 +1957,13 @@ def phase21b_k2(tk, mvm):
     out = mvm.gramian_matvec_expand(k, x, x, a)
     abs_err = float((out.double() - ref).abs().max())
     hist = pair_histogram(x, x, scale=16.0)
-    fp32, sfu = matern_entry_ops(1.3, hist)
+    fp32, sfu = matern_nu_ops(1.3, hist)
     times = {}
     before = mvm.LAUNCHES["expand"]
     for tier in ("highest", "default"):
         call, dev = call_and_device_ms(lambda: mvm.gramian_matvec_expand(k, x, x, a,
                                                                          precision=tier))
-        b = tc_bound(n * n, 2 * d, tier_passes(tier), 5 + fp32, sfu)
+        b = roof(mvm.work_expand(n, n, d, (fp32, sfu), tier_passes(tier)))
         times[tier] = (call, dev, b)
     mvm.LAUNCHES["expand"] = before
     print(f"phase 21b K2 Lengthscale(Matern(1.3), 4) n={n} d={d}, 16 coincident and 16 "
@@ -2144,10 +2027,10 @@ def phase21c_k3(tk, gmvm):
     before = mvm.LAUNCHES["grad"]
     times = {}
     hist = pair_histogram(x, x)
-    fp32, sfu = matern_entry_ops(2.7, hist, jet=True)
+    fp32, sfu = matern_nu_ops(2.7, hist, jet=True)
     for tier in ("highest", "default"):
         call, dev = call_and_device_ms(lambda: gmvm.grad_matvec(k, x, x, A, precision=tier))
-        times[tier] = (call, dev, tc_bound(n * n, 8 * d, tier_passes(tier), 13 + fp32, sfu))
+        times[tier] = (call, dev, roof(gmvm.work_grad(n, n, d, (fp32, sfu), tier_passes(tier))))
     mvm.LAUNCHES["grad"] = before
     print(f"phase 21c K3 GradientKernel(Matern(2.7)) and (Matern(1.5)) n={n} d={d} (config 4's "
           f"shape, coincident and near-coincident pairs): {tier_text(tiers, 'K3')}; against the "
@@ -2191,8 +2074,8 @@ def phase21d_solve(tk, ops, gp, mvm):
     a = cuda_tensor(rng.standard_normal(n))
     call, dev = call_and_device_ms(lambda: mvm.gramian_matvec_direct(k, x, x, a), reps=5)
     mvm.LAUNCHES["direct"] = before + launches
-    fp32, sfu = matern_entry_ops(2.3, pair_histogram(x, x))
-    bound = op_bound(n * n, 2 * 3 + 4 + fp32, sfu)
+    fp32, sfu = matern_nu_ops(2.3, pair_histogram(x, x))
+    bound = roof(mvm.work_direct(n, n, 3, (fp32, sfu)))
     print(f"phase 21d gp_condition Lengthscale(Matern(2.3), 1) n={n} d=3 noise {NOISE}: "
           f"{it} Nystrom-PCG iterations, {launches} K1 launches, {wall:.3f} s (peak "
           f"{peak:.2f} GiB: the Nystrom panel through cfjax's quadrature), float64 residual on "
@@ -2646,6 +2529,187 @@ def phase24(tk, ops, mvm, p3, p7, F18, w18):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 25-26: the north-star demo end to end, and BASELINE's two
+# derivative-MVM rows (paths with no kernel)
+# ---------------------------------------------------------------------------
+
+# phase 26: each row's float32 product against its float64 plain version
+# on the card (relative L2): 5.5x the H100's larger reading, 3.641e-7 for
+# the composite (9.433e-8 for the Hessian; PERF.md)
+DERIV_BOUND = 2e-6
+# phase 25: the demo's v K alpha at n = 2^20 through float32 products, where
+# K alpha cancels ~2.7e6x: the exact mean's miss against its float64 value
+# and the PCG's float64 residual, each over ||y|| on RESIDUAL_ROWS rows.
+# 2.5x the H100's sound readings (7.407e-4 and 8.087e-4, PERF.md); the
+# control, alpha rounded to tf32's 10-bit mantissa (what a one-pass tf32
+# product reads of it), must read above it
+DEMO_F32_BOUND = 2e-3
+
+
+def tf32_round(t):
+    """float32 t rounded to nearest at tf32's 10-bit mantissa."""
+    return ((t.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def phase25_northstar(ops, mvm):
+    """The north-star demo as a user runs it:
+    `cfjax_torch.examples.northstar_demo.main(2^20, quick=True)` on the
+    card, float32 (BASELINE config 5: NUTS on the exact logML of a 4096-point
+    subset, rank-1024 Nystrom PCG through K1, the Barnes-Hut posterior mean
+    at theta 1/2 and the exact one through K1). Checks: the Gramian takes K1
+    (kernel_reason None) and K1 launched at least once a PCG iteration; the
+    solve's float64 residual on RESIDUAL_ROWS rows through K1's plain
+    version, and the exact mean's miss against its float64 value there,
+    both over ||y|| and within DEMO_F32_BOUND (K alpha cancels ~10^6x at
+    l ~ 2.6, so float32 products certify no less: PERF.md), where the same
+    two readings of a tf32-rounded alpha must exceed it; the exact mean's
+    K1 rows against float64 plain (K1_BOUND over v ||K |alpha|||); the
+    Barnes-Hut mean on 16 of those rows within BH_N6_ERR of them over the
+    same norm; the chain's accept-stat in [0.5, 1]; the exact mean's RMSE
+    below the noise. The Barnes-Hut mean's RMSE is printed, not checked:
+    the treecode's error times K alpha's cancellation (the demo's
+    docstring). The stage walls are warm: phases 1-24 ran in this process
+    (a fresh process's are in PERF.md)."""
+    from cfjax_torch.examples import northstar_demo as demo
+
+    pcg, solve = {}, demo.solve
+
+    def counted_solve(*args, **kw):
+        before = dict(mvm.LAUNCHES)
+        out = solve(*args, **kw)
+        pcg.update({key: mvm.LAUNCHES[key] - before[key] for key in before})
+        return out
+
+    demo.solve = counted_solve
+    try:
+        (rmse, walls, parts), wall = sync_time(lambda: demo.main(1 << 20, quick=True))
+    finally:
+        demo.solve = solve
+    x, y, _, _ = parts["data"]
+    chain, sol, bh, mean = parts["chain"], parts["solve"], parts["bh"], parts["mean"]
+    n, it, v, s2 = x.shape[0], sol["iters"], chain["v_hat"], demo.NOISE ** 2
+    relres = sol["res"] / float(torch.linalg.norm(y))
+    check(sol["G"].kernel_reason is None,
+          f"phase 25: the Gramian declines K1: {sol['G'].kernel_reason}")
+    check(relres <= 1e-4 and pcg["direct"] >= it,
+          f"phase 25: PCG relres {relres:.3e} after {it} iterations, {pcg['direct']} K1 launches")
+    check(0.5 <= chain["astat"] <= 1.0, f"phase 25: NUTS accept-stat {chain['astat']:.3f}")
+    check(bool(torch.isfinite(mean).all() and torch.isfinite(bh["mean"]).all()),
+          "phase 25: a posterior mean is not finite")
+    check(rmse < demo.NOISE, f"phase 25: the exact mean's RMSE {rmse:.4f} >= the noise")
+    rows = torch.as_tensor(np.random.default_rng(25).choice(n, RESIDUAL_ROWS, replace=False),
+                           device="cuda")
+    k, alpha = sol["k"], sol["alpha"]
+    Ka64, r64 = relres64(k, x, y, v * alpha, s2 / v, rows, mvm)
+    mags64 = v * plain_rows(k, x, alpha.abs(), rows, mvm)
+    # what float32 products can certify where K alpha cancels: the mean's
+    # miss and the true residual, against a control that rounds alpha to tf32
+    ynorm = torch.linalg.norm(y[rows].double())
+    miss = float(torch.linalg.norm(mean[rows].double() - Ka64) / ynorm)
+    Kc64, rc64 = relres64(k, x, y, v * tf32_round(alpha), s2 / v, rows, mvm)
+    miss_c = float(torch.linalg.norm(Kc64 - Ka64) / ynorm)
+    del Kc64
+    for what, sound, ctl in (("the exact mean's miss", miss, miss_c),
+                             ("the PCG's float64 residual", r64, rc64)):
+        check(sound <= DEMO_F32_BOUND < ctl,
+              f"phase 25: {what} on {RESIDUAL_ROWS} rows {sound:.3e} of ||y||, the tf32 "
+              f"control's {ctl:.3e}: not <= {DEMO_F32_BOUND:.0e} < the control")
+    idx = rows[:16]
+    ref64, mag64 = Ka64[:16], mags64[:16]     # relres64 took v alpha
+    k1_err, k1_abs = k1_against_plain("phase 25: the exact mean's 16 rows", mean[idx], ref64,
+                                      mag64)
+    bh_err = float(torch.linalg.norm(bh["mean"][idx].double() - mean[idx].double())
+                   / torch.linalg.norm(mag64))
+    check(bh_err <= BH_N6_ERR, f"phase 25: Barnes-Hut mean vs K1's rows {bh_err:.3e} of "
+                               f"v ||K |alpha||| > {BH_N6_ERR}")
+    can = cancels(Ka64, mags64)
+    del Ka64, mags64
+    stages = ", ".join(f"{key[:-2]} {t:.3f} s" for key, t in walls.items())
+    print(f"phase 25 the north-star demo, main(2^20, quick=True) (BASELINE config 5, float32 "
+          f"on the card): {wall:.1f} s; stages {stages}; NUTS {chain['evals']} evaluations, "
+          f"accept-stat {chain['astat']:.3f}, l {chain['l_hat']:.4f} (sd of log l "
+          f"{chain['l_sd']:.4f}), v {v:.4f}; PCG {it} iterations, relres {relres:.3e}, float64 "
+          f"residual on {RESIDUAL_ROWS} rows {r64:.3e} and the exact mean's miss {miss:.3e} of ||y|| "
+          f"(bound {DEMO_F32_BOUND:.0e}; K alpha cancels {can:.1f}x there; the tf32 control "
+          f"{rc64:.3e} and {miss_c:.3e}), K1 launches during the "
+          f"PCG {pcg['direct']} | {ops.explain(k, x)}; RMSE vs the true field: exact mean "
+          f"(K1) {rmse:.4f} (bound {demo.NOISE}), Barnes-Hut mean {parts['rmse_bh']:.4f} "
+          f"(reported: K alpha cancels {cancels(ref64, mag64):.1f}x on 16 rows; the treecode's "
+          f"error there {bh_err:.3e} of v ||K |alpha||| (bound {BH_N6_ERR:.0e}), "
+          f"{rel(bh['mean'][idx], mean[idx].double()):.3e} of the mean; max_open "
+          f"{bh['F'].max_open}); K1's rows vs float64 plain {k1_err:.3e} of v ||K |alpha|||",
+          flush=True)
+    return dict(wall=wall, walls=walls, k1_abs=k1_abs, pcg_launches=pcg["direct"], iters=it,
+                r64=r64, miss=miss, rmse=rmse, rmse_bh=parts["rmse_bh"], astat=chain["astat"])
+
+
+def phase26_derivative_rows(tk, ops):
+    """BASELINE.md's two derivative-MVM rows on the card, float32, through
+    the paths a user gets (no kernel: K3 takes iso / dot gradient gramians
+    only): HessianKernel(EQ()).gramian(x), n = 128, d = 16, v of n d^2
+    (run_baseline.py:391-401), and GradientKernel(MaternP(2) + Line(1)^2 +
+    NN(0.1)), n = d = 1024, the "pair" mode (run_baseline.py:375-387),
+    x ~ N(0, I). Each: its route, ms a call and device ms (CUDA graphs),
+    the peak memory of a call above its inputs, the error against the
+    float64 product on the card (at DERIV_BOUND), and the share of the
+    least work (`work_hessian_mvm`, `work_gradient_mvm`: cfjax's
+    benchmark counts on this card), which `summarize` must call valid.
+    The composite is timed with its hyperparameters moved to the card (a
+    CUDA graph cannot copy them from the host) and, a call, as a user
+    builds it, its hyperparameters on the host."""
+    from cfjax_torch.derivative import GradientKernel, HessianKernel
+    from cfjax_torch.derivative.gradient import work_gradient_mvm
+    from cfjax_torch.derivative.hessian import work_hessian_mvm
+
+    rng = np.random.default_rng(26)
+    xh = cuda_tensor(rng.standard_normal((128, 16)))
+    xc = cuda_tensor(rng.standard_normal((1024, 1024)))
+    # the hyperparameters on the card: a CUDA graph cannot copy them from the host
+    composite = (tk.MaternP(2) + tk.Line(1.0) ** 2 + tk.NN(0.1)).to("cuda")
+    cases = (("HessianKernel(EQ) n=128 d=16", HessianKernel(tk.EQ()), xh, 128 * 16 * 16,
+              work_hessian_mvm(128, 16)),
+             ("GradientKernel(MaternP(2) + Line(1)^2 + NN(0.1)) n=d=1024",
+              GradientKernel(composite), xc, 1024 * 1024, work_gradient_mvm(1024, 1024)))
+    out = {}
+    for label, mk, x, size, work in cases:
+        v = cuda_tensor(rng.standard_normal(size))
+        G = ops.gramian(mk, x)
+        route = f"{ops.explain(mk, x)}; mode {G.mode}, plain torch"
+        b = G @ v
+        ref = ops.gramian(mk, x.double()) @ v.double()
+        err = rel(b, ref)
+        check(bool(torch.isfinite(b).all()) and err <= DERIV_BOUND,
+              f"phase 26: {label}: relative error {err:.3e} against float64 > {DERIV_BOUND:.0e}")
+        del ref
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        G @ v
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        call, dev = call_and_device_ms(lambda: G @ v)
+        summ = summarize(work, dev / 1e3)
+        check(summ["valid"], f"phase 26: {label}: {summ.get('why')}")
+        ms, by = roof(work)
+        out[label] = dict(call_ms=call, ms=dev, err=err, peak_mib=peak, bound_ms=ms,
+                          pct=summ["roofline_pct"])
+        print(f"phase 26 {label}: {route} | {call:.4f} ms a call ({dev:.4f} ms device), "
+              f"peak {peak:.1f} MiB above the inputs, rel {err:.3e} vs float64 (bound "
+              f"{DERIV_BOUND:.0e}); least work {ms:.5f} ms ({by}) = "
+              f"{summ['roofline_pct']:.3f}% of device (valid)", flush=True)
+    # the composite as a user builds it (the loop's last row): each call
+    # copies the host-held hyperparameters to the card
+    Gh = ops.gramian(GradientKernel(tk.MaternP(2) + tk.Line(1.0) ** 2 + tk.NN(0.1)), x)
+    err = rel(Gh @ v, b.double())
+    check(err <= DERIV_BOUND, f"phase 26: the host-held composite against the moved one {err:.3e}")
+    host = float(np.median(event_ms(lambda: Gh @ v, 5)))
+    out[label]["host_call_ms"] = host
+    print(f"phase 26 the composite as built, hyperparameters on the host: {host:.4f} ms a call "
+          f"({out[label]['call_ms']:.4f} with them on the card), rel {err:.3e} to it", flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2765,22 +2829,24 @@ def main():
         far = float(np.median(graph_ms(lambda: gmvm.grad_matvec(k, xx, yy, A))))
         near[key] = (times[key][1], far, near_pairs(xx, xx, gmvm.NEAR_TAU),
                      near_pairs(xx, yy, gmvm.NEAR_TAU))
-    # bounds. K1 by its family's least operations (SFU), and beside it its
-    # fp32 issue with the 4 instructions an entry of exp2's split argument.
-    # K2 / K3 on the tensor cores: 2 d flops an entry (x.y) / 8 d a pair
-    # (four products) at the tier's passes, against the per-entry fp32 and
-    # SFU work: K2 the expansion (FADD, FFMA, FMNMX), EQ (FMUL, ex2), the row
-    # sum's FFMA; K3 the expansion and tau test (4), w (1), alpha, beta and
-    # rowsum(beta) (4), clamp (1), and the jet: EQ 3 fp32 + 1 SFU, MaternP(2)
-    # 11 + 3 (rsqrt, ex2, rcp). Beside them the CUDA-core bound of the fp32
-    # kernel's count: K2 d FFMA + 5 fp32 + 1 SFU an entry, K3 9 d flops a pair.
-    fp32_k1, sfu_k1 = k1_ops(to_spec(tk.MaternP(2))[0], 3)
-    k1_issue = op_bound(131072 ** 2, fp32_k1 + 4, 0)
-    tcb = {"expand": lambda ps: tc_bound(16384 ** 2, 2 * 64, ps, 5, 1),
-           "grad": lambda ps: tc_bound(4096 ** 2, 8 * 16, ps, 13, 1),
-           "grad8": lambda ps: tc_bound(1024 ** 2, 8 * 1024, ps, 21, 3)}
-    core = {"expand": op_bound(16384 ** 2, 64 + 5, 1), "grad": op_bound(4096 ** 2, 4.5 * 16),
-            "grad8": op_bound(1024 ** 2, 4.5 * 1024)}
+    # bounds: each kernel's function's least work (`work_direct`,
+    # `work_expand`, `work_grad`, `work_rows` beside the wrappers). K1 by its
+    # family's least operations (SFU), and beside it its fp32 issue with the
+    # 4 instructions an entry of exp2's split argument. K2 / K3 on the tensor
+    # cores at the tier's passes, against their fp32 and SFU work. Beside
+    # them the CUDA-core bound of the fp32 kernel's count: K2 d FFMA + 5 fp32
+    # + 1 SFU an entry, K3 9 d flops a pair.
+    work_k1 = mvm.work_direct(131072, 131072, 3, mvm.profile_ops(to_spec(tk.MaternP(2))[0]))
+    k1_issue = roof(Work(fp32=work_k1.fp32 + 4.0 * 131072 ** 2))
+    eq_value = mvm.profile_ops(to_spec(k2)[0])
+    eq_jet = gmvm.jet_ops(to_spec(keq, derivative=True)[0])
+    m2_jet = gmvm.jet_ops(to_spec(km2, derivative=True)[0])
+    tcb = {"expand": lambda ps: roof(mvm.work_expand(16384, 16384, 64, eq_value, ps)),
+           "grad": lambda ps: roof(gmvm.work_grad(4096, 4096, 16, eq_jet, ps)),
+           "grad8": lambda ps: roof(gmvm.work_grad(1024, 1024, 1024, m2_jet, ps))}
+    core = {"expand": roof(Work(fp32=16384 ** 2 * (64 + 5), sfu=16384 ** 2)),
+            "grad": roof(Work(fp32=4096 ** 2 * 4.5 * 16)),
+            "grad8": roof(Work(fp32=1024 ** 2 * 4.5 * 1024))}
     bounds = {"direct": k1t["bound"], "direct_cols": k1c[16384]["bound"]}
     for key in tcb:
         bounds[key] = tcb[key](tier_passes("highest"))
@@ -2814,7 +2880,7 @@ def main():
           f"{k1t['bound17'][0]:.3f} ms ({k1t['bound17'][1]}) = "
           f"{100 * k1t['bound17'][0] / k1t['call17']:.1f}% of a call "
           f"({100 * k1t['bound17'][0] / k1t['ms17']:.1f}% of device), fp32-issue bound with "
-          f"exp2's split argument ({fp32_k1 + 4} fp32 an entry) {k1_issue[0]:.3f} ms = "
+          f"exp2's split argument ({work_k1.fp32 / 131072 ** 2 + 4:.0f} fp32 an entry) {k1_issue[0]:.3f} ms = "
           f"{100 * k1_issue[0] / k1t['ms17']:.1f}% of device | many-column K1 MaternP(2) d=3 "
           f"p=16: {cols_text(k1c)} | K2 Lengthscale(EQ, 4) n=16384 "
           f"d=64: {tier_line('expand')} | K3 EQ n=4096 d=16: {tier_line('grad')} | K3 "
@@ -2867,7 +2933,7 @@ def main():
     # ---- phase 5 (K4): at phase 11's operator ----
     k4 = k4_times(p11["S"], p10["S"], tmvm)
     times["tile_ell"] = (k4["call_ms"], k4["ms"], k4["plain_ms"])
-    bounds["tile_ell"] = (k4["bound_ms"], "bytes")
+    bounds["tile_ell"] = (k4["bound_ms"], "HBM")
     gbs = k4["bound_bytes"] / k4["ms"] / 1e6
     sweep = "; ".join(f"{label} ({slices} slices, {w} by the rule): " + " / ".join(
         f"{t[v]:.4f}" for v in (1, 2, 4, 8)) + " ms device"
@@ -2972,10 +3038,22 @@ def main():
     launches["direct"] += l24["direct"]
     launches["grad"] += l24["grad"]
 
+    # ---- phase 25: the north-star demo: counts from here to its end ----
+    for key in mvm.LAUNCHES:
+        mvm.LAUNCHES[key] = 0
+    p25 = phase25_northstar(ops, mvm)
+    check(mvm.LAUNCHES["direct"] > 0, "kernel 'direct' was not launched on the demo's path")
+    launches["direct"] += mvm.LAUNCHES["direct"]
+    print(f"phase 25 demo path: K1 launches {mvm.LAUNCHES['direct']}", flush=True)
+
+    # ---- phase 26: the BASELINE derivative rows (no kernel) ----
+    phase26_derivative_rows(tk, ops)
+
     # at "highest", the configured tier
     meta = {"direct": ("K1 gramian_matvec_direct", "cfjax_torch/csrc/gramian_mvm.cu",
                        "cfjax/ops/pallas_mvm.py:253",
-                       max(p1["direct"][2], k1_bh, k1_21, p21h[2.3][2], p21h[2.5][2]), None),
+                       max(p1["direct"][2], k1_bh, k1_21, p21h[2.3][2], p21h[2.5][2],
+                           p25["k1_abs"]), None),
             "direct_cols": ("K1 gramian_matmat_direct (many columns, p=16)",
                             "cfjax_torch/csrc/gramian_mvm.cu", "cfjax/ops/pallas_mvm.py:253",
                             max([p1["cols"][2]] + [t["abs_err"] for t in k1c.values()]), None),
@@ -3003,7 +3081,7 @@ def main():
          "replaces": meta[key][2], "launches": launches[key], "max_abs_err": meta[key][3],
          "ms": times[key][0], "device_ms": times[key][1], "plain_ms": times[key][2],
          "bound_ms": bounds[key][0],
-         "bound_by": "bytes" if bounds[key][1] == "bytes" else "operations",
+         "bound_by": "bytes" if bounds[key][1] == "HBM" else "operations",
          "library_ms": None if meta[key][4] is None else meta[key][4][0],
          "library_device_ms": None if meta[key][4] is None else meta[key][4][1]}
         for key in meta]}))

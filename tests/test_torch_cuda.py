@@ -44,7 +44,8 @@ def test_port_import_loads_no_jax():
             " cfjax_torch.derivative, cfjax_torch.utils.linalg, cfjax_torch.barneshut,"
             " cfjax_torch.operators.sparse_op, cfjax_torch.operators.tile_ell,"
             " cfjax_torch.gp.hmc, cfjax_torch.utils.besselk, cfjax_torch.operators.woodbury,"
-            " cfjax_torch.parallel, cfjax_torch.parallel.dryrun;"
+            " cfjax_torch.parallel, cfjax_torch.parallel.dryrun, cfjax_torch.utils.timing,"
+            " cfjax_torch.utils.roofline, cfjax_torch.examples.northstar_demo;"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'cfjax.'))];"
             "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=PACKAGE.parent,
@@ -829,3 +830,49 @@ def test_sharded_shards_run_k1_and_k3_on_four_ranks():
         assert rank["reasons"] == [None, None]
         assert rank["launches"]["direct"] == 2 and rank["launches"]["grad"] == 1
     assert max(out["errors"]) <= 1e-5
+
+
+@needs_gpu
+def test_timing_on_a_cuda_matvec():
+    """graph_ms and time_chained on a CUDA matvec: positive device times,
+    a slope of the order of one call's device time."""
+    from cfjax_torch.utils.timing import graph_ms, time_chained
+
+    A = torch.randn(4096, 4096, device="cuda")
+    v = torch.randn(4096, device="cuda")
+    dev = float(np.median(graph_ms(lambda: A @ v, 20, 5)))
+    slope = time_chained(lambda w: A @ w, v, repeats=3, time_budget=30.0)
+    assert dev > 0 and slope > 0
+    assert slope < 100 * dev * 1e-3
+
+
+@needs_gpu
+def test_northstar_demo_on_the_card():
+    """The demo's quick pipeline at n = 2^14 on the card: the Gramian takes
+    K1 and the PCG launches it, and the exact mean's RMSE is below the
+    noise."""
+    from cfjax_torch.examples import northstar_demo as demo
+
+    before = mvm.LAUNCHES["direct"]
+    rmse, walls, parts = demo.main(1 << 14, quick=True, device="cuda")
+    sol = parts["solve"]
+    assert sol["G"].kernel_reason is None
+    assert mvm.LAUNCHES["direct"] - before >= sol["iters"] + 1
+    assert rmse < demo.NOISE and parts["mean"].is_cuda
+    assert 0.5 <= parts["chain"]["astat"] <= 1.0 and all(t > 0 for t in walls.values())
+
+
+@needs_gpu
+def test_slq_logdet_without_a_device_draws_on_the_operators_card():
+    """slq_logdet with a CUDA operator, no device and no parameters: the
+    probes go to the configured device, the card, and the estimate is the
+    logdet's."""
+    from cfjax_torch.operators.slq import slq_logdet
+
+    K = (2.0 * torch.eye(64, device="cuda")).double()
+    est = slq_logdet(lambda params, V: K @ V, 64, 4, 8, 1e-6, 50, (), dtype=torch.float64)
+    assert est.is_cuda and abs(float(est) - 64 * np.log(2.0)) <= 1e-10
+    l = torch.tensor(1.0, dtype=torch.float64, device="cuda")
+    est = slq_logdet(lambda params, V: params[0] * (K @ V), 64, 4, 8, 1e-6, 50, (l,),
+                     dtype=torch.float64)
+    assert est.is_cuda

@@ -170,7 +170,8 @@ def test_slq_probe_chunking_matches_full(rng, monkeypatch):
 
     def est():
         return float(t_slq.slq_logdet(mv, n, 8, 24, 1e-6, 200, (),
-                                      torch.Generator().manual_seed(7), dtype=F64))
+                                      torch.Generator().manual_seed(7), dtype=F64,
+                                      device="cpu"))
 
     full = est()
     monkeypatch.setattr(t_slq, "_probe_chunk", lambda n_, p_, it_: 2)   # four chunks
@@ -184,6 +185,32 @@ def test_probe_chunk_caps_the_basis():
     assert t_slq._probe_chunk(1000, 16, 48) == j_slq._probe_chunk(1000, 16, 48) == 16
     for n in (1 << 17, 1 << 20, 10 ** 6):
         assert t_slq._probe_chunk(n, 16, 48) == j_slq._probe_chunk(n, 16, 48)
+
+
+def test_slq_logdet_probes_follow_params_then_the_configured_device(monkeypatch):
+    """Without a device, the probes go to the device of the first tensor
+    among the parameters, else to the configured default, never to a fixed
+    CPU (a "meta" default stands in for the card here)."""
+    seen = []
+    real = t_slq._rademacher
+
+    def spy(generator, n, probes, dtype, device):
+        seen.append(torch.device(device))
+        return real(generator, n, probes, dtype, torch.device("cpu"))
+
+    monkeypatch.setattr(t_slq, "_rademacher", spy)
+    K = 2.0 * torch.eye(8, dtype=F64)
+    mv = lambda params, V: K @ V
+    shipped = cfjax_torch.config.DEFAULT.device
+    try:
+        cfjax_torch.set_config(device="meta")
+        for params in ((), (torch.tensor(1.0, dtype=F64),)):
+            est = t_slq.slq_logdet(mv, 8, 2, 4, 1e-6, 50, params,
+                                   torch.Generator().manual_seed(0), dtype=F64)
+            np.testing.assert_allclose(float(est), 8 * np.log(2.0), rtol=1e-12)
+    finally:
+        cfjax_torch.set_config(device=shipped)
+    assert seen == [torch.device("meta"), torch.device("cpu")]
 
 
 def test_rademacher_draws_signs_from_the_generator():
@@ -205,7 +232,7 @@ def test_slq_gradient_matches_jax_grad(points, patch_probes, solver_iters):
     gj = jax.grad(lambda p: j_slq.slq_logdet(mv_j, N, 16, 30, 1e-10, 1000, p, key))(
         (jnp.asarray(0.9), jnp.asarray(NOISE)))
     l, nz = _leaf(0.9), _leaf(NOISE)
-    est = t_slq.slq_logdet(mv_t, N, 16, 30, 1e-10, 1000, (l, nz), dtype=F64)
+    est = t_slq.slq_logdet(mv_t, N, 16, 30, 1e-10, 1000, (l, nz), dtype=F64, device="cpu")
     gt = torch.autograd.grad(est, (l, nz))
     for out, ref in zip(gt, gj):
         np.testing.assert_allclose(float(out), float(ref), rtol=1e-6)
