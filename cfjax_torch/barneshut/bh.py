@@ -35,6 +35,7 @@ import torch
 from .. import config as _config
 from ..kernels.base import InputTrait, input_trait
 from ..kernels.derivatives import elementwise_derivatives
+from ..kernels.parameters import to_points
 from ..operators.linop import LinearOperator
 from ..ops.tiles import matmul_p, sqdist_tile
 from .tree import BalancedTree, _build_tree_device, build_tree
@@ -357,9 +358,10 @@ class BarnesHutFactorization(LinearOperator):
 
         if input_trait(k) != InputTrait.ISOTROPIC:
             raise ValueError("Barnes-Hut requires an isotropic kernel")
-        self.k = k
         xp = as_points(x)
         yp = xp if y is None else as_points(y)
+        # the hyperparameters on the points' device and dtype, once
+        self.k = to_points(k, yp)
         self._same = y is None
         self.theta = _config.DEFAULT.barneshut_theta if theta is None else theta
         self.order = order

@@ -30,7 +30,7 @@
 // edges are bounds-checked in the kernels; nothing is padded in memory.
 
 #include "profile_spec.cuh"
-#include "tc_tile.cuh"   // cp.async helpers
+#include "tc_tile.cuh"   // cp.async helpers, the tf32 splits and mma.sync
 
 #include <type_traits>
 
@@ -179,6 +179,9 @@ extern "C" int k1_gramian_matvec_direct(const float* x, const float* y, const fl
 // d <= D: coordinates past d are zero in x's registers and in the staged
 // tile, and add exactly 0 to the distance, so six instances of D (1, 2,
 // 3, 4, 8, 16) cover every d <= 16.
+//
+// The real-nu Matern family's instance copies the table of nu (16 KB) into
+// shared memory at the start of each block.
 
 constexpr int KF_THREADS = 256;
 constexpr int KF_WARPS = KF_THREADS / 32;
@@ -219,7 +222,7 @@ constexpr int KF_GROUP = 4;   // steps (of KF_V columns) per compensated partial
 template <int D, int FAM, int P, bool RAGGED>
 __device__ __forceinline__ void kf_tile(const float* buf, const float (&xr)[KF_R][D],
                                         float (&acc)[KF_R], float (&comp)[KF_R], int cnt,
-                                        const FamilyConsts& fc) {
+                                        const FamilyConsts& fc, const float4* tab) {
     constexpr int DP = KfShape<D>::DP, TN = KfShape<D>::TN;
     constexpr int STEPS = TN / (KF_WARPS * KF_V);   // a warp's steps in a tile: 4, 8 or 16
     static_assert(STEPS % KF_GROUP == 0, "a tile holds whole groups of steps");
@@ -261,7 +264,7 @@ __device__ __forceinline__ void kf_tile(const float* buf, const float (&xr)[KF_R
                         const float t = xr[r][k] - yc[k];
                         s = fmaf(t, t, s);
                     }
-                    float f = family_value<FAM, P>(s, fc);
+                    float f = family_value<FAM, P>(s, fc, tab);
                     if (RAGGED && j + v >= cnt) f = 0.f;   // IMQ(c = 0) is inf at s = 0
                     st[r] = fmaf(f, av, st[r]);
                 }
@@ -280,13 +283,16 @@ template <int D, int FAM, int P>
 __global__ void __launch_bounds__(KF_THREADS, 2)
 k1_family(const float* __restrict__ x, const float* __restrict__ y, const float* __restrict__ a,
           float* __restrict__ partial, int n, int m, int d, int cols_per_split,
-          const __grid_constant__ FamilyConsts fc) {
+          const __grid_constant__ FamilyConsts fc, const float4* __restrict__ tab) {
     constexpr int DP = KfShape<D>::DP, TN = KfShape<D>::TN;
     __shared__ __align__(16) float ybuf[2][TN * DP];
     __shared__ float red[KF_WARPS][KF_BM];
+    __shared__ float4 mtab[FAM == FAM_MATERN_NU ? MATERN_KNOTS : 1];
 
     // the padding slots of both buffers stay zero; cp.async fills the rest
     for (int t = threadIdx.x; t < 2 * TN * DP; t += KF_THREADS) (&ybuf[0][0])[t] = 0.f;
+    if constexpr (FAM == FAM_MATERN_NU)
+        for (int t = threadIdx.x; t < MATERN_KNOTS; t += KF_THREADS) mtab[t] = tab[t];
     __syncthreads();
 
     const int lane = threadIdx.x & 31;
@@ -323,9 +329,9 @@ k1_family(const float* __restrict__ x, const float* __restrict__ y, const float*
         }
         __syncthreads();   // tile t has landed for every thread
         if (cnt == TN)
-            kf_tile<D, FAM, P, false>(ybuf[t & 1], xr, acc, comp, cnt, fc);
+            kf_tile<D, FAM, P, false>(ybuf[t & 1], xr, acc, comp, cnt, fc, mtab);
         else
-            kf_tile<D, FAM, P, true>(ybuf[t & 1], xr, acc, comp, cnt, fc);
+            kf_tile<D, FAM, P, true>(ybuf[t & 1], xr, acc, comp, cnt, fc, mtab);
         __syncthreads();   // tile t is consumed before tile t + 2 overwrites it
     }
 #pragma unroll
@@ -348,222 +354,259 @@ k1_family(const float* __restrict__ x, const float* __restrict__ y, const float*
 // ---------------------------------------------------------------------------
 //
 // `k1_gramian_matmat_family` is the counterpart, on the card, of cfjax's
-// multi-RHS product (cfjax/operators/gramian.py `Gramian._matmat`, which
-// stays on XLA's blocked path): the SLQ probe batches (Lanczos, then
-// `cg_columns`) push p = 16 columns through every product. The profile of
-// each (x_i, y_j) pair is evaluated once, in registers, and contracted into
-// C columns of A.
+// multi-RHS product (cfjax/operators/gramian.py `Gramian._matmat`, XLA's
+// blocked `kernel_tile @ V` at the configured matmul precision): the SLQ
+// probe batches (Lanczos, then `cg_columns`) push p = 16 columns through
+// every product. Each entry's profile is evaluated once, on the CUDA cores
+// and the SFU as in `k1_family`; the contraction into A's columns runs on
+// the tensor cores (mma.sync.m16n8k8 tf32, tc_tile.cuh), at the tier's
+// passes (PASSES: 3 for "highest" and "high", 1 for "default").
 //
-// What bounds it: fp32 issue. An entry costs 2d for the distance, the
-// profile (MaternP(2): 6 fp32 + 4 for exp2's split argument, 2 MUFU) and C
-// FFMAs into the row sums, plus a Kahan step (4) per column and 16 entries:
-// at d = 3, C = 16 about 36 fp32 instructions against 2 MUFU, so the SFU,
-// K1's limit at one column, is idle half the time.
+// What bounds it: its least work is the profile's SFU operations, as the
+// single-column K1's (MaternP(2): 2 MUFU an entry against 2d + 6 fp32),
+// once the product is off the CUDA cores: 2p flops an entry a pass is a
+// third of the SFU's time at p = 16 and three passes, at the tensor cores'
+// dense rate. On the card the mma.sync passes add to the CUDA-core work
+// rather than hide under it: "default" (one pass) runs well below
+// "highest" (three), PERF.md. Products with FFMAs (16 an entry) and 32
+// compensated sums a thread would make it fp32-issue and latency bound.
 //
-// Register tiles. Thread (warp w, lane l) owns rows l + 32 r (r < R = 2)
-// and, for each, C = 16 sums with their compensation and their group sum:
-// 96 registers. Warp w takes columns w * 4 + 16 q .. + 3 of each staged
-// tile; a column's y and its C entries of A lie together in shared memory
-// and every lane of a warp reads them by broadcast (16-byte loads).
+// Fragments. Warp w owns MT m-tiles of 16 rows (two at d <= 3: a staged
+// column's y and B fragments serve 32 rows; 128 registers a thread, two
+// blocks of 8 warps an SM) and sweeps every column of its split. For a
+// k-step of 8 staged columns, lane (g, t) evaluates f(s) at exactly the
+// four A-operand positions it holds in each m-tile, rows g and g + 8
+// against columns t and t + 4, so the kernel tile never passes through
+// shared memory; f (times the Constant, so that a tier rounds the
+// profile's values) is split into tf32 pieces there (split_a) and
+// multiplied against the two n-tiles (16 columns of A) of the step, pass
+// by pass over the m-tiles and n-tiles.
 //
-// Occupancy. An instance holds 146-244 registers a thread (ptxas, H100),
-// so the SM's 64K registers hold few threads: blocks of 4 warps let three
-// blocks (12 warps) share an SM at <= 170 registers, where blocks of 8
-// warps fit one. At n = 2^17, p = 16 that cut the device time by a fifth
-// (PERF.md): the kernel is bound by latency more than by issue.
+// Staging. A tile of TN columns: y by cp.async, double buffered; A's TN x
+// 16 values loaded into registers a tile ahead, then split into tf32
+// pieces once for the block and stored in B-fragment order (one 16-byte
+// load a lane an n-tile and step, no conflicts). The y reads are
+// broadcasts: the 8 lanes of one t read one column.
 //
-// Chunks. Columns of A past C run as further chunks over gridDim.z, each
-// evaluating the profile again; a chunk's columns past p (all of them past
-// the first p when p < C) are zero-filled in the staged tile and never
-// written. Splits over gridDim.y and their fixed-order sum are K1's.
+// Sums. The mma accumulators (MT x 2 x 4 a thread) take a tile's TN / 8
+// steps; then they are added into compensated (Kahan) row sums, once a
+// tile. Each output (row, column) belongs to one thread: no reduction
+// across warps, no atomics. Splits over gridDim.y and their fixed-order
+// sum are K1's; chunks of 16 columns of A run over gridDim.z, each
+// evaluating the profile again; columns past p are zero in the staged
+// fragments and never written.
 
-constexpr int KM_THREADS = 128;
-constexpr int KM_WARPS = KM_THREADS / 32;
-constexpr int KM_V = 4;        // columns per step of a warp
-constexpr int KM_GROUP = 4;    // steps per compensated partial sum
-constexpr int KM_C = 16;       // columns of A per chunk
+constexpr int KT_THREADS = 256;
+constexpr int KT_WARPS = KT_THREADS / 32;
+constexpr int KT_C = 16;            // columns of A a chunk
+constexpr int KT_NT = KT_C / 8;     // n-tiles a chunk
 
 template <int D>
-struct KmShape {
-    static constexpr int C = KM_C;
-    static constexpr int R = 32 / C;                  // rows per thread
-    static constexpr int BM = 32 * R;                 // rows per block
-    static constexpr int DY = (D + 3) / 4 * 4;        // y's floats per staged column
-    static constexpr int S = DY + C;                  // floats per staged column
-    static constexpr int TN = S <= 20 ? 256 : 128;    // columns per staged tile: <= 40 KB
+struct KtShape {
+    static constexpr int MT = D <= 3 ? 2 : 1;            // m-tiles (16 rows) a warp
+    static constexpr int BM = KT_WARPS * 16 * MT;        // rows a block
+    static constexpr int DY = (D + 3) / 4 * 4;           // y's floats a staged column
+    static constexpr int TN = D <= 8 ? 128 : 64;         // columns a staged tile
+    static constexpr int KS = TN / 8;                    // k-steps a tile
+    static constexpr int AV = TN * KT_C / KT_THREADS;    // A's values a thread stages
+    static constexpr int MIN_BLOCKS = D <= 8 ? 2 : 1;   // 128 registers a thread at D <= 8
 };
 
-// stage columns j0 .. j0 + cnt of y (d coordinates) and of A's columns
-// c0 .. c0 + C into buf; the rest of the tile, and A's columns past p, are
-// zero-filled
-template <int D>
-__device__ __forceinline__ void km_stage(float* buf, const float* y, const float* A, int j0,
-                                         int cnt, int d, int p, int c0) {
-    using Sh = KmShape<D>;
-    constexpr int C = Sh::C;
-    for (int j = threadIdx.x; j < Sh::TN; j += KM_THREADS) {
-        const bool live = j < cnt;
-        const size_t jg = live ? (size_t)(j0 + j) : 0;
-        float* dst = buf + j * Sh::S;
-#pragma unroll
-        for (int k = 0; k < D; ++k)
-            if (k < d) cp_async4(dst + k, y + jg * d + k, live);
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-            const bool on = live && c0 + c < p;
-            cp_async4(dst + Sh::DY + c, A + (on ? jg * p + c0 + c : 0), on);
-        }
-    }
-}
-
-// one staged tile: (acc, comp)[r][c] += sum over warp w's columns j of
-// f(s_rj) A[j][c], compensated once per KM_GROUP steps
-template <int D, int FAM, int P, bool RAGGED>
-__device__ __forceinline__ void km_tile(const float* buf, const float (&xr)[KmShape<D>::R][D],
-                                        float (&acc)[KmShape<D>::R][KM_C],
-                                        float (&comp)[KmShape<D>::R][KM_C], int cnt,
-                                        const FamilyConsts& fc) {
-    using Sh = KmShape<D>;
-    constexpr int C = Sh::C, R = Sh::R, DY = Sh::DY, S = Sh::S;
-    constexpr int STEPS = Sh::TN / (KM_WARPS * KM_V);   // a warp's steps in a tile: 8 or 16
-    static_assert(STEPS % KM_GROUP == 0, "a tile holds whole groups of steps");
-    const int w = threadIdx.x >> 5;
-    for (int g = 0; g < STEPS; g += KM_GROUP) {
-        float ts[R][C];   // this group's terms of each row and column
-#pragma unroll
-        for (int r = 0; r < R; ++r)
-#pragma unroll
-            for (int c = 0; c < C; ++c) ts[r][c] = 0.f;
+// one staged tile's k-steps: cf[mt][nt] += K(rows, tile) A(tile, chunk)
+template <int D, int FAM, int P, int PASSES, bool RAGGED>
+__device__ __forceinline__ void kt_tile(const float* ybuf, const uint32_t* bfrag,
+                                        const float (&xr)[KtShape<D>::MT][2][D],
+                                        float (&cf)[KtShape<D>::MT][KT_NT][4], int cnt,
+                                        const FamilyConsts& fc, const float4* tab) {
+    using Sh = KtShape<D>;
+    constexpr int MT = Sh::MT, DY = Sh::DY, NP = tc_pieces(PASSES);
+    const int lane = threadIdx.x & 31, t = lane & 3;
+    const int steps = RAGGED ? (cnt + 7) >> 3 : Sh::KS;
 #pragma unroll 1
-        for (int q = 0; q < KM_GROUP; ++q) {
-            const int jb = (g + q) * KM_WARPS * KM_V + w * KM_V;
+    for (int ks = 0; ks < steps; ++ks) {
+        uint32_t b[KT_NT][2 * NP];
 #pragma unroll
-            for (int v = 0; v < KM_V; ++v) {
-                const float* col = buf + (jb + v) * S;
-                float yc[DY];
+        for (int nt = 0; nt < KT_NT; ++nt) {
+            const uint32_t* src = bfrag + ((ks * KT_NT + nt) * 32 + lane) * 2 * NP;
+            if constexpr (NP == 2) {
+                const uint4 v = *reinterpret_cast<const uint4*>(src);
+                b[nt][0] = v.x; b[nt][1] = v.y; b[nt][2] = v.z; b[nt][3] = v.w;
+            } else {
+                const uint2 v = *reinterpret_cast<const uint2*>(src);
+                b[nt][0] = v.x; b[nt][1] = v.y;
+            }
+        }
+        // s of rows (g, g + 8) of each m-tile against columns 8 ks + t, + 4
+        float s[MT][4];
 #pragma unroll
-                for (int k = 0; k < DY / 4; ++k) {
-                    const float4 t = reinterpret_cast<const float4*>(col)[k];
-                    yc[4 * k] = t.x;
-                    yc[4 * k + 1] = t.y;
-                    yc[4 * k + 2] = t.z;
-                    yc[4 * k + 3] = t.w;
-                }
-                float f[R];
+        for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-                for (int r = 0; r < R; ++r) {
-                    float s = 0.f;
+            for (int e = 0; e < 4; ++e) s[mt][e] = 0.f;
 #pragma unroll
-                    for (int k = 0; k < D; ++k) {
-                        const float t = xr[r][k] - yc[k];
-                        s = fmaf(t, t, s);
-                    }
-                    f[r] = family_value<FAM, P>(s, fc);
-                    if (RAGGED && jb + v >= cnt) f[r] = 0.f;   // IMQ(c = 0) is inf at s = 0
-                }
+        for (int ch = 0; ch < 2; ++ch) {
+            const float* col = ybuf + (8 * ks + t + 4 * ch) * DY;
 #pragma unroll
-                for (int c4 = 0; c4 < C / 4; ++c4) {
-                    const float4 a4 = reinterpret_cast<const float4*>(col + DY)[c4];
+            for (int k4 = 0; k4 < DY / 4; ++k4) {
+                const float4 y4 = reinterpret_cast<const float4*>(col)[k4];
+                const float yv[4] = {y4.x, y4.y, y4.z, y4.w};
 #pragma unroll
-                    for (int r = 0; r < R; ++r) {
-                        ts[r][4 * c4] = fmaf(f[r], a4.x, ts[r][4 * c4]);
-                        ts[r][4 * c4 + 1] = fmaf(f[r], a4.y, ts[r][4 * c4 + 1]);
-                        ts[r][4 * c4 + 2] = fmaf(f[r], a4.z, ts[r][4 * c4 + 2]);
-                        ts[r][4 * c4 + 3] = fmaf(f[r], a4.w, ts[r][4 * c4 + 3]);
-                    }
+                for (int kk = 0; kk < 4; ++kk) {
+                    if (4 * k4 + kk >= D) break;
+#pragma unroll
+                    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                        for (int rh = 0; rh < 2; ++rh) {
+                            const float u = xr[mt][rh][4 * k4 + kk] - yv[kk];
+                            s[mt][2 * ch + rh] = fmaf(u, u, s[mt][2 * ch + rh]);
+                        }
                 }
             }
         }
+        // A-operand order: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
+        uint32_t a[MT][NP * 4];
 #pragma unroll
-        for (int r = 0; r < R; ++r)
+        for (int mt = 0; mt < MT; ++mt) {
+            float v[4];
 #pragma unroll
-            for (int c = 0; c < C; ++c) kahan_add(acc[r][c], comp[r][c], ts[r][c]);
+            for (int e = 0; e < 4; ++e) {
+                // the Constant inside f, as the profile carries it: a tier's
+                // tf32 roundings are those of the profile's values
+                v[e] = fc.scale * family_value<FAM, P>(s[mt][e], fc, tab);
+                // past the tile's columns: IMQ(c = 0) is inf at s = 0
+                if (RAGGED && 8 * ks + t + 4 * (e >> 1) >= cnt) v[e] = 0.f;
+            }
+            split_a<NP>(v, a[mt]);
+        }
+        // pass by pass over the MT x 2 accumulators, so that consecutive
+        // products are independent (each pass adds into the last one's sum,
+        // smallest first, as mma_passes)
+#pragma unroll
+        for (int u = 0; u < PASSES; ++u)
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                for (int nt = 0; nt < KT_NT; ++nt)
+                    mma_tf32(cf[mt][nt], a[mt] + 4 * tc_piece_a(PASSES, u),
+                             b[nt] + 2 * tc_piece_b(PASSES, u));
     }
 }
 
-// up to 255 registers a thread (the 96 of the sums, x's R d coordinates, a
-// staged column and the profile): as many blocks an SM as they leave room
-// for
-template <int D, int FAM, int P>
-__global__ void __launch_bounds__(KM_THREADS, 1)
+template <int D, int FAM, int P, int PASSES>
+__global__ void __launch_bounds__(KT_THREADS, KtShape<D>::MIN_BLOCKS)
 k1_matmat_family(const float* __restrict__ x, const float* __restrict__ y,
                  const float* __restrict__ A, float* __restrict__ partial, int n, int m, int d,
-                 int p, int cols_per_split, const __grid_constant__ FamilyConsts fc) {
-    using Sh = KmShape<D>;
-    constexpr int C = Sh::C, R = Sh::R, BM = Sh::BM, TN = Sh::TN, S = Sh::S;
-    static_assert(C % 4 == 0 && R * C == 32, "C sums of R rows: 32 a thread");
-    static_assert(KM_WARPS * BM * 4 <= 2 * TN * S, "the reduction reuses the staging buffers");
-    __shared__ __align__(16) float buf[2][TN * S];
+                 int p, int cols_per_split, const __grid_constant__ FamilyConsts fc,
+                 const float4* __restrict__ tab) {
+    using Sh = KtShape<D>;
+    constexpr int MT = Sh::MT, DY = Sh::DY, TN = Sh::TN, AV = Sh::AV;
+    constexpr int NP = tc_pieces(PASSES);
+    __shared__ __align__(16) float ybuf[2][TN * DY];
+    __shared__ __align__(16) uint32_t bfrag[Sh::KS * KT_NT * 32 * 2 * NP];
+    __shared__ float4 mtab[FAM == FAM_MATERN_NU ? MATERN_KNOTS : 1];
 
-    for (int t = threadIdx.x; t < 2 * TN * S; t += KM_THREADS) (&buf[0][0])[t] = 0.f;
-    __syncthreads();
+    if constexpr (FAM == FAM_MATERN_NU)
+        for (int t = threadIdx.x; t < MATERN_KNOTS; t += KT_THREADS) mtab[t] = tab[t];
 
-    const int lane = threadIdx.x & 31;
-    const int w = threadIdx.x >> 5;
-    const int row0 = blockIdx.x * BM;
-    const int c0 = blockIdx.z * C;
-    float xr[R][D];
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, g = lane >> 2, tq = lane & 3;
+    const int row0 = blockIdx.x * Sh::BM + w * 16 * MT;
+    const int c0 = blockIdx.z * KT_C;
+    float xr[MT][2][D];
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-        const int i = row0 + r * 32 + lane;
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int k = 0; k < D; ++k) xr[r][k] = (i < n && k < d) ? x[(size_t)i * d + k] : 0.f;
-    }
+        for (int rh = 0; rh < 2; ++rh) {
+            const int i = row0 + 16 * mt + 8 * rh + g;
+#pragma unroll
+            for (int k = 0; k < D; ++k)
+                xr[mt][rh][k] = (i < n && k < d) ? x[(size_t)i * d + k] : 0.f;
+        }
 
     const int j_begin = blockIdx.y * cols_per_split;
     const int j_end = min(m, j_begin + cols_per_split);
     const int tiles = j_end > j_begin ? (j_end - j_begin + TN - 1) / TN : 0;
-    float acc[R][C], comp[R][C];
+    float acc[MT][KT_NT][4], comp[MT][KT_NT][4], cf[MT][KT_NT][4];
 #pragma unroll
-    for (int r = 0; r < R; ++r)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int c = 0; c < C; ++c) acc[r][c] = comp[r][c] = 0.f;
+        for (int nt = 0; nt < KT_NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[mt][nt][e] = comp[mt][nt][e] = cf[mt][nt][e] = 0.f;
+
+    // y's columns j0 .. j0 + cnt into buf (zero past cnt and past d)
+    auto stage_y = [&](float* buf, int j0, int cnt) {
+        for (int e = threadIdx.x; e < TN * DY; e += KT_THREADS) {
+            const int j = e / DY, k = e % DY;
+            const bool live = j < cnt && k < d;
+            cp_async4(buf + e, live ? y + (size_t)(j0 + j) * d + k : y, live);
+        }
+    };
+    // A's rows j0 .. j0 + cnt, columns c0 .. c0 + KT_C, into registers
+    float av[AV];
+    auto load_a = [&](int j0, int cnt) {
+#pragma unroll
+        for (int u = 0; u < AV; ++u) {
+            const int e = threadIdx.x + u * KT_THREADS, j = e / KT_C, c = e % KT_C;
+            av[u] = (j < cnt && c0 + c < p) ? A[(size_t)(j0 + j) * p + c0 + c] : 0.f;
+        }
+    };
 
     if (tiles > 0) {
-        km_stage<D>(buf[0], y, A, j_begin, min(TN, j_end - j_begin), d, p, c0);
+        stage_y(ybuf[0], j_begin, min(TN, j_end - j_begin));
         cp_async_commit();
+        load_a(j_begin, min(TN, j_end - j_begin));
     }
     for (int t = 0; t < tiles; ++t) {
         const int j0 = j_begin + t * TN;
         const int cnt = min(TN, j_end - j0);
+        __syncthreads();   // tile t - 1 is consumed: the fragments and ybuf[(t + 1) & 1] are free
+        // A's tile t in tf32 pieces, in B-fragment order: b0 (t, g), b1 (t + 4, g)
+        // of the n-tile's 8 x 8 (column j, column c) block, for lane 4 g + t
+#pragma unroll
+        for (int u = 0; u < AV; ++u) {
+            const int e = threadIdx.x + u * KT_THREADS, j = e / KT_C, c = e % KT_C;
+            const int kk = j & 7, ln = 4 * (c & 7) + (kk & 3);
+            uint32_t pc[NP];
+            tf32_split<NP>(av[u], pc);
+            uint32_t* dst = bfrag + (((j >> 3) * KT_NT + (c >> 3)) * 32 + ln) * 2 * NP + (kk >> 2);
+#pragma unroll
+            for (int q = 0; q < NP; ++q) dst[2 * q] = pc[q];
+        }
         if (t + 1 < tiles) {
-            km_stage<D>(buf[(t + 1) & 1], y, A, j0 + TN, min(TN, j_end - j0 - TN), d, p, c0);
+            stage_y(ybuf[(t + 1) & 1], j0 + TN, min(TN, j_end - j0 - TN));
             cp_async_commit();
+            load_a(j0 + TN, min(TN, j_end - j0 - TN));
             cp_async_wait<1>();
         } else {
             cp_async_wait<0>();
         }
-        __syncthreads();   // tile t has landed for every thread
+        __syncthreads();   // tile t's y and fragments are in place for every thread
         if (cnt == TN)
-            km_tile<D, FAM, P, false>(buf[t & 1], xr, acc, comp, cnt, fc);
+            kt_tile<D, FAM, P, PASSES, false>(ybuf[t & 1], bfrag, xr, cf, cnt, fc, mtab);
         else
-            km_tile<D, FAM, P, true>(buf[t & 1], xr, acc, comp, cnt, fc);
-        __syncthreads();   // tile t is consumed before tile t + 2 overwrites it
+            kt_tile<D, FAM, P, PASSES, true>(ybuf[t & 1], bfrag, xr, cf, cnt, fc, mtab);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < KT_NT; ++nt)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    kahan_add(acc[mt][nt][e], comp[mt][nt][e], cf[mt][nt][e]);
+                    cf[mt][nt][e] = 0.f;
+                }
     }
-
-    // the warps' sums of each (row, column), four columns a round, added in
-    // warp order through the staging buffer
-    float4* red = reinterpret_cast<float4*>(&buf[0][0]);
+    // C-fragment order: c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1)
 #pragma unroll
-    for (int cq = 0; cq < C; cq += 4) {
-        __syncthreads();   // the buffer is free: the last tile, or the last round, is read
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int r = 0; r < R; ++r)
-            red[w * BM + r * 32 + lane] =
-                make_float4(acc[r][cq] - comp[r][cq], acc[r][cq + 1] - comp[r][cq + 1],
-                            acc[r][cq + 2] - comp[r][cq + 2], acc[r][cq + 3] - comp[r][cq + 3]);
-        __syncthreads();
-        const float* rf = &buf[0][0];
-        for (int t = threadIdx.x; t < BM * 4; t += KM_THREADS) {
-            const int i = row0 + t / 4, c = c0 + cq + t % 4;
-            if (i < n && c < p) {
-                float tot = rf[t];
+        for (int nt = 0; nt < KT_NT; ++nt)
 #pragma unroll
-                for (int u = 1; u < KM_WARPS; ++u) tot += rf[u * BM * 4 + t];
-                partial[((size_t)blockIdx.y * n + i) * p + c] = fc.scale * tot;
+            for (int e = 0; e < 4; ++e) {
+                const int i = row0 + 16 * mt + 8 * (e >> 1) + g;
+                const int c = c0 + 8 * nt + 2 * tq + (e & 1);
+                if (i < n && c < p)
+                    partial[((size_t)blockIdx.y * n + i) * p + c] =
+                        acc[mt][nt][e] - comp[mt][nt][e];
             }
-        }
-    }
 }
 
 // ---------------------------------------------------------------------------
@@ -605,22 +648,33 @@ static int by_family(int family, int p, F&& f) {
         return f(Int<FAM_CAUCHY>{}, Int<0>{});
     case FAM_IMQ:
         return f(Int<FAM_IMQ>{}, Int<0>{});
+    case FAM_MATERN_NU:
+        return f(Int<FAM_MATERN_NU>{}, Int<0>{});
     default:
         return (int)cudaErrorInvalidValue;
     }
 }
 
+// f(Int<PASSES>) for a tier's tensor-core passes
+template <class F>
+static int by_passes(int passes, F&& f) {
+    if (passes == 1) return f(Int<1>{});
+    if (passes == 3) return f(Int<3>{});
+    return (int)cudaErrorInvalidValue;
+}
+
 extern "C" int k1_gramian_matvec_family(const float* x, const float* y, const float* a,
                                         float* partial, float* out, int n, int m, int d,
                                         int splits, int cols_per_split, int family, int p,
-                                        FamilyConsts fc, void* stream) {
+                                        FamilyConsts fc, const float4* tab, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     dim3 grid((n + KF_BM - 1) / KF_BM, splits);
     float* dst = splits == 1 ? out : partial;
+    if (family == FAM_MATERN_NU && tab == nullptr) return (int)cudaErrorInvalidValue;
     const int bad = by_dim(d, [&](auto Dc) {
         return by_family(family, p, [&](auto F, auto Pc) {
             k1_family<decltype(Dc)::value, decltype(F)::value, decltype(Pc)::value>
-                <<<grid, KF_THREADS, 0, st>>>(x, y, a, dst, n, m, d, cols_per_split, fc);
+                <<<grid, KF_THREADS, 0, st>>>(x, y, a, dst, n, m, d, cols_per_split, fc, tab);
             return 0;
         });
     });
@@ -635,28 +689,35 @@ extern "C" int k1_gramian_matvec_family(const float* x, const float* y, const fl
 // of d's many-column instance, for the host's column split
 extern "C" int k1_gramian_matmat_shape(int d, int* rows, int* cols, int* chunk) {
     return by_dim(d, [&](auto Dc) {
-        using Sh = KmShape<decltype(Dc)::value>;
+        using Sh = KtShape<decltype(Dc)::value>;
         *rows = Sh::BM;
         *cols = Sh::TN;
-        *chunk = Sh::C;
+        *chunk = KT_C;
         return 0;
     });
 }
 
-// B (n, p) = K A, A (m, p) row-major, in chunks of KM_C columns
+// B (n, p) = K A, A (m, p) row-major, in chunks of KT_C columns, the
+// product at `passes` tf32 passes (1 or 3)
 extern "C" int k1_gramian_matmat_family(const float* x, const float* y, const float* A,
                                         float* partial, float* out, int n, int m, int d, int p,
                                         int splits, int cols_per_split, int family, int fam_p,
-                                        FamilyConsts fc, void* stream) {
+                                        int passes, FamilyConsts fc, const float4* tab,
+                                        void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     float* dst = splits == 1 ? out : partial;
+    if (family == FAM_MATERN_NU && tab == nullptr) return (int)cudaErrorInvalidValue;
     const int bad = by_dim(d, [&](auto Dc) {
-        using Sh = KmShape<decltype(Dc)::value>;
-        dim3 grid((n + Sh::BM - 1) / Sh::BM, splits, (p + KM_C - 1) / KM_C);
+        using Sh = KtShape<decltype(Dc)::value>;
+        dim3 grid((n + Sh::BM - 1) / Sh::BM, splits, (p + KT_C - 1) / KT_C);
         return by_family(family, fam_p, [&](auto F, auto Pc) {
-            k1_matmat_family<decltype(Dc)::value, decltype(F)::value, decltype(Pc)::value>
-                <<<grid, KM_THREADS, 0, st>>>(x, y, A, dst, n, m, d, p, cols_per_split, fc);
-            return 0;
+            return by_passes(passes, [&](auto PS) {
+                k1_matmat_family<decltype(Dc)::value, decltype(F)::value, decltype(Pc)::value,
+                                 decltype(PS)::value>
+                    <<<grid, KT_THREADS, 0, st>>>(x, y, A, dst, n, m, d, p, cols_per_split, fc,
+                                                  tab);
+                return 0;
+            });
         });
     });
     if (bad) return bad;

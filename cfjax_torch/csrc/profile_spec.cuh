@@ -12,7 +12,8 @@
 //                    entries per decode, three floats per stack slot;
 //   family_value<FAM, P>: the value of a one-leaf spec's family form
 //                    (ProfileSpec.family), with its folded constants, in
-//                    registers: no stack, no opcode reads;
+//                    registers: no stack, no opcode reads (the real-nu
+//                    Matern family reads its table, `matern_nu_tabled`);
 //   matern_nu<JET>:  Matern(nu).profile at real nu (and its jet), the
 //                    MATERN_NU / MATERN_NU_JET opcodes, with x^nu K_nu(x)
 //                    computed here by Temme's series, Steed's continued
@@ -56,7 +57,11 @@ struct ProfileSpec {
 #define FAM_RQ 3
 #define FAM_CAUCHY 4
 #define FAM_IMQ 5
-#define FAM_CONSTS 6
+#define FAM_MATERN_NU 6
+#define FAM_CONSTS 9
+// intervals of the real-nu Matern family's table (utils/besselk.py
+// MATERN_KNOTS: 32 octaves of 32)
+#define MATERN_KNOTS 1024
 
 struct FamilyConsts {
     float c[FAM_CONSTS];
@@ -360,11 +365,55 @@ __device__ __forceinline__ float ex2_split(float u, float c0, float c1) {
     return fmaf(e, lo * 0.693147180559945f, e);
 }
 
+// The real-nu Matern family at s (kernels/profile_spec.py
+// FAMILY_MATERN_NU, `_matern_nu_family` its plain version), from the table
+// of nu in shared memory: interval k of x = sqrt(2 nu sigma s) holds
+// (f(x_k), a1, a2, a3), f(x) = f(x_k) 2^(q (a1 + q (a2 + q a3))) with q the
+// offset of x in the interval over its width (utils/besselk.py
+// `matern_nu_knots`). The interval is read off x's bits: the exponent and
+// the top 5 mantissa bits (32 intervals an octave, from octave c7), q is
+// the other 18 bits. x is rounded three times (the root, the constant and
+// their product); its rounding error xlo (the root's residual, two FMAs
+// and the constant's remainder c1) moves q before the cubic, so the
+// cubic sees x to about float32's rounding. 2 MUFU (rsqrt, ex2) and no
+// logarithm: the offset is exact, and ln f at the knot is in f(x_k), so no
+// large exponent is formed. Below the table (or the guard's bound c2) the
+// Taylor polynomial 1 + c3 s + c4 s^2 (nu > 1) or 1 - c5 x^(2 nu) (nu <
+// 1); above it 0, where f has left float32; at s = 0 the limit 1.
+__device__ __forceinline__ float matern_nu_tabled(float s, const FamilyConsts& f,
+                                                  const float4* tab) {
+    const float* c = f.c;
+    const float sc = fmaxf(s, 1e-30f);
+    const float rs = rsqrt_approx(sc);
+    const float sq = sc * rs;
+    const float sqlo = fmaf(-sq, sq, sc) * (0.5f * rs);   // sqrt(sc) - sq, to first order
+    const float x = sq * c[0];
+    const float xlo = fmaf(c[0], sqlo, fmaf(sq, c[1], fmaf(sq, c[0], -x)));
+    const int bits = __float_as_int(x);
+    const int idx = (bits >> 18) - ((127 + (int)c[7]) << 5);
+    float v;
+    if (s < c[2] || idx < 0) {
+        v = fmaf(fmaf(c[4], s, c[3]), s, 1.f);
+        if (c[5] != 0.f) v -= c[5] * ex2_approx(c[6] * lg2_approx(x));
+    } else if (idx >= MATERN_KNOTS) {
+        v = 0.f;
+    } else {
+        const float4 t = tab[idx];
+        // 2^(5 - e), the reciprocal of the interval's width, for x = 1.m 2^e
+        const float inv_h = __int_as_float((259 - (bits >> 23)) << 23);
+        const float q = fmaf(xlo, inv_h, (float)(bits & 0x3FFFF) * (1.f / 262144.f));
+        v = t.x * ex2_approx(q * fmaf(fmaf(t.w, q, t.z), q, t.y));
+    }
+    return s > 0.f ? v : 1.f;
+}
+
 // The family form of a one-leaf spec at s (ProfileSpec.evaluate(s,
 // family=True)), without the Constant factor. MaternP(p) with p = P
-// (Exp is P = 0): r = root(s), exp2(r (c0 + c1)) sum_j c[2 + j] r^j.
+// (Exp is P = 0): r = root(s), exp2(r (c0 + c1)) sum_j c[2 + j] r^j. The
+// real-nu Matern family reads `tab`, its table in shared memory.
 template <int FAM, int P>
-__device__ __forceinline__ float family_value(float s, const FamilyConsts& f) {
+__device__ __forceinline__ float family_value(float s, const FamilyConsts& f,
+                                              const float4* tab = nullptr) {
     if constexpr (FAM == FAM_EQ) {
         return ex2_split(s, f.c[0], f.c[1]);
     } else if constexpr (FAM == FAM_MATERN) {
@@ -383,6 +432,8 @@ __device__ __forceinline__ float family_value(float s, const FamilyConsts& f) {
         return ex2_approx(f.c[1] * lg2_approx(fmaf(s, f.c[0], 1.f)));
     } else if constexpr (FAM == FAM_CAUCHY) {
         return rcp_approx(fmaf(s, f.c[0], 1.f));
+    } else if constexpr (FAM == FAM_MATERN_NU) {
+        return matern_nu_tabled(s, f, tab);
     } else {
         static_assert(FAM == FAM_IMQ, "unknown profile family");
         return rsqrt_approx(fmaf(s, f.c[0], f.c[1]));

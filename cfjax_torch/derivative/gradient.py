@@ -30,6 +30,7 @@ from torch.func import grad, jacfwd, jvp, vmap
 
 from ..kernels.base import InputTrait, Kernel, MultiKernel, input_trait
 from ..kernels.derivatives import elementwise_derivatives
+from ..kernels.parameters import to_points
 from ..kernels.profile_spec import to_spec
 from ..operators.gramian import slf_vector
 from ..operators.linop import LinearOperator, SumOperator, ZeroOperator
@@ -181,6 +182,9 @@ class GradientGramian(LinearOperator):
         self.mode = _grad_mode(k)
         self.block = block
         self._spec, self.kernel_reason = select_grad_kernel(self)
+        # the hyperparameters on the points' device and dtype, once (the spec
+        # above reads the kernel as given)
+        self.k = to_points(k, self.x)
 
     @property
     def is_symmetric(self):
@@ -362,8 +366,8 @@ class ValueGradientGramian(LinearOperator):
     Plain torch only: cfjax has no fused kernel for value+gradient blocks."""
 
     def __init__(self, k, x, y=None, block=None):
-        self.k = k
         self.x = as_points(x)
+        self.k = to_points(k, self.x)
         self.y = self.x if y is None else as_points(y)
         self._same = y is None
         self.d = self.x.shape[1]
@@ -643,8 +647,8 @@ class ChainedGradientGramian(LinearOperator):
     Chained preserves iso/dot/pair traits via profile composition."""
 
     def __init__(self, k, x, y=None, block=None):
-        self.k = k
         self.x = as_points(x)
+        self.k = to_points(k, self.x)
         self.y = self.x if y is None else as_points(y)
         self._same = y is None
         self.d = self.x.shape[1]
@@ -704,8 +708,8 @@ class SeparableGradientGramian(LinearOperator):
     def __init__(self, k, x, y=None, block=None):
         from ..kernels.algebra import SeparableProduct
 
-        self.k = k
         self.x = as_points(x)
+        self.k = to_points(k, self.x)
         self.y = self.x if y is None else as_points(y)
         self._same = y is None
         self.d = self.x.shape[1]

@@ -32,6 +32,7 @@ from torch.func import grad, hessian, jacfwd, vmap
 
 from ..kernels.base import InputTrait, Kernel, MultiKernel, input_trait
 from ..kernels.derivatives import elementwise_derivatives
+from ..kernels.parameters import to_points
 from ..operators.linop import LinearOperator
 from ..ops.tiles import inner_tile, map_rows, sqdist_tile
 from ..utils.grids import as_points
@@ -173,8 +174,8 @@ class HessianGramian(LinearOperator):
     the d x d block (reference src/hessian.jl:2-23)."""
 
     def __init__(self, k, x, y=None, block=None):
-        self.k = k
         self.x = as_points(x)
+        self.k = to_points(k, self.x)
         self.y = self.x if y is None else as_points(y)
         self._same = y is None
         self.d = self.x.shape[1]
@@ -242,8 +243,8 @@ class ValueGradientHessianGramian(LinearOperator):
     [value, grad (d), vec(hessian) (d^2)] (reference src/hessian.jl:279-479)."""
 
     def __init__(self, k, x, y=None, block=None):
-        self.k = k
         self.x = as_points(x)
+        self.k = to_points(k, self.x)
         self.y = self.x if y is None else as_points(y)
         self._same = y is None
         self.d = self.x.shape[1]

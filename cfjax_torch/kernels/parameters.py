@@ -82,6 +82,24 @@ def with_leaves(k, leaves):
     return new
 
 
+def to_points(k, points):
+    """k with every hyperparameter on the device and in the float dtype of
+    `points`, for an operator that evaluates k there: its MVMs then copy
+    nothing from the host (`base.hp` finds each tensor in place) and can
+    be captured in a CUDA graph. The hyperparameters are moved by `.to`,
+    which autograd records: a leaf that requires grad stays upstream of
+    the moved tensor, whose gradient reaches it. k itself is returned when
+    nothing moves (or `points` is not a floating tensor, or k is no
+    `Kernel`); else a copy of its structure (`with_leaves`)."""
+    if not (isinstance(k, Kernel) and isinstance(points, torch.Tensor)
+            and points.is_floating_point()):
+        return k
+    ls = leaves(k)
+    if all(l.device == points.device and l.dtype == points.dtype for l in ls):
+        return k
+    return with_leaves(k, [l.to(device=points.device, dtype=points.dtype) for l in ls])
+
+
 def _is_reference_kernel(v) -> bool:
     return dataclasses.is_dataclass(v) and type(v).__module__.startswith("cfjax.")
 

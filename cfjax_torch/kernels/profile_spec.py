@@ -17,15 +17,26 @@ Lengthscale and Constant scaling. `to_spec(k)` returns `(spec, None)` or
 agrees with `k.profile_value` op for op.
 
 Families. A value spec whose kernel is one leaf — EQ, Exp, MaternP(p <= 3),
-RQ, Cauchy or InverseMultiQuadratic — under any chain of Lengthscale
-scalings, times at most one Constant, is also tagged with a family: an id,
-MaternP's p, the leaf's constants with every lengthscale folded in (the
-divisions by constants become multiplications, exp becomes exp2 of a
-prescaled argument) and the Constant as a factor of the row sum. K1 has
-an instance per family, evaluated in registers, where the program would
-be interpreted; `ProfileSpec.evaluate(s, family=True)` is the plain torch
-evaluator of the folded form. Other specs (sums, products, Power,
-GammaExp) keep the interpreter.
+RQ, Cauchy, InverseMultiQuadratic or real-nu Matern — under any chain of
+Lengthscale scalings, times at most one Constant, is also tagged with a
+family: an id, MaternP's p, the leaf's constants with every lengthscale
+folded in (the divisions by constants become multiplications, exp becomes
+exp2 of a prescaled argument) and the Constant as a factor of the row
+sum. K1 has an instance per family, evaluated in registers, where the
+program would be interpreted; `ProfileSpec.evaluate(s, family=True)` is
+the plain torch evaluator of the folded form. Other specs (sums,
+products, Power, GammaExp) keep the interpreter. K2 and K3 take the
+closed-form families; a real-nu Matern runs their interpreter.
+
+The real-nu Matern family (FAMILY_MATERN_NU) reads a table of nu
+(`utils/besselk.py` `matern_nu_knots`): for x = sqrt(2 nu s) in an octave
+interval x_k .. x_k + h, f = f(x_k) 2^(q (a1 + q (a2 + q a3))), q = (x -
+x_k) / h, the cubic Hermite interpolant of log2 f(x) / f(x_k). The
+interval is the float's exponent and top 5 mantissa bits and q the rest of
+its mantissa, so an entry costs a root, integer operations, a cubic and
+one exp2; x's rounding error moves q before the cubic. Below the table the
+guard's Taylor polynomial (nu > 1) or 1 - a x^(2 nu) (nu < 1,
+`matern_nu_small`); above it 0 (the table ends where f leaves float32).
 
 Derivative specs. The gradient-block kernel needs f, f' and f'' of the
 profile. A value program cannot give them: ROOT and MATERNP clamp their
@@ -84,7 +95,8 @@ from .stationary import (
     MaternP,
     matern_profile,
 )
-from ..utils.besselk import matern_nu_table
+from ..utils.besselk import (MATERN_KNOTS, MATERN_STEPS, MATERN_TABLE_MAX_NU, matern_nu_knots,
+                              matern_nu_octave, matern_nu_small, matern_nu_table)
 from .derivatives import elementwise_derivatives
 from .transforms import Lengthscale
 
@@ -123,8 +135,12 @@ FAMILY_MATERN = 2  # r = root(s), exp2(r (c0 + c1)) sum_j c[2+j] r^j,
 FAMILY_RQ = 3      # exp2(c1 log2(1 + s c0)), c0 = sigma / (2 alpha), c1 = -alpha
 FAMILY_CAUCHY = 4  # 1 / (1 + s c0), c0 = sigma
 FAMILY_IMQ = 5     # rsqrt(s c0 + c1), c0 = sigma, c1 = c^2
+FAMILY_MATERN_NU = 6  # the table of nu (module docstring): c0 + c1 = sqrt(2 nu sigma)
+                      # (split), c2 the guard's bound in s, c3, c4 its Taylor
+                      # coefficients in s, c5 = a of 1 - a x^(2 nu), c6 = 2 nu,
+                      # c7 = e_lo (the table's first octave), c8 = nu
 FAMILY_MAX_P = 3
-FAMILY_CONSTS = 6  # the largest folded table (MaternP(3): c0, c1 and 4 coefficients)
+FAMILY_CONSTS = 9  # the largest folded table (the real-nu Matern's)
 JET_CONSTS = 16    # the largest derivative-family table (MaternP(3): 3 + 13 values)
 
 _POP = {PUSH_S: -1, PUSH_C: -1, ADD: 1, MUL: 1, DIV: 1, POWC: 0, POWI: 0,
@@ -193,6 +209,34 @@ def _exp2_split(u, c0, c1):
     lo = (u.double() * c0 - t.double() + u.double() * c1).to(u.dtype)
     e = torch.exp2(t)
     return e + e * (lo * math.log(2.0))
+
+
+def _matern_nu_family(s, c):
+    """The tabulated real-nu Matern family at s, as K1 computes it (csrc/
+    profile_spec.cuh `matern_nu_tabled`), in s's dtype: x and its rounding
+    error (the FMA residuals taken in float64), the interval from x's
+    exponent and mantissa, the cubic at the offset moved by the rounding
+    error, against the table in s's dtype."""
+    r0, r1, bound, t1, t2, a, two_nu, e_lo, nu = c
+    dt = s.dtype
+    tab = matern_nu_knots(nu).to(device=s.device, dtype=dt)
+    sc = torch.clamp(s, min=1e-30)
+    sq = torch.sqrt(sc)
+    sd = sq.double()
+    sqlo = ((sc.double() - sd * sd) / (2 * sd)).to(dt)
+    x = sq * r0
+    xlo = (sd * r0 - x.double() + sd * r1 + sqlo.double() * r0).to(dt)
+    m, e = torch.frexp(x)                       # x = (2m) 2^(e - 1), 2m in [1, 2)
+    u = (2 * m - 1) * MATERN_STEPS
+    j = torch.floor(u)
+    idx = (e - 1 - int(e_lo)) * MATERN_STEPS + j.long()
+    q = (u - j) + xlo * MATERN_STEPS * torch.exp2(-(e - 1).to(dt))
+    row = tab[idx.clamp(0, MATERN_KNOTS - 1)]
+    f = row[..., 0] * torch.exp2(q * ((row[..., 3] * q + row[..., 2]) * q + row[..., 1]))
+    small = 1 + s * (t1 + s * t2) - a * torch.exp2(two_nu * torch.log2(x))
+    f = torch.where(idx >= MATERN_KNOTS, torch.zeros_like(f), f)
+    f = torch.where((s < bound) | (idx < 0), small, f)
+    return torch.where(s <= 0, torch.ones_like(f), f)
 
 
 def _chain(u, g, g1, g2):
@@ -316,6 +360,8 @@ class ProfileSpec:
             f = 1.0 / (1.0 + s * c[0])
         elif self.family == FAMILY_IMQ:
             f = torch.rsqrt(s * c[0] + c[1])
+        elif self.family == FAMILY_MATERN_NU:
+            f = _matern_nu_family(s, c)
         else:
             raise ValueError(f"unknown family {self.family}")
         return self.family_scale * f
@@ -590,6 +636,16 @@ def _family(k):
         return FAMILY_CAUCHY, 0, (sigma,), scale
     if isinstance(k, InverseMultiQuadratic):
         return FAMILY_IMQ, 0, (sigma, _scalar(k, "c") ** 2), scale
+    if isinstance(k, Matern):
+        nu = _scalar(k, "nu")
+        if nu > MATERN_TABLE_MAX_NU:
+            return None
+        t = matern_nu_table(nu, False)
+        return (FAMILY_MATERN_NU, 0,
+                _split(math.sqrt(2 * nu * sigma)) + (t[6] / sigma, t[4] * sigma,
+                                                      t[5] * sigma * sigma, matern_nu_small(nu),
+                                                      2 * nu, float(matern_nu_octave(nu)), nu),
+                scale)
     return None
 
 

@@ -291,9 +291,11 @@ def explain(k, x, y=None, **opts) -> str:
         parts.append(f"mvm mode = {op.mode}, block = {op.block}")
         why = kernel_decline_reason(op)
         if why is None and op.kernel == "direct":
-            cols = ("its family instance" if op._spec.family else
-                    "the interpreted instance once per column")
-            parts.append(f"cuda kernel K1 gramian_matvec_direct; multi-RHS K1 "
+            if op._spec.family:
+                one, cols = "family instance", f"its family instance, tensor cores at {_tier()}"
+            else:
+                one, cols = "interpreted instance", "the interpreted instance once per column"
+            parts.append(f"cuda kernel K1 gramian_matvec_direct ({one}); multi-RHS K1 "
                          f"gramian_matmat_direct ({cols})")
         elif why is None:
             parts.append(f"cuda kernel K2 gramian_matvec_expand ({_tier()}); multi-RHS "

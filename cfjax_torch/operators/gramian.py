@@ -4,8 +4,10 @@ reference src/gramian.jl).
 
 An MVM of float32 tensors on a CUDA device runs on a hand-written kernel
 (`cfjax_torch.ops.gramian_mvm`): K1 for isotropic kernels at d <= 16 (a
-multi-RHS product through its many-column variant), K2 for isotropic
-kernels at larger d and for dot-product kernels (single RHS). Everything
+multi-RHS product through its many-column variant, on the tensor cores
+at the matmul tier), K2 for isotropic kernels at larger d and for
+dot-product kernels (single RHS). The kernel's hyperparameters are moved
+to the points' device and dtype when the Gramian is formed. Everything
 else — CPU tensors, float64, kernels without a profile spec, K2's
 multi-RHS products, and any product that autograd records — takes the
 blocked plain-torch path `gramian_matvec`, which builds one row block of
@@ -22,6 +24,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import config as _config
 from ..kernels.base import InputTrait, Kernel, input_trait
+from ..kernels.parameters import to_points
 from ..kernels.profile_spec import to_spec
 from ..ops import gramian_mvm as _mvm
 from ..ops.tiles import inner_tile, matmul_p, sqdist_tile
@@ -167,6 +170,13 @@ class Gramian(LinearOperator):
             block = _config.DEFAULT.mvm_block_rows if self.mode != "generic" else 128
         self.block = max(1, min(block, self.shape[0]))
         self.kernel, self._spec, self.kernel_reason = select_kernel(self)
+        # the hyperparameters on the points' device and in their dtype, once
+        # (the spec above reads the kernel as given): an MVM copies nothing
+        # from the host and can be captured in a CUDA graph; a real-nu
+        # Matern's table goes to the card here too
+        self.k = to_points(k, self.x)
+        if self.kernel == "direct":
+            _mvm.family_table(self._spec, self.device)
 
     @property
     def is_symmetric(self):
@@ -189,8 +199,9 @@ class Gramian(LinearOperator):
         return gramian_matvec(self.k, self.x, self.y, v, self.mode, self.block)
 
     def _matmat(self, V):
-        # K2 has no many-column variant: its multi-RHS products stay on the
-        # plain path, which reuses each kernel tile across all columns
+        # K1's many-column variant runs at the configured matmul tier, as the
+        # plain path's tile product does; K2 has no many-column variant: its
+        # multi-RHS products stay on the plain path
         if self.kernel == "direct" and self._on_kernel(V):
             return _mvm.gramian_matmat_direct(self.k, self.x, self.y, V.contiguous(),
                                               spec=self._spec)

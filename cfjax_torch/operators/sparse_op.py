@@ -28,6 +28,7 @@ import torch
 from .. import config as _config
 from ..kernels.algebra import Power, Product, Sum
 from ..kernels.base import InputTrait, input_trait
+from ..kernels.parameters import to_points
 from ..kernels.stationary import (
     Cauchy,
     Constant,
@@ -486,6 +487,9 @@ def sparse_gramian(k, x, y=None, tol: float = None, block: int = 2048, format: s
             "sparsification needs an isotropic decaying kernel")
     r2 = r * r
     n, m = xp.shape[0], yp.shape[0]
+    # the hyperparameters on the points' device and dtype, once for the build
+    # (and the lazy operator's MVMs)
+    k = to_points(k, xp)
 
     # cap the scan's (block, m) distance tile at 2^27 entries by shrinking
     # the block for very wide m

@@ -11,8 +11,12 @@ K2 in `cfjax_torch/csrc/expand_mvm.cu`:
     other profile runs the interpreted instance;
   * K1 `gramian_matmat_direct`, many columns: B = K A for A of shape
     (m, p), the same kernels, each entry's profile evaluated once for a
-    chunk of 16 columns (the SLQ probe batches and `cg_columns`); a spec
-    that is not one leaf runs the interpreted instance once per column;
+    chunk of 16 columns on the CUDA cores and contracted into them on the
+    tensor cores at the matmul tier's passes (the SLQ probe batches and
+    `cg_columns`); a spec that is not one leaf runs the interpreted
+    instance once per column. A real-nu Matern is a family of both: its
+    table (`utils/besselk.py` `matern_nu_knots`) is copied to the card
+    once per nu and device (`matern_table`);
   * K2 `gramian_matvec_expand` (replaces `pallas_gramian_matvec`): b = K a
     for isotropic kernels at any d through ||x||^2 + ||y||^2 - 2 x.y, and
     for dot-product kernels through x.y, the x.y tile on the tensor cores
@@ -24,7 +28,8 @@ at the checkout root and loaded with ctypes (`ops/build.py`). Each
 wrapper takes the kernel's plain torch version when its tensors lie on
 the CPU; for CUDA tensors it launches the kernel or raises. `LAUNCHES`
 counts kernel launches per kernel ("direct_cols" the many-column K1's,
-one a call, or one a column for the interpreted instance; K3, in
+one a call, or one a column for the interpreted instance; "matern" K1's
+launches of the real-nu Matern family, single- and many-column; K3, in
 `ops/grad_mvm.py`, counts under "grad"; K4, in `ops/tile_ell_mvm.py`,
 under "tile_ell"). Both kernels are forward-only, like the Pallas
 kernels.
@@ -38,11 +43,12 @@ import functools
 import torch
 
 from ..kernels.profile_spec import (FAMILY_CAUCHY, FAMILY_CONSTS, FAMILY_EQ, FAMILY_IMQ,
-                                    FAMILY_MATERN, FAMILY_NONE, FAMILY_RQ, MAX_CONSTS, MAX_OPS,
-                                    ProfileSpec, to_spec)
+                                    FAMILY_MATERN, FAMILY_MATERN_NU, FAMILY_NONE, FAMILY_RQ,
+                                    MAX_CONSTS, MAX_OPS, ProfileSpec, to_spec)
+from ..utils.besselk import matern_nu_knots
 from ..utils.roofline import Work
 from . import build as _build
-from .tiles import inner_tile, sqdist_tile, tier_passes
+from .tiles import inner_tile, matmul_p, sqdist_tile, tier_passes
 
 # largest d of the direct kernel (its template instances run d = 1..16)
 DIRECT_MAX_D = 16
@@ -54,7 +60,8 @@ _K2_BM, _K2_BN = 64, 64
 _K1F_BM = 128
 _K1F_TN = {1: 512, 2: 512, 3: 512, 4: 256, 8: 128, 16: 128}
 
-LAUNCHES = {"direct": 0, "direct_cols": 0, "expand": 0, "grad": 0, "tile_ell": 0}
+LAUNCHES = {"direct": 0, "direct_cols": 0, "matern": 0, "expand": 0, "grad": 0,
+            "tile_ell": 0}
 
 
 class _CSpec(ctypes.Structure):
@@ -97,9 +104,9 @@ def library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.k1_gramian_matvec_direct.argtypes = [p, p, p, p, p, i, i, i, i, i, _CSpec, p]
     lib.k1_gramian_matvec_direct.restype = i
-    lib.k1_gramian_matvec_family.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, _CFamily, p]
+    lib.k1_gramian_matvec_family.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, _CFamily, p, p]
     lib.k1_gramian_matvec_family.restype = i
-    lib.k1_gramian_matmat_family.argtypes = [p, p, p, p, p] + [i] * 8 + [_CFamily, p]
+    lib.k1_gramian_matmat_family.argtypes = [p, p, p, p, p] + [i] * 9 + [_CFamily, p, p]
     lib.k1_gramian_matmat_family.restype = i
     lib.k1_gramian_matmat_shape.argtypes = [i, p, p, p]
     lib.k1_gramian_matmat_shape.restype = i
@@ -127,6 +134,21 @@ def expand_library() -> ctypes.CDLL:
     lib.k2_gramian_matvec_expand.argtypes = [p] * 7 + [i] * 10 + [_CSpec, _CFamily, p]
     lib.k2_gramian_matvec_expand.restype = i
     return lib
+
+
+@functools.lru_cache(maxsize=16)
+def matern_table(nu: float, device: torch.device) -> torch.Tensor:
+    """The real-nu Matern family's table of nu on `device`, float32
+    (MATERN_KNOTS, 4): copied once per nu and device, so a fit that moves
+    nu builds and copies a new one and nothing else does."""
+    return matern_nu_knots(nu).to(device=device, dtype=torch.float32).contiguous()
+
+
+def family_table(spec, device):
+    """A family spec's table on `device` (the real-nu Matern's), else None."""
+    if spec is None or spec.family != FAMILY_MATERN_NU:
+        return None
+    return matern_table(spec.family_consts[-1], device)
 
 
 def _cdiv(a, b):
@@ -214,11 +236,13 @@ def gramian_matvec_direct_plain(k, x, y, a, block: int = 512):
                     k, x, y, a, block)
 
 
-def gramian_matmat_direct_plain(k, x, y, A, block: int = 512):
+def gramian_matmat_direct_plain(k, x, y, A, block: int = 512, precision=None):
     """Plain torch version of the many-column K1: B = K A for A of shape
     (m, p), the squared distance by the difference form, row block by row
-    block, each kernel tile contracted against all columns at once."""
-    out = [k.profile_value(sqdist_tile(x[i:i + block], y, direct_max_d=x.shape[1])) @ A
+    block, each kernel tile contracted against all columns at once at the
+    matmul tier `precision` (`tiles.matmul_p`: exact on the CPU)."""
+    out = [matmul_p(k.profile_value(sqdist_tile(x[i:i + block], y, direct_max_d=x.shape[1])),
+                    A, precision)
            for i in range(0, x.shape[0], block)]
     return torch.cat(out) if out else A.new_zeros((0, A.shape[1]))
 
@@ -239,28 +263,36 @@ def profile_ops(spec: ProfileSpec) -> tuple:
     """(fp32 instructions, SFU operations) of a one-leaf value profile per
     entry: its family's least work (EQ: FMUL, ex2; MaternP(p): max, 2 FMUL,
     the Horner steps, rsqrt, ex2; RQ: FFMA, FMUL, lg2, ex2; Cauchy and
-    IMQ: FFMA, rcp / rsqrt). An interpreted profile has no fixed count:
-    its caller counts it (e.g. `utils.besselk.matern_nu_ops`)."""
+    IMQ: FFMA, rcp / rsqrt; the tabulated real-nu Matern: max, the root
+    and its residual (4), x and its rounding error (4), the interval's
+    offset and its correction (3), the cubic (4), the knot's factor, the
+    guard's two compares, rsqrt and ex2). An interpreted profile has no
+    fixed count: its caller counts it (e.g. `utils.besselk.matern_nu_ops`)."""
     p = spec.family_p
     ops = {FAMILY_EQ: (1, 1), FAMILY_MATERN: (3 + p + (p > 0), 2), FAMILY_RQ: (2, 2),
-           FAMILY_CAUCHY: (1, 1), FAMILY_IMQ: (1, 1)}
+           FAMILY_CAUCHY: (1, 1), FAMILY_IMQ: (1, 1), FAMILY_MATERN_NU: (19, 2)}
     if spec.jet or spec.family not in ops:
         raise ValueError("profile_ops counts the value families; an interpreted or "
                          "derivative spec is counted by its caller")
     return ops[spec.family]
 
 
-def work_direct(n: int, m: int, d: int, profile: tuple, p: int = None) -> Work:
+def work_direct(n: int, m: int, d: int, profile: tuple, p: int = None,
+                passes: int = 3) -> Work:
     """The least work of K1's function on this card: b = K a for x (n, d),
     y (m, d), a (m,), or with `p` columns B = K A. Per entry: 2d fp32 for
-    the difference-form distance, the profile's (fp32, SFU) `profile`
-    (`profile_ops`), one FFMA a column into the row sums. Bytes: x, y and
-    a (A) read once, b (B) written once, float32."""
+    the difference-form distance and the profile's (fp32, SFU) `profile`
+    (`profile_ops`); one FFMA into the row sum for b = K a, and for B = K A
+    2p tensor-core flops at the tier's tf32 `passes`, where the product's
+    least work lies. Bytes: x, y and a (A) read once, b (B) written once,
+    float32."""
     fp32, sfu = profile
-    cols = 1 if p is None else p
     e = float(n) * m
-    return Work(fp32=e * (2 * d + fp32 + cols), sfu=e * sfu,
-                hbm_bytes=4.0 * ((n + m) * d + (m + n) * cols))
+    if p is None:
+        return Work(fp32=e * (2 * d + fp32 + 1), sfu=e * sfu,
+                    hbm_bytes=4.0 * ((n + m) * d + m + n))
+    return Work(fp32=e * (2 * d + fp32), sfu=e * sfu, tc_flops=e * 2 * p, tc_passes=passes,
+                hbm_bytes=4.0 * ((n + m) * d + (m + n) * p))
 
 
 def work_expand(n: int, m: int, d: int, profile: tuple, passes: int,
@@ -304,6 +336,8 @@ def _matvec_direct(x, y, a, spec, kind):
     if n == 0 or m == 0:
         return out.zero_()
     family = spec.family != FAMILY_NONE
+    if spec.family == FAMILY_MATERN_NU:
+        kind = "matern"
     if family:
         splits, per = column_split(_cdiv(n, _K1F_BM), m, _K1F_TN[_instance_d(d)], x.device)
     else:
@@ -312,19 +346,20 @@ def _matvec_direct(x, y, a, spec, kind):
                                                   device=x.device)
     args = (_ptr(x), _ptr(y), _ptr(a), _ptr(partial), _ptr(out), n, m, d, splits, per)
     if family:
-        return _launch(kind, library().k1_gramian_matvec_family, out, *args,
-                       spec.family, spec.family_p, _cfamily(spec))
+        return _launch(kind, library().k1_gramian_matvec_family, out, *args, spec.family,
+                       spec.family_p, _cfamily(spec), _ptr(family_table(spec, x.device)))
     return _launch(kind, library().k1_gramian_matvec_direct, out, *args, _cspec(spec))
 
 
-def gramian_matmat_direct(k, x, y, A, spec: ProfileSpec = None):
+def gramian_matmat_direct(k, x, y, A, spec: ProfileSpec = None, precision=None):
     """The many-column K1: B = K A for an isotropic kernel at d <= 16 and A
     of shape (m, p) (CUDA), or its plain version for CPU tensors. A
     one-leaf profile runs one launch of its family instance over chunks of
-    16 columns; any other runs the interpreted single-column instance once
-    per column."""
+    16 columns, the product on the tensor cores at the tier's passes
+    (`precision`, else the configured matmul_precision); any other runs
+    the interpreted single-column instance once per column."""
     if not x.is_cuda:
-        return gramian_matmat_direct_plain(k, x, y, A)
+        return gramian_matmat_direct_plain(k, x, y, A, precision=precision)
     spec = _check_inputs(k, x, y, A, spec, "iso", cols=True)
     n, d = x.shape
     m, p = A.shape
@@ -342,9 +377,11 @@ def gramian_matmat_direct(k, x, y, A, spec: ProfileSpec = None):
     splits, per = column_split(_cdiv(n, bm) * _cdiv(p, chunk), m, tn, x.device)
     partial = out if splits == 1 else torch.empty((splits, n, p), dtype=torch.float32,
                                                   device=x.device)
-    return _launch("direct_cols", library().k1_gramian_matmat_family, out, _ptr(x), _ptr(y),
+    kind = "matern" if spec.family == FAMILY_MATERN_NU else "direct_cols"
+    return _launch(kind, library().k1_gramian_matmat_family, out, _ptr(x), _ptr(y),
                    _ptr(A), _ptr(partial), _ptr(out), n, m, d, p, splits, per,
-                   spec.family, spec.family_p, _cfamily(spec))
+                   spec.family, spec.family_p, tier_passes(precision), _cfamily(spec),
+                   _ptr(family_table(spec, x.device)))
 
 
 def gramian_matvec_expand(k, x, y, a, mode: str = "iso", precision=None,
@@ -367,8 +404,10 @@ def gramian_matvec_expand(k, x, y, a, mode: str = "iso", precision=None,
     splits, per = column_split(_cdiv(n, _K2_BM), m, _K2_BN, x.device)
     partial = out if splits == 1 else torch.empty((splits, n), dtype=torch.float32,
                                                   device=x.device)
+    # K2 takes the closed-form families; a real-nu Matern runs its interpreter
+    family, fam_p = ((FAMILY_NONE, 0) if spec.family == FAMILY_MATERN_NU
+                     else (spec.family, spec.family_p))
     return _launch("expand", expand_library().k2_gramian_matvec_expand, out,
                    _ptr(x), _ptr(y), _ptr(x2), _ptr(y2), _ptr(a), _ptr(partial),
                    _ptr(out), n, m, d, int(mode == "iso"), splits, per, passes,
-                   spec.family, spec.family_p, int(vec4_ok(d, x, y)), _cspec(spec),
-                   _cfamily(spec))
+                   family, fam_p, int(vec4_ok(d, x, y)), _cspec(spec), _cfamily(spec))

@@ -16,6 +16,7 @@ nu = 2.3, ~ 0.9 at nu = 25): cfjax's, kept as it is.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -243,3 +244,76 @@ def matern_nu_reference(nu: float, s):
     t2 = nu ** 2 / (8 * (2 - 3 * nu + nu ** 2)) if nu > 2 else 0.0
     poly = (1 + t1 * s + t2 * s * s, t1 + 2 * t2 * s, 2 * t2 + 0 * s)
     return tuple(torch.where(taylor, u, v) for u, v in zip(poly, closed))
+
+
+# The tabulated real-nu Matern family (kernels/profile_spec.py
+# FAMILY_MATERN_NU, csrc/profile_spec.cuh `matern_nu_tabled`). The table
+# covers x = sqrt(2 nu s) over MATERN_OCTAVES octaves from 2^e_lo, each cut
+# into MATERN_STEPS equal intervals: an interval is the float's exponent and
+# its top 5 mantissa bits, so the kernels index it with integer operations.
+MATERN_OCTAVES = 32
+MATERN_STEPS = 32
+MATERN_KNOTS = MATERN_OCTAVES * MATERN_STEPS
+# the largest nu the table takes: x^nu K_nu(x) stays in float64's range
+MATERN_TABLE_MAX_NU = 64.0
+
+
+def matern_nu_octave(nu: float) -> int:
+    """e_lo, the first octave of nu's table. Below it the guard holds: for
+    nu > 1 the table starts an octave below x at the Taylor guard's bound
+    (`matern_nu_table`), so every x above the bound lies in it; for nu <= 1
+    it starts at 2^-24, below which f = 1 - a x^(2 nu) to float32's
+    precision (`matern_nu_small`)."""
+    if nu <= 1:
+        return -24
+    eps = 2.0 ** -23
+    bound = eps if nu <= 2 else math.sqrt(eps)
+    return math.floor(math.log2(math.sqrt(2 * nu * bound))) - 1
+
+
+def matern_nu_small(nu: float) -> float:
+    """a of f = 1 - a x^(2 nu) + O(x^2), the profile at small x for
+    nu < 1 (0 for nu >= 1): 2^(-2 nu) Gamma(1 - nu) / Gamma(1 + nu)."""
+    if nu >= 1:
+        return 0.0
+    return 2.0 ** (-2 * nu) * math.gamma(1 - nu) / math.gamma(1 + nu)
+
+
+def _matern_log(nu: float, x):
+    """(ln f, d ln f / dx) of c x^nu K_nu(x) at x > 0 in float64, by
+    `_kv_pair` and the order recurrence of `matern_nu_reference`; d/dx
+    x^nu K_nu(x) = -x x^(nu-1) K_(nu-1)(x)."""
+    t = matern_nu_table(nu, False)
+    A, B, _ = _kv_pair(t, x)
+    n, mu = int(t[9]), t[7]
+    if n == 0:   # x^(nu-1) K_(nu-1) = (x^(nu+1) K_(nu+1) - 2 nu x^nu K_nu) / x^2
+        g, gm = A, (B - 2 * mu * A) / (x * x)
+    else:
+        gm, g = A, B
+        for k in range(1, n):
+            gm, g = g, x * x * gm + 2 * (mu + k) * g
+    return math.log(t[2]) + t[3] * math.log(2.0) + torch.log(g), -x * gm / g
+
+
+@functools.lru_cache(maxsize=16)
+def matern_nu_knots(nu: float) -> torch.Tensor:
+    """The table of the tabulated Matern family at nu, float64 (MATERN_KNOTS,
+    4): interval k covers x_k .. x_(k+1), x_k = 2^(e_lo + k // 32) (1 +
+    (k % 32) / 32), and holds (f(x_k), a1, a2, a3) with f(x_k + q h) =
+    f(x_k) 2^(q (a1 + q (a2 + q a3))), h = x_(k+1) - x_k, q in [0, 1): the
+    cubic Hermite interpolant of log2 f(x) / f(x_k) from ln f and its
+    derivative at both knots, in float64 by `_matern_log`. Where a knot's
+    value is below float32's smallest normal the interval is 0. Cached by
+    nu: a fit that moves nu builds a new table."""
+    e = matern_nu_octave(nu) + torch.arange(MATERN_KNOTS + 1, dtype=torch.float64) \
+        .div(MATERN_STEPS, rounding_mode="floor")
+    j = torch.arange(MATERN_KNOTS + 1, dtype=torch.float64).remainder(MATERN_STEPS)
+    x = torch.exp2(e) * (1 + j / MATERN_STEPS)
+    lnf, dlnf = _matern_log(nu, x)
+    h = x[1:] - x[:-1]
+    ln2 = math.log(2.0)
+    p1 = (lnf[1:] - lnf[:-1]) / ln2
+    m0, m1 = h * dlnf[:-1] / ln2, h * dlnf[1:] / ln2
+    tab = torch.stack([torch.exp(lnf[:-1]), m0, 3 * p1 - 2 * m0 - m1, m0 + m1 - 2 * p1], dim=1)
+    live = (lnf[1:] > -126 * ln2) & torch.isfinite(tab).all(dim=1)
+    return torch.where(live[:, None], tab, torch.zeros_like(tab))

@@ -38,13 +38,14 @@ card, then drives the paths a user runs:
     (`gp_condition`: K1 + rank-2048 Nystrom PCG; `approx_refined_solve`
     with the treecode inside, K1 outside) and `refined_solve` at
     n = 10^5 (K1 inside, the float64 Gramian outside);
-  * phase 21, the real-nu Matern kernel through K1, K2 and K3 (the K_nu
-    routine of the profile interpreter): its profile through K1 at 10^5
-    distances for nu from 0.3 to 25, K1 at BASELINE config 1's shape, K2
-    at d = 64 and K3 at config 4's shape at each tier, each against a
-    float64 reference by the kernels' method and against cfjax's
+  * phase 21, the real-nu Matern kernel through K1 (its tabulated family,
+    single- and many-column; the interpreted instance beside it), K2 and
+    K3 (the K_nu routine of the profile interpreter): its profile through
+    K1 at 10^5 distances for nu from 0.3 to 25, K1 at BASELINE config 1's
+    shape, K2 at d = 64 and K3 at config 4's shape at each tier, each
+    against a float64 reference by the kernels' method and against cfjax's
     quadrature where that is accurate, then `gp_condition` at n = 2^15
-    (Nystrom PCG through K1's interpreted instance);
+    (Nystrom PCG through K1's Matern family);
   * phases 22-23, BASELINE config 5's hyperparameter inference as the
     north-star demo runs it: NUTS and HMC over (log l, log v) on the
     Cholesky logML of a 4096-point subset of n = 2^20 points, then host
@@ -71,11 +72,13 @@ card, then drives the paths a user runs:
   * phase 26, BASELINE's two derivative-MVM rows, which no kernel takes:
     the HessianKernel MVM (EQ, n = 128, d = 16) and the composite
     gradient MVM (MaternP(2) + Line(1)^2 + NN(0.1), n = d = 1024, the
-    "pair" mode), each against float64 and its share of the least work
-    (`cfjax_torch.utils.roofline`), and the composite's ms a call with its
-    hyperparameters on the host, as built.
-Phase 1 holds K1 (its family instances, its many-column instances and its
-interpreted one) and K2,
+    "pair" mode), each built as a user builds it (hyperparameters on the
+    host; the gramian moves them to the card once), against float64 and
+    its share of the least work (`cfjax_torch.utils.roofline`) from CUDA
+    graphs.
+Phase 1 holds K1 (its family instances, the real-nu Matern's tabulated
+one among them, its many-column instances, whose product runs on the
+tensor cores at each matmul tier, and its interpreted one) and K2,
 phase 6 K3, phase 9 K4 against their float64 plain versions, and phases
 17-20 K1's products at the sizes that path gives it (up to n = 10^6); K2 and K3
 at each matmul tier ("highest", "high", "default": their tensor-core
@@ -128,6 +131,13 @@ K3_BOUND = 1e-4   # K3: float32 jet and Taylor bound (cfjax's interpret toleranc
 TIERS = ("highest", "high", "default")
 TIER_BOUND = {"K2": ({"highest": 5e-6, "high": 5e-6, "default": 5e-6},
                      {"highest": 5e-6, "high": 5e-6, "default": 1e-3}),
+              # the many-column K1's tensor-core product: K1_BOUND at three
+              # passes; one pass rounds f and A to tf32 (2^-12 relative each),
+              # a row sum without cancellation ~2^-11.5 = 3.5e-4 off float64,
+              # and f differs from the plain profile in its last bits, which
+              # moves a few of the roundings the plain version emulates
+              "K1C": ({"highest": 1e-5, "high": 1e-5, "default": 1e-4},
+                      {"highest": 1e-5, "high": 1e-5, "default": 2e-3}),
               "K3": ({"highest": 3e-5, "high": 3e-5, "default": 5e-3},
                      {"highest": 3e-5, "high": 3e-5, "default": 1e-2})}
 # the float64 residual of phases 7 and 8's solves at each tier
@@ -185,8 +195,12 @@ def phase1_kernels(tk, mvm):
     K1: every family (Exp is MaternP's p = 0), under lengthscales and a
     constant, through its specialised instance; a sum and MaternP(2) with
     its family cleared through the interpreted instance; d = 5 runs the
-    D = 8 instance with zero coordinates."""
+    D = 8 instance with zero coordinates. The many-column K1 at every p,
+    and at each tier against the plain version at the tier (`check_tiers`,
+    the K1C limits); the real-nu Matern family against the kernels' method
+    in float64."""
     from cfjax_torch.kernels.profile_spec import to_spec
+    from cfjax_torch.ops.tiles import matmul_p
 
     rng = np.random.default_rng(1)
     k1_profiles = [tk.EQ(), tk.Exp(), tk.MaternP(0), tk.MaternP(1), tk.MaternP(2),
@@ -198,7 +212,8 @@ def phase1_kernels(tk, mvm):
     k1_cases.append((tk.MaternP(2), interp))
     # cases, max rel, max abs
     res = {"family": [0, 0.0, 0.0], "interpreted": [0, 0.0, 0.0], "expand": [0, 0.0, 0.0],
-           "cols": [0, 0.0, 0.0]}
+           "cols": [0, 0.0, 0.0], "matern": [0, 0.0, 0.0]}
+    tiers_c = tier_record()
 
     def record(kind, out, ref, bound, what):
         r = rel(out, ref)
@@ -240,6 +255,38 @@ def phase1_kernels(tk, mvm):
                         check(torch.equal(out, mvm.gramian_matmat_direct(k, x, y, A, spec=spec)),
                               f"many-column K1 d={d} {n}x{m} {k!r}: two calls differ")
                         repeat += 1
+                    if p in (16, 17) and n > 7 and spec.family:
+                        check_tiers(tiers_c, "K1C", f"many-column K1 d={d} p={p} {k!r}", ref,
+                                    lambda tier: mvm.gramian_matmat_direct(
+                                        k, x, y, A, spec=spec, precision=tier),
+                                    lambda tier: mvm.gramian_matmat_direct_plain(
+                                        k, x, y, A, precision=tier))
+    # real-nu Matern through its tabulated family (single- and many-column,
+    # each tier) against the kernels' method in float64 (`exact_matern`):
+    # cfjax's quadrature, the plain version, is not accurate at small s
+    for nu, ls, c in ((2.3, 0.8, 1.0), (0.5, 1.0, 1.0), (10.2, 1.3, 3.0)):
+        k = c * tk.Lengthscale(tk.Matern(nu), ls)
+        kx = c * tk.Lengthscale(exact_matern(tk, nu), ls)
+        for d in (1, 3, 5, 16):
+            xs, ys = rng.standard_normal((1003, d)), rng.standard_normal((701, d))
+            ys[:16] = xs[:16]
+            ys[16:32] = xs[:16] + 1e-3 * rng.standard_normal((16, d))
+            x, y = cuda_tensor(xs), cuda_tensor(ys)
+            with torch.no_grad():
+                K64 = kx.profile_value(torch.cdist(x.double(), y.double(),
+                                                   compute_mode="donot_use_mm_for_euclid_dist") ** 2)
+            a = cuda_tensor(rng.standard_normal(701))
+            record("matern", mvm.gramian_matvec_direct(k, x, y, a), K64 @ a.double(), K1_BOUND,
+                   f"K1 Matern({nu}) family d={d}")
+            for p in (1, 16, 17):
+                A = cuda_tensor(rng.standard_normal((701, p)))
+                ref = K64 @ A.double()
+                record("matern", mvm.gramian_matmat_direct(k, x, y, A), ref, K1_BOUND,
+                       f"many-column K1 Matern({nu}) family d={d} p={p}")
+                if p > 1:
+                    check_tiers(tiers_c, "K1C", f"many-column K1 Matern({nu}) d={d} p={p}", ref,
+                                lambda tier: mvm.gramian_matmat_direct(k, x, y, A, precision=tier),
+                                lambda tier: matmul_p(K64.float(), A, tier))
     # points scaled by 1/sqrt(d): distances and inner products O(1), so
     # the profiles neither underflow nor overflow in f32; the first 16 rows
     # of y are rows of x (s = 0) and the next 16 those rows moved by 1e-3
@@ -264,7 +311,7 @@ def phase1_kernels(tk, mvm):
                     lambda tier: mvm.gramian_matvec_expand_plain(k, x, y, a, mode,
                                                                  precision=tier))
     torch.cuda.synchronize()
-    res["tiers"] = tiers
+    res["tiers"], res["tiers_c"] = tiers, tiers_c
     fam, itp = res["family"], res["interpreted"]
     res["direct"] = [fam[0] + itp[0], max(fam[1], itp[1]), max(fam[2], itp[2])]
     print(f"phase 1 kernels vs plain: K1 family instances {fam[0]} cases (EQ, Exp, MaternP "
@@ -274,6 +321,11 @@ def phase1_kernels(tk, mvm):
           f"{res['cols'][0]} cases (the same profiles, d in 1, 3, 5, 16, p in 1, 2, 7, 16, 17, "
           f"40, 1003x701 and 7x4099, 16 coincident points) max rel {res['cols'][1]:.3e} max "
           f"abs {res['cols'][2]:.3e} (bound {K1_BOUND:.0e}), {repeat} cases bit-repeatable; "
+          f"by tier (p 16, 17) {tier_text(tiers_c, 'K1C')}; the real-nu Matern family (nu 2.3, "
+          f"0.5, 10.2 under a lengthscale and a constant; d 1, 3, 5, 16; one column and p 1, "
+          f"16, 17; 16 coincident and 16 near-coincident points) against the kernels' method "
+          f"in float64: {res['matern'][0]} cases max rel {res['matern'][1]:.3e} max abs "
+          f"{res['matern'][2]:.3e} (bound {K1_BOUND:.0e}); "
           f"K2 {res['expand'][0]} cases (6 iso kernels at d 17, 64, 257 and 2 dot at 64, "
           f"16 coincident and 16 near-coincident points each) max rel {res['expand'][1]:.3e} "
           f"(bound {K2_BOUND:.0e}) max abs {res['expand'][2]:.3e}; K2 by tier "
@@ -1170,9 +1222,10 @@ def cols_text(k1c):
             f"float64 plain on rows 0..{t['rows']} rel {t['err']:.3e} max abs {t['abs_err']:.3e} "
             f"(bound {K1_BOUND:.0e}); 16 single-column K1 calls {t['singles_ms']:.4f} ms device "
             f"({t['singles_ms'] / t['ms']:.2f}x); bound {t['bound'][0]:.4f} ms "
-            f"({t['bound'][1]}) = {100 * t['bound'][0] / t['ms']:.1f}% of device, fp32 issue "
-            f"with exp2's split argument {t['issue'][0]:.4f} ms = "
-            f"{100 * t['issue'][0] / t['ms']:.1f}%")
+            f"({t['bound'][1]}) = {t['pct']:.1f}% of device (valid); \"default\" (1 pass) "
+            f"{t['default_ms']:.4f} ms device, bound {t['bound1'][0]:.4f} ms ({t['bound1'][1]}) "
+            f"= {t['pct1']:.1f}%; the count with p FFMAs an entry {t['old'][0]:.4f} ms "
+            f"({t['old'][1]})")
     return "; ".join(parts)
 
 
@@ -1786,12 +1839,20 @@ def time_k1_cols(mvm, tk, xh, x17, p=16):
             singles_ms = float(np.median(graph_ms(singles, 1, 3)))
         check(dev < singles_ms, f"many-column K1 n={n} p={p}: {dev:.4f} ms device, not below "
                                 f"{p} single-column calls ({singles_ms:.4f} ms)")
+        one = float(np.median(graph_ms(lambda: mvm.gramian_matmat_direct(
+            k, x, x, A, spec=spec, precision="default"), 3, 3)))
+        # the least work with the product on the tensor cores at 3 and 1
+        # passes; beside it the count with the product as p FFMAs an entry
+        # on the CUDA cores
         work = mvm.work_direct(n, n, 3, mvm.profile_ops(spec), p=p)
-        # beside it the fp32 issue with the 4 instructions an entry that K1
-        # spends on exp2's split argument
+        work1 = mvm.work_direct(n, n, 3, mvm.profile_ops(spec), p=p, passes=1)
+        summ, summ1 = summarize(work, dev / 1e3), summarize(work1, one / 1e3)
+        check(summ["valid"] and summ1["valid"], f"many-column K1 n={n}: {summ.get('why')} "
+                                                f"{summ1.get('why')}")
         out[n] = dict(call_ms=call, ms=dev, plain_ms=plain, singles_ms=singles_ms, rows=rows,
-                      err=err, abs_err=abs_err, bound=roof(work),
-                      issue=roof(Work(fp32=work.fp32 + 4.0 * n * n)))
+                      err=err, abs_err=abs_err, bound=roof(work), default_ms=one,
+                      bound1=roof(work1), old=roof(Work(fp32=n * n * (2 * 3 + 6 + p))),
+                      pct=summ["roofline_pct"], pct1=summ1["roofline_pct"])
     return out
 
 
@@ -1835,12 +1896,14 @@ def pair_histogram(x, y, scale=1.0, bins=4096, block=2048):
 
 def phase21a_profile(tk, mvm):
     """K1 returns the profile itself for x (N, 1) = r, y = 0 and a = [1]: N =
-    10^5 log-spaced r in [1e-6, 80] at each of MATERN_NUS, held against the
-    float64 reference (`matern_nu_reference`) at every point above 1e-30,
-    and against the float64 plain version (cfjax's quadrature) where that
-    is within PLAIN_SOUND of the reference; where it is not, its own error
-    is reported."""
-    from cfjax_torch.kernels.profile_spec import to_spec
+    10^5 log-spaced r in [1e-6, 80] at each of MATERN_NUS, through the
+    tabulated family and through the interpreted instance (the K_nu
+    routine K2 and K3 run), each held against the float64 reference
+    (`matern_nu_reference`) at every point above 1e-30, and against the
+    float64 plain version (cfjax's quadrature) where that is within
+    PLAIN_SOUND of the reference; where it is not, its own error is
+    reported."""
+    from cfjax_torch.kernels.profile_spec import FAMILY_MATERN_NU, to_spec
     from cfjax_torch.utils.besselk import matern_nu_reference
 
     N = 100000
@@ -1851,41 +1914,50 @@ def phase21a_profile(tk, mvm):
     rows = []
     for nu in MATERN_NUS:
         spec, why = to_spec(tk.Matern(nu))
-        check(spec is not None and spec.family == 0, f"phase 21a: Matern({nu}) spec: {why}")
-        out = mvm.gramian_matvec_direct(tk.Matern(nu), x, y, a, spec=spec).double()
+        check(spec is not None and spec.family == FAMILY_MATERN_NU,
+              f"phase 21a: Matern({nu}) spec: {why}")
         ref = matern_nu_reference(nu, s)[0]
         plain = spec.evaluate(s)
         live = ref > 1e-30
-        check(bool(torch.isfinite(out).all()), f"phase 21a: Matern({nu}) non-finite profile")
-        err = float(((out - ref).abs() / ref)[live].max())
         sound = live & ((plain - ref).abs() <= PLAIN_SOUND * ref)
-        err_plain = float(((out - plain).abs() / plain)[sound].max())
         off = live & ~sound
         plain_off = float(((plain - ref).abs() / ref)[off].max()) if off.any() else 0.0
-        check(err <= MATERN_BOUND and err_plain <= MATERN_BOUND,
-              f"phase 21a: Matern({nu}) through K1: relative error {err:.3e} against the float64 "
-              f"reference, {err_plain:.3e} against the float64 plain version where it is sound "
-              f"(bound {MATERN_BOUND:.0e})")
-        rows.append((nu, int(live.sum()), err, int(sound.sum()), err_plain, int(off.sum()),
-                     plain_off, float(r[off].max()) if off.any() else 0.0,
-                     float((out - ref).abs().max())))
+        errs = []
+        for route, sp in (("family", spec), ("interpreted", dataclasses.replace(spec, family=0))):
+            out = mvm.gramian_matvec_direct(tk.Matern(nu), x, y, a, spec=sp).double()
+            check(bool(torch.isfinite(out).all()), f"phase 21a: Matern({nu}) non-finite profile")
+            err = float(((out - ref).abs() / ref)[live].max())
+            err_plain = float(((out - plain).abs() / plain)[sound].max())
+            check(err <= MATERN_BOUND and err_plain <= MATERN_BOUND,
+                  f"phase 21a: Matern({nu}) through K1's {route} instance: relative error "
+                  f"{err:.3e} against the float64 reference, {err_plain:.3e} against the float64 "
+                  f"plain version where it is sound (bound {MATERN_BOUND:.0e})")
+            errs.append((err, err_plain, float((out - ref).abs().max())))
+        rows.append((nu, int(live.sum()), errs, int(sound.sum()), int(off.sum()), plain_off,
+                     float(r[off].max()) if off.any() else 0.0))
     print("phase 21a K1 Matern profile (x = r, N = 100000 log-spaced r in [1e-6, 80], y = 0, "
-          f"a = 1): against the float64 reference at every value above 1e-30, and against the "
-          f"float64 plain version (cfjax's quadrature) where it is within {PLAIN_SOUND:.0e} of "
-          f"the reference (bound {MATERN_BOUND:.0e}): " + "; ".join(
-              f"nu={nu}: {lv} points max rel {e:.3e}, vs plain on {sd} {ep:.3e}; the plain version "
-              f"misses by more than {PLAIN_SOUND:.0e} on {no} points (r <= {rmax:.3e}), by up to "
-              f"{po:.3e}" for nu, lv, e, sd, ep, no, po, rmax, _ in rows), flush=True)
-    return max(row[-1] for row in rows)
+          f"a = 1), the tabulated family / the interpreted instance: against the float64 "
+          f"reference at every value above 1e-30, and against the float64 plain version "
+          f"(cfjax's quadrature) where it is within {PLAIN_SOUND:.0e} of the reference (bound "
+          f"{MATERN_BOUND:.0e}): " + "; ".join(
+              f"nu={nu}: {lv} points max rel {ef[0]:.3e} / {ei[0]:.3e}, vs plain on {sd} "
+              f"{ef[1]:.3e} / {ei[1]:.3e}; the plain version misses by more than "
+              f"{PLAIN_SOUND:.0e} on {no} points (r <= {rmax:.3e}), by up to {po:.3e}"
+              for nu, lv, (ef, ei), sd, no, po, rmax in rows), flush=True)
+    return max(row[2][0][2] for row in rows), max(row[2][1][2] for row in rows)
 
 
 def phase21a_headline(tk, mvm):
     """K1 at BASELINE config 1's shape (d = 3, n = 16384, N(0, I) points)
-    with Matern(2.3) and Matern(2.5) through the interpreted instance, its
+    with Matern(2.3) and Matern(2.5) through the tabulated family, its
     first 4096 rows against the float64 plain version and the float64
     reference at K1_BOUND; Matern(2.5) against the MaternP(2) family
-    instance; times and the bound of Matern(2.3)."""
-    from cfjax_torch.kernels.profile_spec import to_spec
+    instance; times and the bound of Matern(2.3) through the family (the
+    bound by `work_direct` on its `profile_ops`, valid by `summarize`) and
+    through the interpreted instance (the K_nu routine's operations on this
+    run's distances, `matern_nu_ops`); the many-column family at p = 16,
+    one launch, against 16 single-column launches."""
+    from cfjax_torch.kernels.profile_spec import FAMILY_MATERN_NU, to_spec
 
     rng = np.random.default_rng(21)
     n = 16384
@@ -1894,7 +1966,7 @@ def phase21a_headline(tk, mvm):
     res = {}
     for nu in (2.3, 2.5):
         k = tk.Matern(nu)
-        check(to_spec(k)[0].family == 0, "phase 21a: Matern has no K1 family")
+        check(to_spec(k)[0].family == FAMILY_MATERN_NU, "phase 21a: Matern takes no K1 family")
         out = mvm.gramian_matvec_direct(k, x, x, a)
         rows = slice(4096)
         with torch.no_grad():
@@ -1913,22 +1985,52 @@ def phase21a_headline(tk, mvm):
             check(res["family"] <= 1e-5, f"phase 21a: Matern(2.5) vs MaternP(2)'s family "
                                          f"instance {res['family']:.3e} > 1e-5")
     k = tk.Matern(2.3)
-    before = mvm.LAUNCHES["direct"]
+    spec = to_spec(k)[0]
+    itp = dataclasses.replace(spec, family=0)
+    A = cuda_tensor(rng.standard_normal((n, 16)))
+    cols = [A[:, c].contiguous() for c in range(16)]
+    before = dict(mvm.LAUNCHES)
     call, dev = call_and_device_ms(lambda: mvm.gramian_matvec_direct(k, x, x, a))
+    icall, idev = call_and_device_ms(lambda: mvm.gramian_matvec_direct(k, x, x, a, spec=itp))
+    ccall, cdev = call_and_device_ms(lambda: mvm.gramian_matmat_direct(k, x, x, A))
+    singles = float(np.median(graph_ms(lambda: [mvm.gramian_matvec_direct(k, x, x, c)
+                                                for c in cols], 1, 3)))
+    got, ref = mvm.gramian_matmat_direct(k, x, x, A)[:4096], None
+    with torch.no_grad():
+        ref = mvm.gramian_matmat_direct_plain(exact_matern(tk, 2.3), x[:4096].double(),
+                                              x.double(), A.double(), block=256)
+    cerr = rel(got, ref)
+    check(cerr <= K1_BOUND, f"phase 21a: the many-column Matern(2.3) family, rows 0..4095: "
+                            f"{cerr:.3e} vs the float64 reference > {K1_BOUND:.0e}")
     _, plain_s = sync_time(lambda: mvm.gramian_matvec_direct_plain(k, x, x, a, block=32))
-    mvm.LAUNCHES["direct"] = before   # the timing's launches are not the path's
+    mvm.LAUNCHES.update(before)   # the timing's launches are not the path's
+    work = mvm.work_direct(n, n, 3, mvm.profile_ops(spec))
+    wcols = mvm.work_direct(n, n, 3, mvm.profile_ops(spec), p=16)
+    summ, summc = summarize(work, dev / 1e3), summarize(wcols, cdev / 1e3)
+    check(summ["valid"] and summc["valid"], f"phase 21a: {summ.get('why')} {summc.get('why')}")
     hist = pair_histogram(x, x)
     fp32, sfu = matern_nu_ops(2.3, hist)
-    bound = roof(mvm.work_direct(n, n, 3, (fp32, sfu)))
-    res.update(call_ms=call, ms=dev, plain_ms=plain_s * 1e3, bound=bound, ops=(fp32, sfu))
-    print(f"phase 21a K1 n={n} d=3 N(0, I) (BASELINE config 1's shape), the interpreted "
-          f"instance, rows 0..4095: Matern(2.3) rel {res[2.3][0]:.3e} vs float64 plain, {res[2.3][1]:.3e} vs the "
-          f"float64 reference; Matern(2.5) {res[2.5][0]:.3e} / {res[2.5][1]:.3e} (bound "
+    ibound = roof(mvm.work_direct(n, n, 3, (fp32, sfu)))
+    res.update(call_ms=call, ms=dev, plain_ms=plain_s * 1e3, bound=roof(work),
+               pct=summ["roofline_pct"], interp_call_ms=icall, interp_ms=idev, ibound=ibound,
+               ops=(fp32, sfu), cols_call_ms=ccall, cols_ms=cdev, cols_bound=roof(wcols),
+               cols_pct=summc["roofline_pct"], singles_ms=singles, cols_abs=float(
+                   (got.double() - ref).abs().max()))
+    print(f"phase 21a K1 n={n} d=3 N(0, I) (BASELINE config 1's shape), the tabulated family, "
+          f"rows 0..4095: Matern(2.3) rel {res[2.3][0]:.3e} vs float64 plain, {res[2.3][1]:.3e} "
+          f"vs the float64 reference; Matern(2.5) {res[2.5][0]:.3e} / {res[2.5][1]:.3e} (bound "
           f"{K1_BOUND:.0e}), vs MaternP(2)'s family instance {res['family']:.3e} (bound 1e-5); "
-          f"Matern(2.3) {call:.4f} ms a call ({dev:.4f} ms device), plain (float32, cfjax's "
-          f"quadrature, 32-row blocks) {plain_s * 1e3:.1f} ms; the K_nu routine {fp32:.1f} fp32 + "
-          f"{sfu:.2f} SFU an entry on this run's distances, bound {bound[0]:.4f} ms ({bound[1]}) "
-          f"= {100 * bound[0] / dev:.1f}% of device", flush=True)
+          f"Matern(2.3) {call:.4f} ms a call ({dev:.4f} ms device), bound {res['bound'][0]:.4f} "
+          f"ms ({res['bound'][1]}, {mvm.profile_ops(spec)} fp32 and SFU an entry) = "
+          f"{summ['roofline_pct']:.1f}% of device (valid); the interpreted instance "
+          f"{icall:.4f} ms a call ({idev:.4f} ms device), the K_nu routine {fp32:.1f} fp32 + "
+          f"{sfu:.2f} SFU an entry on this run's distances, bound {ibound[0]:.4f} ms "
+          f"({ibound[1]}) = {100 * ibound[0] / idev:.1f}%; the many-column family p=16 "
+          f"{ccall:.4f} ms a call ({cdev:.4f} ms device, one launch), 16 single-column launches "
+          f"{singles:.4f} ms device, bound {res['cols_bound'][0]:.4f} ms "
+          f"({res['cols_bound'][1]}) = {summc['roofline_pct']:.1f}%, rows 0..4095 rel "
+          f"{cerr:.3e} vs the float64 reference; plain (float32, cfjax's quadrature, 32-row "
+          f"blocks) {plain_s * 1e3:.1f} ms", flush=True)
     return res
 
 
@@ -2046,21 +2148,23 @@ def phase21c_k3(tk, gmvm):
 def phase21d_solve(tk, ops, gp, mvm):
     """gp_condition(Lengthscale(Matern(2.3), 1), x, y) at n = 2^15, d = 3,
     N(0, I) points, y = sin(x_0) + 0.01 N(0, 1): above max_cholesky_size,
-    so Nystrom PCG through K1's interpreted instance; the float64 residual
-    of alpha on 4096 rows through the float64 reference (<= 2e-4)."""
+    so Nystrom PCG through K1's tabulated Matern family (counted under
+    "matern"); the float64 residual of alpha on 4096 rows through the
+    float64 reference (<= 2e-4)."""
+    from cfjax_torch.kernels.profile_spec import to_spec
+
     rng = np.random.default_rng(214)
     n = 1 << 15
     x = cuda_tensor(rng.standard_normal((n, 3)))
     y = torch.sin(x[:, 0]) + Y_NOISE * cuda_tensor(rng.standard_normal(n))
     k = tk.Lengthscale(tk.Matern(2.3), 1.0)
     how = ops.explain(k, x)
-    check("K1 gramian_matvec_direct" in how and "interpreted" in how,
-          f"phase 21d: explain() {how!r}")
-    before = mvm.LAUNCHES["direct"]
+    check("K1 gramian_matvec_direct (family instance)" in how, f"phase 21d: explain() {how!r}")
+    before = mvm.LAUNCHES["matern"]
     torch.cuda.reset_peak_memory_stats()
     post, wall = sync_time(lambda: gp.gp_condition(k, x, y, noise=NOISE, tol=1e-5, maxiter=500))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    launches = mvm.LAUNCHES["direct"] - before
+    launches = mvm.LAUNCHES["matern"] - before
     it = int(post.solve_info[0])
     check(it < 500 and launches >= it, f"phase 21d: {it} PCG iterations, {launches} K1 launches")
     rows = slice(4096)
@@ -2073,16 +2177,17 @@ def phase21d_solve(tk, ops, gp, mvm):
     check(res64 <= 2e-4, f"phase 21d: float64 residual on 4096 rows {res64:.3e} > 2e-4")
     a = cuda_tensor(rng.standard_normal(n))
     call, dev = call_and_device_ms(lambda: mvm.gramian_matvec_direct(k, x, x, a), reps=5)
-    mvm.LAUNCHES["direct"] = before + launches
-    fp32, sfu = matern_nu_ops(2.3, pair_histogram(x, x))
-    bound = roof(mvm.work_direct(n, n, 3, (fp32, sfu)))
+    mvm.LAUNCHES["matern"] = before + launches
+    work = mvm.work_direct(n, n, 3, mvm.profile_ops(to_spec(k)[0]))
+    summ = summarize(work, dev / 1e3)
+    check(summ["valid"], f"phase 21d: {summ.get('why')}")
+    bound = roof(work)
     print(f"phase 21d gp_condition Lengthscale(Matern(2.3), 1) n={n} d=3 noise {NOISE}: "
-          f"{it} Nystrom-PCG iterations, {launches} K1 launches, {wall:.3f} s (peak "
-          f"{peak:.2f} GiB: the Nystrom panel through cfjax's quadrature), float64 residual on "
-          f"4096 rows {res64:.3e} (bound 2e-4); K1 at this shape {call:.3f} ms a call ({dev:.3f} "
-          f"ms device), the K_nu routine {fp32:.1f} fp32 + {sfu:.2f} SFU an entry, bound "
-          f"{bound[0]:.3f} ms ({bound[1]}) = {100 * bound[0] / dev:.1f}% of device | {how}",
-          flush=True)
+          f"{it} Nystrom-PCG iterations, {launches} K1 launches of the tabulated family, "
+          f"{wall:.3f} s (peak {peak:.2f} GiB: the Nystrom panel through cfjax's quadrature), "
+          f"float64 residual on 4096 rows {res64:.3e} (bound 2e-4); K1 at this shape "
+          f"{call:.3f} ms a call ({dev:.3f} ms device), bound {bound[0]:.3f} ms ({bound[1]}) = "
+          f"{summ['roofline_pct']:.1f}% of device (valid) | {how}", flush=True)
     return dict(iters=it, wall=wall, res64=res64, call_ms=call, ms=dev, launches=launches,
                 bound=bound)
 
@@ -2655,9 +2760,10 @@ def phase26_derivative_rows(tk, ops):
     float64 product on the card (at DERIV_BOUND), and the share of the
     least work (`work_hessian_mvm`, `work_gradient_mvm`: cfjax's
     benchmark counts on this card), which `summarize` must call valid.
-    The composite is timed with its hyperparameters moved to the card (a
-    CUDA graph cannot copy them from the host) and, a call, as a user
-    builds it, its hyperparameters on the host."""
+    Both kernels are built as a user builds them, their hyperparameters on
+    the host: the gramian moves them to the card once, so the device ms
+    come from CUDA graphs of the operators as built."""
+    from cfjax_torch.kernels.parameters import leaves
     from cfjax_torch.derivative import GradientKernel, HessianKernel
     from cfjax_torch.derivative.gradient import work_gradient_mvm
     from cfjax_torch.derivative.hessian import work_hessian_mvm
@@ -2665,8 +2771,7 @@ def phase26_derivative_rows(tk, ops):
     rng = np.random.default_rng(26)
     xh = cuda_tensor(rng.standard_normal((128, 16)))
     xc = cuda_tensor(rng.standard_normal((1024, 1024)))
-    # the hyperparameters on the card: a CUDA graph cannot copy them from the host
-    composite = (tk.MaternP(2) + tk.Line(1.0) ** 2 + tk.NN(0.1)).to("cuda")
+    composite = tk.MaternP(2) + tk.Line(1.0) ** 2 + tk.NN(0.1)
     cases = (("HessianKernel(EQ) n=128 d=16", HessianKernel(tk.EQ()), xh, 128 * 16 * 16,
               work_hessian_mvm(128, 16)),
              ("GradientKernel(MaternP(2) + Line(1)^2 + NN(0.1)) n=d=1024",
@@ -2675,6 +2780,9 @@ def phase26_derivative_rows(tk, ops):
     for label, mk, x, size, work in cases:
         v = cuda_tensor(rng.standard_normal(size))
         G = ops.gramian(mk, x)
+        check(not any(l.is_cuda for l in leaves(mk.k))
+              and all(l.is_cuda and l.dtype == torch.float32 for l in leaves(G.k)),
+              f"phase 26: {label}: the gramian's hyperparameters are not on the card")
         route = f"{ops.explain(mk, x)}; mode {G.mode}, plain torch"
         b = G @ v
         ref = ops.gramian(mk, x.double()) @ v.double()
@@ -2698,15 +2806,6 @@ def phase26_derivative_rows(tk, ops):
               f"peak {peak:.1f} MiB above the inputs, rel {err:.3e} vs float64 (bound "
               f"{DERIV_BOUND:.0e}); least work {ms:.5f} ms ({by}) = "
               f"{summ['roofline_pct']:.3f}% of device (valid)", flush=True)
-    # the composite as a user builds it (the loop's last row): each call
-    # copies the host-held hyperparameters to the card
-    Gh = ops.gramian(GradientKernel(tk.MaternP(2) + tk.Line(1.0) ** 2 + tk.NN(0.1)), x)
-    err = rel(Gh @ v, b.double())
-    check(err <= DERIV_BOUND, f"phase 26: the host-held composite against the moved one {err:.3e}")
-    host = float(np.median(event_ms(lambda: Gh @ v, 5)))
-    out[label]["host_call_ms"] = host
-    print(f"phase 26 the composite as built, hyperparameters on the host: {host:.4f} ms a call "
-          f"({out[label]['call_ms']:.4f} with them on the card), rel {err:.3e} to it", flush=True)
     return out
 
 
@@ -2735,15 +2834,16 @@ def main():
     build.build()
     mvm.library(), mvm.expand_library(), gmvm.library(), tmvm.library()
     built_s = time.perf_counter() - t0
-    fam_n, fam_stack, fam_spill, fam_regs = ptxas_k1_family(build, "k1_family", 48)
-    cols_n, cols_stack, cols_spill, cols_regs = ptxas_k1_family(build, "k1_matmat_family", 48)
+    fam_n, fam_stack, fam_spill, fam_regs = ptxas_k1_family(build, "k1_family", 54)
+    cols_n, cols_stack, cols_spill, cols_regs = ptxas_k1_family(build, "k1_matmat_family", 108)
     k2_n, k2_regs, k2_stack = ptxas_tc(build, "expand_mvm", "k2_tc", 20)
     k3_n, k3_regs, k3_stack = ptxas_tc(build, "grad_mvm", "k3_tc", 18)
     print(f"phase 0 card: {smi} | torch {torch.__version__} cuda {torch.version.cuda} | "
           f"kernel libraries {', '.join(build.LIBRARIES)} built in {built_s:.1f} s | ptxas: "
-          f"{fam_n} K1 family instances, stack frame {fam_stack} bytes, spills {fam_spill} "
-          f"bytes, registers {fam_regs}; {cols_n} many-column K1 instances (6 D x 8 profiles, "
-          f"16 columns a chunk), stack frame {cols_stack} bytes, spills {cols_spill} "
+          f"{fam_n} K1 family instances (6 D x 9 profiles, the real-nu Matern's table among "
+          f"them), stack frame {fam_stack} bytes, spills {fam_spill} bytes, registers "
+          f"{fam_regs}; {cols_n} many-column K1 instances (6 D x 9 profiles x 1 or 3 tensor-"
+          f"core passes, 16 columns a chunk), stack frame {cols_stack} bytes, spills {cols_spill} "
           f"bytes, registers {cols_regs}; K2 {k2_n} instances (10 profiles x 1, 3 passes), "
           f"K3 {k3_n} (9 x 1, 3 passes): family instances 0 bytes stack, no instance spills, "
           f"registers {k2_regs} / {k3_regs}, the interpreted instances' stack {k2_stack} / {k3_stack} "
@@ -3002,17 +3102,22 @@ def main():
 
     # ---- phase 21: real-nu Matern on K1-K3 (checks, then the GP solve path) ----
     t21 = time.perf_counter()
-    k1_21 = phase21a_profile(tk, mvm)
+    m21_fam, k1_21 = phase21a_profile(tk, mvm)
     p21h = phase21a_headline(tk, mvm)
+    times["matern"] = (p21h["call_ms"], p21h["ms"], p21h["plain_ms"])
+    bounds["matern"] = p21h["bound"]
     p21b = phase21b_k2(tk, mvm)
     p21c = phase21c_k3(tk, gmvm)
     for key in mvm.LAUNCHES:
         mvm.LAUNCHES[key] = 0
     p21d = phase21d_solve(tk, ops, gp, mvm)
-    check(mvm.LAUNCHES["direct"] > 0, "kernel 'direct' was not launched on the Matern GP path")
+    check(mvm.LAUNCHES["matern"] > 0,
+          "K1's real-nu Matern family was not launched on the Matern GP path")
+    launches["matern"] = mvm.LAUNCHES["matern"]
     launches["direct"] += mvm.LAUNCHES["direct"]
-    print(f"phase 21 real-nu Matern {time.perf_counter() - t21:.1f} s: K1 launches on the GP "
-          f"path {mvm.LAUNCHES['direct']}", flush=True)
+    print(f"phase 21 real-nu Matern {time.perf_counter() - t21:.1f} s: launches on the GP "
+          f"path: K1's Matern family {mvm.LAUNCHES['matern']}, other K1 "
+          f"{mvm.LAUNCHES['direct']}", flush=True)
 
     # ---- phases 22-23: config 5's hyperparameter sampling: counts from here to the end of 23 ----
     from cfjax_torch.gp import hmc
@@ -3052,11 +3157,14 @@ def main():
     # at "highest", the configured tier
     meta = {"direct": ("K1 gramian_matvec_direct", "cfjax_torch/csrc/gramian_mvm.cu",
                        "cfjax/ops/pallas_mvm.py:253",
-                       max(p1["direct"][2], k1_bh, k1_21, p21h[2.3][2], p21h[2.5][2],
-                           p25["k1_abs"]), None),
-            "direct_cols": ("K1 gramian_matmat_direct (many columns, p=16)",
+                       max(p1["direct"][2], k1_bh, k1_21, p25["k1_abs"]), None),
+            "direct_cols": ("K1 gramian_matmat_direct (many columns on the tensor cores, p=16)",
                             "cfjax_torch/csrc/gramian_mvm.cu", "cfjax/ops/pallas_mvm.py:253",
                             max([p1["cols"][2]] + [t["abs_err"] for t in k1c.values()]), None),
+            "matern": ("K1 real-nu Matern family (tabulated; Matern(2.3) d=3 n=16384)",
+                       "cfjax_torch/csrc/gramian_mvm.cu", "cfjax/ops/pallas_mvm.py:253",
+                       max(p1["matern"][2], m21_fam, p21h[2.3][2], p21h[2.5][2],
+                           p21h["cols_abs"]), None),
             "expand": ("K2 gramian_matvec_expand", "cfjax_torch/csrc/expand_mvm.cu",
                        "cfjax/ops/pallas_mvm.py:152", max(p1["expand"][2], p21b["abs_err"]),
                        None),

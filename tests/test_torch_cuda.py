@@ -602,6 +602,115 @@ def test_matmat_kernel_matches_plain(d, name):
         assert torch.equal(out, mvm.gramian_matmat_direct(k, x, y, A))
 
 
+# the many-column K1 at each tier: every K1 kernel above and two real-nu
+# Materns (the tabulated family; their float64 reference is the kernels'
+# method, `_matern_reference`). Against float64, relative L2: 1e-5 at three
+# tf32 passes; one pass rounds f and A to tf32 (2^-12 relative each), so a
+# row sum without cancellation misses by about 2^-11.5 = 3.5e-4: "default"
+# is held to 2e-3. Against the plain version at the tier (the same tf32
+# roundings, emulated), 1e-4 at one pass: f differs from the plain profile
+# in its last bits, which moves a few roundings.
+K1C_KERNELS = dict(K1_KERNELS, Matern2_3=tk.Lengthscale(tk.Matern(2.3), 0.9),
+                   Matern0_5=tk.Matern(0.5))
+K1C_BOUND = {"highest": 1e-5, "high": 1e-5, "default": 2e-3}
+
+
+@needs_gpu
+@pytest.mark.parametrize("prec", ["highest", "high", "default"])
+@pytest.mark.parametrize("d", [1, 3, 5, 16])
+@pytest.mark.parametrize("name", list(K1C_KERNELS))
+def test_matmat_kernel_at_each_tier(name, d, prec):
+    """The tensor-core many-column K1 against its float64 plain version at
+    p = 1, 2, 7, 16, 17 and 40, ragged n and m, 16 coincident points, at
+    each tier (K1C_BOUND); equal from run to run; one launch a call of a
+    family instance ("matern" for a real-nu Matern). At three passes the
+    one-pass product misses float64 by more than the three-pass limit."""
+    k = K1C_KERNELS[name]
+    kr = tk.Lengthscale(_matern_reference(2.3), 0.9) if name == "Matern2_3" else \
+        _matern_reference(0.5) if name == "Matern0_5" else k
+    spec = to_spec(k)[0]
+    key = "matern" if spec.family == mvm.FAMILY_MATERN_NU else "direct_cols"
+    rng = np.random.default_rng(10 + d)
+    xs, ys = rng.standard_normal((1003, d)), rng.standard_normal((701, d))
+    ys[:16] = xs[:16]
+    x, y = (torch.tensor(v, dtype=torch.float32, device="cuda") for v in (xs, ys))
+    for p in (1, 2, 7, 16, 17, 40):
+        A = torch.tensor(rng.standard_normal((701, p)), dtype=torch.float32, device="cuda")
+        before = mvm.LAUNCHES[key]
+        out = mvm.gramian_matmat_direct(k, x, y, A, precision=prec)
+        torch.cuda.synchronize()
+        assert mvm.LAUNCHES[key] == before + (p if name == "SumScaled" else 1)
+        ref = mvm.gramian_matmat_direct_plain(kr, x.double(), y.double(), A.double())
+        assert out.shape == (1003, p) and _rel(out, ref) <= K1C_BOUND[prec]
+        assert torch.equal(out, mvm.gramian_matmat_direct(k, x, y, A, precision=prec))
+        if spec.family and prec == "default":
+            same = mvm.gramian_matmat_direct_plain(kr, x, y, A, precision=prec)
+            assert _rel(out, same.double()) <= 1e-4
+        if spec.family and prec == "highest" and p >= 16:
+            one = mvm.gramian_matmat_direct(k, x, y, A, precision="default")
+            assert _rel(one, ref) > K1C_BOUND["highest"]
+
+
+@needs_gpu
+@pytest.mark.parametrize("nu", [0.3, 0.5, 1.3, 2.3, 2.5, 3.7, 10.2, 25.0])
+def test_matern_family_matches_reference(nu):
+    """K1's tabulated real-nu Matern family returns the profile itself for
+    x = r (N, 1), y = 0, a = 1: 20000 log-spaced r in [1e-6, 80] against
+    the float64 reference (`matern_nu_reference`) at every value above
+    1e-30, relative 1e-5 (chip_smoke's MATERN_BOUND); the many-column
+    family on A of ones, every column the same profile."""
+    from cfjax_torch.utils.besselk import matern_nu_reference
+
+    k = tk.Matern(nu)
+    spec = to_spec(k)[0]
+    assert spec.family == mvm.FAMILY_MATERN_NU
+    r = torch.logspace(-6, np.log10(80.0), 20000, dtype=torch.float64, device="cuda")
+    x = r.float()[:, None].contiguous()
+    y, a = torch.zeros((1, 1), device="cuda"), torch.ones(1, device="cuda")
+    ref = matern_nu_reference(nu, x.double()[:, 0] ** 2)[0]
+    live = ref > 1e-30
+    out = mvm.gramian_matvec_direct(k, x, y, a).double()
+    cols = mvm.gramian_matmat_direct(k, x, y, torch.ones((1, 3), device="cuda")).double()
+    for o in (out, cols[:, 0], cols[:, 2]):
+        assert bool(torch.isfinite(o).all())
+        assert float(((o - ref).abs() / ref)[live].max()) <= 1e-5
+
+
+@needs_gpu
+def test_gramians_as_built_capture_in_a_cuda_graph():
+    """Kernels built without a device (their hyperparameters on the host):
+    a Gramian formed on CUDA points holds them on the card, so its MVMs
+    copy nothing from the host and replay from a CUDA graph. The
+    composite gradient MVM GradientKernel(MaternP(2) + Line(1)^2 +
+    NN(0.1)) (plain torch, "pair" mode), K1 (MaternP(2)) and the
+    many-column K1 on the real-nu Matern family (its table copied when
+    the Gramian is formed)."""
+    from cfjax_torch.kernels.parameters import leaves
+
+    rng = np.random.default_rng(7)
+    f32 = lambda *shape: torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                                      device="cuda")
+    cases = [(GradientKernel(tk.MaternP(2) + tk.Line(1.0) ** 2 + tk.NN(0.1)), f32(64, 8),
+              f32(64 * 8)),
+             (tk.MaternP(2), f32(3000, 3), f32(3000)),
+             (tk.Lengthscale(tk.Matern(2.3), 0.9), f32(3000, 3), f32(3000, 16))]
+    for k, x, v in cases:
+        G = gramian(k, x)
+        assert all(l.is_cuda and l.dtype == torch.float32 for l in leaves(G.k))
+        want = G @ v
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            G @ v   # warm-up off the capture
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = G @ v
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
 @needs_gpu
 def test_kernels_run_under_no_grad_with_leaves_that_require_grad():
     """A kernel whose leaves require grad (an optimizer's iterate) runs K1 and

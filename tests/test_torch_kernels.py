@@ -309,7 +309,8 @@ def test_matern_specs_and_decline():
 
     k = tk.Lengthscale(tk.Matern(2.3), 0.8)
     spec, _ = to_spec(k)
-    assert spec.ops[-1] == ps.MATERN_NU and spec.family == ps.FAMILY_NONE
+    # the program for K2, K3 and composites, and K1's tabulated family
+    assert spec.ops[-1] == ps.MATERN_NU and spec.family == ps.FAMILY_MATERN_NU
     off = spec.args[-1]
     assert spec.consts[off:off + 16] == matern_nu_table(2.3, False)
     dspec, _ = to_spec(k, derivative=True)

@@ -79,10 +79,13 @@ BOUNDS = {
                    0.1284, "SFU"),
     "K1 n=2^17": (lambda: mvm.work_direct(131072, 131072, 3, mvm.profile_ops(MATERN2)),
                   8.217, "SFU"),
+    # the many-column K1's product on the tensor cores: the profile's SFU
+    # work sets its bound, as the single-column K1's (0.2247 and 14.38 fp32
+    # when the product counted p FFMAs an entry)
     "K1 p=16 n=16384": (lambda: mvm.work_direct(16384, 16384, 3, mvm.profile_ops(MATERN2),
-                                                p=16), 0.2247, "fp32"),
+                                                p=16), 0.1284, "SFU"),
     "K1 p=16 n=2^17": (lambda: mvm.work_direct(131072, 131072, 3, mvm.profile_ops(MATERN2),
-                                               p=16), 14.38, "fp32"),
+                                               p=16), 8.217, "SFU"),
     "K2 d=64": (lambda: mvm.work_expand(
         16384, 16384, 64, mvm.profile_ops(to_spec(tk.Lengthscale(tk.EQ(), 4.0))[0]), 3),
         0.2082, "tensor cores/3x"),
@@ -106,14 +109,17 @@ def test_kernel_work_reproduces_the_bound_column(name):
 
 
 def test_work_counts_per_entry():
-    """K1: 2d + the profile + one FFMA a column an entry; MaternP(2)'s
-    profile 6 fp32 and 2 SFU; K3's EQ jet 3 + 1 and 10 fp32 besides; bytes
-    each input once and each output once."""
+    """K1: 2d + the profile + one FFMA an entry, with p columns 2d + the
+    profile and 2p tensor-core flops an entry at the tier's passes;
+    MaternP(2)'s profile 6 fp32 and 2 SFU; K3's EQ jet 3 + 1 and 10 fp32
+    besides; bytes each input once and each output once."""
     assert mvm.profile_ops(MATERN2) == (6, 2)
     w = mvm.work_direct(10, 20, 3, (6, 2))
     assert (w.fp32, w.sfu, w.hbm_bytes) == (200 * 13, 400, 4 * (30 * 3 + 30))
     w = mvm.work_direct(10, 20, 3, (6, 2), p=4)
-    assert (w.fp32, w.hbm_bytes) == (200 * 16, 4 * (30 * 3 + 30 * 4))
+    assert (w.fp32, w.sfu, w.tc_flops, w.tc_passes, w.hbm_bytes) == (
+        200 * 12, 400, 200 * 8, 3, 4 * (30 * 3 + 30 * 4))
+    assert mvm.work_direct(10, 20, 3, (6, 2), p=4, passes=1).tc_passes == 1
     w = grad_mvm.work_grad(10, 20, 4, (3, 1), 3)
     assert (w.fp32, w.sfu, w.tc_flops, w.tc_passes) == (200 * 13, 200, 200 * 32, 3)
     assert tile_ell_mvm.work_rows(100, 10, 20, itemsize=8).hbm_bytes == 100 * 12 + 30 * 8
