@@ -38,6 +38,7 @@ from ..kernels.derivatives import elementwise_derivatives
 from ..kernels.parameters import to_points
 from ..operators.linop import LinearOperator
 from ..ops.tiles import matmul_p, sqdist_tile
+from ..utils.roofline import Work
 from .tree import BalancedTree, _build_tree_device, build_tree
 
 _LETTERS = "ijklmn"  # tensor-order alphabet: supports order <= 6
@@ -595,3 +596,19 @@ class BarnesHutFactorization(LinearOperator):
 
 def _roundup(v):
     return max(8, int(np.ceil(v / 8)) * 8)
+
+
+def work_bh_mvm(F) -> Work:
+    """The least work of one planned MVM of `F` (a BarnesHutFactorization)
+    on this card: per pair its plans evaluate, the near field's point
+    pairs and the far field's (group, node) pairs, the kernel's exp (one
+    SFU operation) and the difference form and weighted sum (2d + 2
+    fp32). Bytes: the points and weights read once, the product written
+    once. The pairs depend on the points: this counts the plans' own."""
+    ls, d = F.tree.leafsize, F.tree.points.shape[1]
+    pairs = 0
+    for (_, _, _, rows, _), (_, fidx, lidx) in zip(F.buckets, F.plans):
+        G = rows.shape[1]
+        pairs += G * ls * int((lidx >= 0).sum()) + G * sum(int((f >= 0).sum()) for f in fidx)
+    return Work(fp32=pairs * (2.0 * d + 2), sfu=float(pairs),
+                hbm_bytes=4.0 * F.n * (d + 2))

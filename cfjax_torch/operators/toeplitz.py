@@ -24,6 +24,7 @@ import math
 import torch
 
 from ..config import default_device
+from ..utils.roofline import Work
 from .linop import LinearOperator
 from .solvers import cg
 
@@ -54,6 +55,26 @@ def toeplitz_matvec(col, row, v):
     n = col.shape[0]
     c = torch.cat([col, col.new_zeros(1), torch.flip(row[1:], (0,))])
     return circulant_matvec(c, v, 2 * n)[:n]
+
+
+def work_fft_mvm(n: int, itemsize: int = 4) -> Work:
+    """The least work of `toeplitz_matvec` on this card: T v for an n x n
+    Toeplitz T given by its column, through the 2n circulant embedding.
+    Three real FFTs of length N = 2n (the embedded column's, v's and the
+    inverse), 2.5 N log2 N flops each, and the product of the N/2 + 1
+    complex coefficients, 6 flops each, at two flops an FFMA. Bytes: the
+    column and v read once, T v written once."""
+    N = 2 * n
+    flops = 3 * 2.5 * N * math.log2(N) + 6 * (N // 2 + 1)
+    return Work(fp32=flops / 2, hbm_bytes=3.0 * n * itemsize)
+
+
+def work_levinson(n: int, itemsize: int = 4) -> Work:
+    """The least work of `levinson` on this card: its recurrence's two dot
+    products and two updates of length k at step k, 2 n^2 FFMA in all.
+    Bytes: the column and b read once, x written once. The n steps depend
+    on each other, so the recurrence is latency-bound far above this."""
+    return Work(fp32=2.0 * n * n, hbm_bytes=3.0 * n * itemsize)
 
 
 def _toeplitz_dense(col, row):

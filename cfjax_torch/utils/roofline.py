@@ -43,6 +43,18 @@ class Work:
     tc_passes: int = 1       # tf32 passes the result's accuracy needs (3 for fp32-class)
     hbm_bytes: float = 0.0   # bytes read and written once
 
+    def __add__(self, other: "Work") -> "Work":
+        """The work of both operations, one after the other (the tensor
+        cores at the larger of their pass counts)."""
+        return Work(self.fp32 + other.fp32, self.sfu + other.sfu,
+                    self.tc_flops + other.tc_flops, max(self.tc_passes, other.tc_passes),
+                    self.hbm_bytes + other.hbm_bytes)
+
+    def __rmul__(self, times: float) -> "Work":
+        """The work of `times` applications."""
+        return Work(times * self.fp32, times * self.sfu, times * self.tc_flops,
+                    self.tc_passes, times * self.hbm_bytes)
+
     def seconds(self, one_pass: bool = False) -> dict:
         """Seconds of each resource at its peak (`one_pass`: the tensor
         cores at one tf32 pass)."""

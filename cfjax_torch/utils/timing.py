@@ -33,8 +33,6 @@ import time
 import numpy as np
 import torch
 
-from .. import config as _config
-
 
 class MeasurementError(RuntimeError):
     """Raised when slope timing cannot separate an op's cost from the
@@ -58,6 +56,14 @@ def _spread(ts):
     return s[-1] - s[0]
 
 
+def _default_device(device):
+    """`device`, else the port's configured one. The config is imported at
+    use: this module also loads alone, by its path (`kernel_times.py`)."""
+    from .. import config as _config
+
+    return _config.default_device(device)
+
+
 def _sync(device):
     """Wait for `device`'s queued work (nothing to wait for on the CPU)."""
     device = torch.device(device)
@@ -75,7 +81,7 @@ def _device_of(args):
 def sync_time(fn, device=None):
     """(fn(), the seconds it took): a synchronize of `device` (default the
     configured one) on each side of the call, so its queued work counts."""
-    device = _config.default_device(device)
+    device = _default_device(device)
     _sync(device)
     t0 = time.perf_counter()
     out = fn()
@@ -145,7 +151,7 @@ def dispatch_overhead(device=None, iters: int = 20) -> float:
     """Median seconds of an empty op's launch and synchronize on `device`
     (default the configured one): what every separately timed call pays
     beside its work."""
-    noop = _noop(_config.default_device(device))
+    noop = _noop(_default_device(device))
     noop()
     ts = []
     for _ in range(iters):
@@ -228,17 +234,22 @@ def graph_ms(fn, reps=20, replays=5):
     return ts
 
 
-def kernel_times(kern, plain, reps=20):
+def kernel_times(kern, plain=None, reps=20):
     """(ms of one call between CUDA events, the wrapper's host time
     included, as the solvers' loops pay it; device ms of a call from CUDA
-    graphs; ms of one plain call), in turns: plain, call, graph, graph,
-    call, plain; medians."""
-    kern(), plain()   # warm-up
+    graphs; ms of one plain call, None without a plain version), in turns:
+    plain, call, graph, graph, call, plain; medians."""
+    kern()   # warm-up
+    if plain is not None:
+        plain()
     t = {"plain": [], "call": [], "graph": []}
     for key in ("plain", "call", "graph", "graph", "call", "plain"):
+        if key == "plain" and plain is None:
+            continue
         t[key] += graph_ms(kern, reps) if key == "graph" else \
             event_ms(plain if key == "plain" else kern, 10)
-    return tuple(float(np.median(t[key])) for key in ("call", "graph", "plain"))
+    return tuple(float(np.median(t[key])) if t[key] else None
+                 for key in ("call", "graph", "plain"))
 
 
 def call_and_device_ms(fn, reps=10):

@@ -75,7 +75,12 @@ card, then drives the paths a user runs:
     "pair" mode), each built as a user builds it (hyperparameters on the
     host; the gramian moves them to the card once), against float64 and
     its share of the least work (`cfjax_torch.utils.roofline`) from CUDA
-    graphs.
+    graphs;
+  * phase 27, the benchmark entry points (`cfjax_torch/benchmarks/`): the
+    headline (`bench_torch.py`), every row of the BASELINE table but the
+    heavy ones (`run_baseline`), each valid within its bound and its
+    float64 limit, its kernel launched, and the weak-scaling twin at a
+    small size (NCCL at world 1, four gloo ranks sharing the card).
 Phase 1 holds K1 (its family instances, the real-nu Matern's tabulated
 one among them, its many-column instances, whose product runs on the
 tensor cores at each matmul tier, and its interpreted one) and K2,
@@ -1450,12 +1455,10 @@ def phase16_fit(tk, gp, mvm, p3, step_s):
 def uncounted_k1(mvm, label, fn):
     """fn() through K1, for a comparison with K1's plain version: checks
     that K1 ran, and leaves the launch counts as they were."""
-    saved = dict(mvm.LAUNCHES)
-    try:
+    with mvm.uncounted():
+        before = mvm.LAUNCHES["direct"]
         out = fn()
-        check(mvm.LAUNCHES["direct"] > saved["direct"], f"{label}: the product did not run K1")
-    finally:
-        mvm.LAUNCHES.update(saved)
+        check(mvm.LAUNCHES["direct"] > before, f"{label}: the product did not run K1")
     return out
 
 
@@ -2809,6 +2812,71 @@ def phase26_derivative_rows(tk, ops):
     return out
 
 
+# phase 27: the rows of the BASELINE table that chip_smoke.py runs; the
+# heavy ones (the n = 10^6 Barnes-Hut and Nystrom / PCG rows, the 2^20 SLQ
+# logML rows, refined_solve at n = 10^5) are left to the table's own run,
+# their paths being those of phases 18-20, 23 and 25
+WEAK_SMALL = dict(worlds=(1, 4), rows=512, tile=512, cg_n=2048)
+
+
+def phase27_benchmarks(mvm):
+    """The port's benchmark entry points on the card, each through the
+    functions its command runs: 27a the headline (`bench_torch.py`:
+    `headline.measure`, its row error within `headline.ROW_BOUND` and K1's
+    counter moved); 27b every row of the BASELINE table but the heavy ones
+    (`run_baseline.run(skip_heavy=True)`), each valid: its reading told
+    from the spread and within 105% of its bound (`summarize`), its float64
+    error within the limit it states, its kernel launched where it names
+    one; 27c the weak-scaling twin at a small size, NCCL at world 1 and
+    four gloo ranks sharing the card, each sharded answer within
+    `weak_scaling.SHARD_BOUND` of one rank's. Returns the spawned ranks'
+    launches (this process's stay in `mvm.LAUNCHES`)."""
+    from cfjax_torch.benchmarks import headline, run_baseline, weak_scaling
+
+    t27 = time.perf_counter()
+    h = headline.measure()
+    bad = headline.failures(h)
+    check(not bad, f"phase 27a: {'; '.join(bad)}")
+    print(f"phase 27a headline (bench_torch.py): {h['metric']} {h['value'] * 1e3:.4f} ms a call "
+          f"(time_chained), {h['device_ms']:.4f} ms device, {h['vs_baseline']:.1f}x the "
+          f"reference's 0.585 s; row check {h['row_check_rel_err']:.3e} (bound "
+          f"{headline.ROW_BOUND:.0e}); K1 launches {h['k1_launches']}", flush=True)
+    t_b = time.perf_counter()
+    rows = run_baseline.run(skip_heavy=True, echo=False)
+    want = [c for g in run_baseline.GROUPS.values() for c in g if c not in run_baseline.HEAVY]
+    check([r["cfjax_config"] for r in rows] == want,
+          f"phase 27b: {len(rows)} rows, not the table's {len(want)} non-heavy ones")
+    for r in rows:
+        check(r["valid"], f"phase 27b: {r['config']}: {r['why']}")
+    text = "; ".join(
+        f"{r['config']} {r['seconds'] * 1e3:.4f} ms"
+        + ("" if r["device_ms"] is None else f" ({r['device_ms']:.4f} device)")
+        + ("" if r["bound_ms"] is None else f", bound {r['bound_ms']:.5f} ms ({r['bound_by']}) "
+                                            f"{r['share']:.2f}%")
+        + ("" if r["rel_err_f64"] is None else f", err {r['rel_err_f64']:.2e}"
+           + ("" if r["err_bound"] is None else f" (<= {r['err_bound']:.0e})"))
+        + f", {r['route']}" for r in rows)
+    print(f"phase 27b BASELINE table (run_baseline, {len(rows)} rows, the {len(run_baseline.HEAVY)} "
+          f"heavy ones left out) {time.perf_counter() - t_b:.1f} s, every row valid: {text}",
+          flush=True)
+    t_c = time.perf_counter()
+    ws = weak_scaling.run(device="cuda", **WEAK_SMALL)
+    bad = weak_scaling.failures(ws["rows"])
+    check(not bad, f"phase 27c: {'; '.join(bad)}")
+    text = "; ".join(
+        f"{r['config']} " + (f"{r['seconds'] * 1e3:.3f} ms, rel {r['rel_err_vs_single']:.2e}"
+                             if "seconds" in r else
+                             f"{r['iters_sharded']} iterations (one rank {r['iters_single']}), "
+                             f"rel {r['rel_err_vs_single_cg']:.2e}")
+        for r in ws["rows"] if r["config"].startswith(("weak_scaling_mvm", "gp_cg")))
+    print(f"phase 27c weak scaling (worlds {WEAK_SMALL['worlds']}, {WEAK_SMALL['rows']} rows a "
+          f"rank, tile {WEAK_SMALL['tile']}, CG n={WEAK_SMALL['cg_n']}; one card: overheads, not "
+          f"scaling) {time.perf_counter() - t_c:.1f} s: {text} (bound "
+          f"{weak_scaling.SHARD_BOUND:.0e}) | phase 27 {time.perf_counter() - t27:.1f} s",
+          flush=True)
+    return ws["launches"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3153,6 +3221,16 @@ def main():
 
     # ---- phase 26: the BASELINE derivative rows (no kernel) ----
     phase26_derivative_rows(tk, ops)
+
+    # ---- phase 27: the benchmark entry points: counts from here to its end, the ranks' included ----
+    for key in mvm.LAUNCHES:
+        mvm.LAUNCHES[key] = 0
+    ranks27 = phase27_benchmarks(mvm)
+    for key in launches:
+        launches[key] += mvm.LAUNCHES[key] + ranks27.get(key, 0)
+    check(all(mvm.LAUNCHES[key] > 0 for key in ("direct", "direct_cols", "expand", "grad",
+                                                 "tile_ell")),
+          f"phase 27: a kernel was not launched on the benchmarks' path: {mvm.LAUNCHES}")
 
     # at "highest", the configured tier
     meta = {"direct": ("K1 gramian_matvec_direct", "cfjax_torch/csrc/gramian_mvm.cu",

@@ -11,10 +11,11 @@ probe batch), null where the checkout has none.
 one), so that two commits can be timed one after the other on one card: unpack
 the other commit with `git archive` into a directory that `.gitignore`
 lists and run both, alternating (parent, change, change, parent). Each
-kernel is timed as one call between CUDA events, the wrapper's host time
-included (median of 2 x 20), and as device time from a CUDA graph of 20
-calls (median of 2 x 5 replays; null where the wrapper cannot be
-captured). K4 is timed as `S @ a` on phase 11's operator, so that a
+kernel is timed by `cfjax_torch/utils/timing.py`'s `kernel_times`, loaded
+from this checkout by its path: one call between CUDA events, the
+wrapper's host time included (median of 2 x 10), and device time from a
+CUDA graph of 20 calls (median of 2 x 5 replays; null where the wrapper
+cannot be captured). K4 is timed as `S @ a` on phase 11's operator, so that a
 layout of several launches a product is timed whole. Prints one JSON
 object with the card's name and power limit. Needs a CUDA device.
 """
@@ -22,6 +23,7 @@ object with the card's name and power limit. Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import subprocess
 import sys
@@ -31,56 +33,31 @@ import numpy as np
 import torch
 
 
-def call_ms(fn, reps=20):
-    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    ts = []
-    for _ in range(reps):
-        e0.record()
-        fn()
-        e1.record()
-        torch.cuda.synchronize()
-        ts.append(e0.elapsed_time(e1))
-    return ts
+def load_timing():
+    """This checkout's `cfjax_torch/utils/timing.py`, loaded by its path, so
+    that `--root` imports the other checkout's `cfjax_torch` for the
+    kernels under test and the timers stay the same for both."""
+    path = Path(__file__).resolve().parent / "cfjax_torch" / "utils" / "timing.py"
+    spec = importlib.util.spec_from_file_location("kernel_times_timing", path)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = module
+    spec.loader.exec_module(module)
+    return module
 
 
-def device_ms(fn, reps=20, replays=5):
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for _ in range(reps):
-            fn()
-    g.replay()
-    torch.cuda.synchronize()
-    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    ts = []
-    for _ in range(replays):
-        e0.record()
-        g.replay()
-        e1.record()
-        torch.cuda.synchronize()
-        ts.append(e0.elapsed_time(e1) / reps)
-    return ts
+timing = None
 
 
 def times(fn):
-    fn()
-    torch.cuda.synchronize()
-    calls, dev = [], []
-    for turn in ("call", "device", "device", "call"):
-        if turn == "call":
-            calls += call_ms(fn)
-        elif dev is not None:
-            try:
-                dev += device_ms(fn)
-            except RuntimeError:
-                dev = None
-    return {"call_ms": float(np.median(calls)),
-            "device_ms": None if dev is None else float(np.median(dev))}
+    """{"call_ms", "device_ms"} of fn by `timing.kernel_times` (calls between
+    CUDA events and CUDA graphs, in turns); a wrapper that cannot be
+    captured in a graph gets its calls alone and a null device time."""
+    try:
+        call, dev, _ = timing.kernel_times(fn)
+    except RuntimeError:   # not capturable
+        torch.cuda.synchronize()
+        return {"call_ms": float(np.median(timing.event_ms(fn, 40))), "device_ms": None}
+    return {"call_ms": call, "device_ms": dev}
 
 
 def main():
@@ -91,6 +68,8 @@ def main():
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device", file=sys.stderr)
         sys.exit(2)
+    global timing
+    timing = load_timing()
     sys.path.insert(0, str(Path(args.root).resolve()))
     import cfjax_torch.kernels as tk
     from cfjax_torch.operators.sparse_op import sparse_gramian

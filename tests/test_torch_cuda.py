@@ -33,10 +33,21 @@ needs_gpu = pytest.mark.skipif(
     reason="needs a CUDA device: the CUDA kernels have no CPU mode")
 
 
+# the port's scripts at the repo root, beside its package
+PORT_SCRIPTS = ("bench_torch.py", "chip_smoke.py", "kernel_times.py", "bh_chunks.py")
+
+
 def test_port_source_has_no_jax_import():
-    pattern = re.compile(r"^\s*(import jax|from jax)\b", re.MULTILINE)
-    offenders = [str(p) for p in PACKAGE.rglob("*.py") if pattern.search(p.read_text())]
+    """No module of the port and none of its scripts imports jax or cfjax
+    (cfjax_torch, the port itself, is not cfjax)."""
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|cfjax(?!_torch))\b", re.MULTILINE)
+    files = list(PACKAGE.rglob("*.py")) + [PACKAGE.parent / name for name in PORT_SCRIPTS]
+    assert all(f.exists() for f in files)
+    offenders = [str(p) for p in files if pattern.search(p.read_text())]
     assert offenders == []
+    assert pattern.search("import cfjax.kernels as jk\n") and pattern.search("from jax import x")
+    assert pattern.search("  from cfjax import gp\n")
+    assert not pattern.search("import cfjax_torch\nfrom cfjax_torch.ops import build\n")
 
 
 def test_port_import_loads_no_jax():
@@ -45,7 +56,9 @@ def test_port_import_loads_no_jax():
             " cfjax_torch.operators.sparse_op, cfjax_torch.operators.tile_ell,"
             " cfjax_torch.gp.hmc, cfjax_torch.utils.besselk, cfjax_torch.operators.woodbury,"
             " cfjax_torch.parallel, cfjax_torch.parallel.dryrun, cfjax_torch.utils.timing,"
-            " cfjax_torch.utils.roofline, cfjax_torch.examples.northstar_demo;"
+            " cfjax_torch.utils.roofline, cfjax_torch.examples.northstar_demo,"
+            " cfjax_torch.benchmarks.run_baseline, cfjax_torch.benchmarks.headline,"
+            " cfjax_torch.benchmarks.weak_scaling;"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'cfjax.'))];"
             "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=PACKAGE.parent,
@@ -985,3 +998,38 @@ def test_slq_logdet_without_a_device_draws_on_the_operators_card():
     est = slq_logdet(lambda params, V: params[0] * (K @ V), 64, 4, 8, 1e-6, 50, (l,),
                      dtype=torch.float64)
     assert est.is_cuda
+
+
+@needs_gpu
+def test_headline_row_check_on_the_card():
+    """The headline (bench_torch.py) on the card at n = 4096: K1 launched,
+    the row check within its bound, a device time from a CUDA graph."""
+    from cfjax_torch import set_config
+    from cfjax_torch.benchmarks import headline
+
+    set_config(device="cuda")
+    out = headline.measure(4096)
+    assert headline.failures(out) == [] and out["k1_launches"] > 0
+    assert out["row_check_rel_err"] <= headline.ROW_BOUND and out["device_ms"] > 0
+
+
+@needs_gpu
+def test_sweep_row_through_k2_holds_its_tier_error():
+    """One row of the BASELINE table's EQ sweep on the card at a small n:
+    K2 at d = 64 at each tier, valid, its float64 error within the tier's
+    limit, K2 launched."""
+    from cfjax_torch.benchmarks import run_baseline as rb
+
+    rb.SIZES["card_small"] = dict(rb.SIZES["full"], sweep_n=2048, sweep_d=(3, 64, 256, 1024))
+    try:
+        rows = rb.run(["dense_sweep"], device="cuda", scale="card_small", echo=False,
+                      rows=["northstar_dense_mvm_eq_n16384_d64",
+                            "northstar_dense_mvm_eq_n16384_d64_bf16"])
+    finally:
+        del rb.SIZES["card_small"]
+    assert [r["config"] for r in rows] == ["northstar_dense_mvm_eq_n16384_d64",
+                                           "northstar_dense_mvm_eq_n16384_d64_tf32"]
+    for r, tier in zip(rows, ("highest", "default")):
+        assert r["valid"], r["why"]
+        assert r["route"] == "K2" and r["rel_err_f64"] <= rb.TIER_BOUND["K2"][tier]
+
