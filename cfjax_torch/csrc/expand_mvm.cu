@@ -10,7 +10,8 @@
 // m16n8k8 tf32 at the tier's passes, 64 rows a block, 16 a warp, 64
 // columns a tile); the profile of each entry follows in registers — a
 // one-leaf profile's family form (`family_value`, the families K1 takes:
-// EQ, Exp, MaternP(p <= 3), RQ, Cauchy, IMQ) or the interpreter
+// EQ, Exp, MaternP(p <= 3), RQ, Cauchy, IMQ, and the real-nu Matern's,
+// whose table is staged in shared memory once a block) or the interpreter
 // (`eval_profile`) — and is contracted against `a` on the CUDA cores, as
 // the Pallas kernel does on the VPU. K2 keeps the expansion (no exact
 // near-pair path, unlike K3): at s << ||x||^2 its error is the tier's
@@ -39,22 +40,28 @@ constexpr int K2_SS = K2_TN + 4;       // the S tile's row stride in shared memo
 
 template <int FAM, int P>
 __device__ __forceinline__ void k2_profile(const ProfileSpec& sp, const FamilyConsts& fc,
-                                           float (&s)[4]) {
+                                           const float4* tab, float (&s)[4]) {
     if constexpr (FAM == 0) {
         eval_profile<4>(sp, s);
     } else {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[e] = family_value<FAM, P>(s[e], fc);
+        for (int e = 0; e < 4; ++e) s[e] = family_value<FAM, P>(s[e], fc, tab);
     }
 }
+
+// the real-nu Matern family's table (MATERN_KNOTS float4, 16 KiB) in
+// dynamic shared memory: beside the static ~39 KiB it passes 48 KiB
+constexpr int K2_MATERN_SMEM = MATERN_KNOTS * (int)sizeof(float4);
 
 template <bool ISO, int FAM, int P, int PASSES>
 __global__ void __launch_bounds__(K2_THREADS, 1)
 k2_tc(const float* __restrict__ x, const float* __restrict__ y, const float* __restrict__ x2,
       const float* __restrict__ y2, const float* __restrict__ a, float* __restrict__ partial,
       int n, int m, int d, int cols_per_split, int vec4,
-      const __grid_constant__ ProfileSpec spec, const __grid_constant__ FamilyConsts fc) {
+      const __grid_constant__ ProfileSpec spec, const __grid_constant__ FamilyConsts fc,
+      const float4* __restrict__ tab) {
     constexpr unsigned FULL = 0xffffffffu;
+    extern __shared__ __align__(16) float4 k2_tab[];
     __shared__ ProfileSpec sp;
     __shared__ __align__(16) TcStage<K2_TM, K2_TN, 1> st;
     __shared__ float x2s[K2_TM], y2s[K2_TN], as[K2_TN];
@@ -63,6 +70,9 @@ k2_tc(const float* __restrict__ x, const float* __restrict__ y, const float* __r
     __shared__ __align__(16) float sv[K2_WARPS][16][K2_SS];
 
     if constexpr (FAM == 0) load_spec(sp, spec);
+    // the table lands before the first tile's barriers, ahead of any read
+    if constexpr (FAM == FAM_MATERN_NU)
+        for (int r = threadIdx.x; r < MATERN_KNOTS; r += K2_THREADS) k2_tab[r] = tab[r];
     const int w = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
     const int row0 = blockIdx.x * K2_TM;
     const int ra = 16 * w + g, rb = ra + 8;
@@ -106,7 +116,7 @@ k2_tc(const float* __restrict__ x, const float* __restrict__ y, const float* __r
                 const int r = e < 2 ? ra : rb, j = 8 * nt + 2 * t + (e & 1);
                 s[e] = ISO ? fmaxf((x2s[r] + y2s[j]) - 2.f * pv[e], 0.f) : pv[e];
             }
-            k2_profile<FAM, P>(sp, fc, s);
+            k2_profile<FAM, P>(sp, fc, k2_tab, s);
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
                 const int j = 8 * nt + 2 * t + (e & 1);
@@ -144,14 +154,22 @@ struct K2Args {
     const float *x, *y, *x2, *y2, *a;
     float* partial;
     int n, m, d, cols_per_split, vec4;
+    const float4* tab;
 };
 
 template <bool ISO, int FAM, int P, int PASSES>
 static int k2_go(dim3 grid, cudaStream_t st, const K2Args& g, const ProfileSpec& spec,
                  const FamilyConsts& fc) {
-    k2_tc<ISO, FAM, P, PASSES><<<grid, K2_THREADS, 0, st>>>(
+    constexpr int dyn = FAM == FAM_MATERN_NU ? K2_MATERN_SMEM : 0;
+    if constexpr (dyn > 0) {
+        if (g.tab == nullptr) return (int)cudaErrorInvalidValue;
+        static const cudaError_t attr = cudaFuncSetAttribute(
+            k2_tc<ISO, FAM, P, PASSES>, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+        if (attr != cudaSuccess) return (int)attr;
+    }
+    k2_tc<ISO, FAM, P, PASSES><<<grid, K2_THREADS, dyn, st>>>(
         g.x, g.y, g.x2, g.y2, g.a, g.partial, g.n, g.m, g.d, g.cols_per_split, g.vec4, spec,
-        fc);
+        fc, g.tab);
     return 0;
 }
 
@@ -175,6 +193,7 @@ static int k2_by_family(int iso, int family, int p, dim3 grid, cudaStream_t st,
     case FAM_RQ: return k2_go<true, FAM_RQ, 0, PASSES>(grid, st, g, spec, fc);
     case FAM_CAUCHY: return k2_go<true, FAM_CAUCHY, 0, PASSES>(grid, st, g, spec, fc);
     case FAM_IMQ: return k2_go<true, FAM_IMQ, 0, PASSES>(grid, st, g, spec, fc);
+    case FAM_MATERN_NU: return k2_go<true, FAM_MATERN_NU, 0, PASSES>(grid, st, g, spec, fc);
     default: return (int)cudaErrorInvalidValue;
     }
 }
@@ -184,10 +203,10 @@ extern "C" int k2_gramian_matvec_expand(const float* x, const float* y, const fl
                                         float* out, int n, int m, int d, int iso, int splits,
                                         int cols_per_split, int passes, int family, int p,
                                         int vec4, ProfileSpec spec, FamilyConsts fc,
-                                        void* stream) {
+                                        const float4* tab, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     dim3 grid((n + K2_TM - 1) / K2_TM, splits);
-    const K2Args g{x, y, x2, y2, a, partial, n, m, d, cols_per_split, vec4};
+    const K2Args g{x, y, x2, y2, a, partial, n, m, d, cols_per_split, vec4, tab};
     int bad;
     switch (passes) {
     case 1: bad = k2_by_family<1>(iso, family, p, grid, st, g, spec, fc); break;

@@ -21,9 +21,10 @@
 //      w = Q - <y_j, A_j> (the norms come from the wrapper). Each tile's
 //      first chunk is staged during the previous tile's phases B and C;
 //   B. f', f'' of s in registers: the family instances (`family_jet`,
-//      one-leaf EQ, MaternP(1..3), RQ, Cauchy, IMQ) or the interpreter
-//      (`eval_jet`) for any other derivative spec; alpha and beta go to the
-//      warp's rows in shared memory;
+//      one-leaf EQ, MaternP(1..3), RQ, Cauchy, IMQ, and the real-nu
+//      Matern's, whose two tables are staged in shared memory once a
+//      block) or the interpreter (`eval_jet`) for any other derivative
+//      spec; alpha and beta go to the warp's rows in shared memory;
 //   C. out[rows, :] += [alpha | beta] [A_tile; Y_tile] - rowsum(beta) x_i,
 //      in chunks of 32 output columns staged in shared memory (double
 //      buffered; the first chunk lands during phase B). A chunk's sum is
@@ -78,13 +79,19 @@ struct K3Shared {
     ProfileSpec sp;
     float x2s[K3_TM], y2s[K3_TN], yas[K3_TN];
 };
+// the real-nu Matern jet family's two tables (2 x MATERN_JET_KNOTS float4,
+// 40 KiB) follow K3Shared in the dynamic shared memory, 16-byte aligned:
+// 194 KB in all, within the SM's 227 KB
+constexpr size_t K3_TAB_OFF = (sizeof(K3Shared) + 15) / 16 * 16;
+constexpr size_t K3_MATERN_SMEM = K3_TAB_OFF + 2 * MATERN_JET_KNOTS * sizeof(float4);
 
 // f', f'' of V arguments: the family in registers, or the interpreter one
 // argument at a time in a loop (one inlined copy of the interpreter: wider
 // or unrolled decodes took more registers than the tile left)
 template <int FAM, int P, int V>
 __device__ __forceinline__ void k3_jet(const ProfileSpec& sp, const JetConsts& jc,
-                                       const float (&s)[V], float (&f1)[V], float (&f2)[V]) {
+                                       const float4* tab, const float (&s)[V], float (&f1)[V],
+                                       float (&f2)[V]) {
     if constexpr (FAM == 0) {
 #pragma unroll 1
         for (int h = 0; h < V; ++h) {
@@ -96,7 +103,7 @@ __device__ __forceinline__ void k3_jet(const ProfileSpec& sp, const JetConsts& j
         }
     } else {
 #pragma unroll
-        for (int v = 0; v < V; ++v) family_jet<FAM, P>(s[v], jc, f1[v], f2[v]);
+        for (int v = 0; v < V; ++v) family_jet<FAM, P>(s[v], jc, f1[v], f2[v], tab);
     }
 }
 
@@ -113,7 +120,8 @@ __global__ void __launch_bounds__(K3_THREADS, 1)
 k3_tc(const float* __restrict__ x, const float* __restrict__ y, const float* __restrict__ A,
       const float* __restrict__ x2, const float* __restrict__ y2, const float* __restrict__ ya,
       float* __restrict__ partial, int n, int m, int d, int cols_per_split, int vec4,
-      const __grid_constant__ ProfileSpec spec, const __grid_constant__ JetConsts jc) {
+      const __grid_constant__ ProfileSpec spec, const __grid_constant__ JetConsts jc,
+      const float4* __restrict__ tab) {
     constexpr int NP = tc_pieces(PASSES);
     constexpr unsigned FULL = 0xffffffffu;
     extern __shared__ __align__(16) unsigned char k3_smem[];
@@ -125,8 +133,12 @@ k3_tc(const float* __restrict__ x, const float* __restrict__ y, const float* __r
     float* x2s = sh.x2s;
     float* y2s = sh.y2s;
     float* yas = sh.yas;
+    float4* mtab = reinterpret_cast<float4*>(k3_smem + K3_TAB_OFF);
 
     if constexpr (FAM == 0) load_spec(sp, spec);
+    // the tables land before the first tile's barriers, ahead of any read
+    if constexpr (FAM == FAM_MATERN_NU)
+        for (int r = threadIdx.x; r < 2 * MATERN_JET_KNOTS; r += K3_THREADS) mtab[r] = tab[r];
     const int w = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
     const int row0 = blockIdx.x * K3_TM;
     const int ra = 16 * w + g, rb = ra + 8;   // this thread's rows in the block
@@ -197,7 +209,7 @@ k3_tc(const float* __restrict__ x, const float* __restrict__ y, const float* __r
                     wv[e] = qv[e];
                 }
             }
-            k3_jet<FAM, P, 4>(sp, jc, s, f1, f2);
+            k3_jet<FAM, P, 4>(sp, jc, mtab, s, f1, f2);
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
                 al[e] = ok[e] ? (ISO ? -2.f * f1[e] : f1[e]) : 0.f;
@@ -312,7 +324,7 @@ k3_tc(const float* __restrict__ x, const float* __restrict__ y, const float* __r
                     wv += __shfl_xor_sync(FULL, wv, o);
                 }
                 float f1[1], f2[1];
-                k3_jet<FAM, P, 1>(sp, jc, s1, f1, f2);
+                k3_jet<FAM, P, 1>(sp, jc, mtab, s1, f1, f2);
                 const float al = -2.f * f1[0], be = 4.f * f2[0] * wv;
                 float* o = out + (size_t)i * d;
                 if (vec4) {
@@ -353,18 +365,20 @@ struct K3Args {
     const float *x, *y, *A, *x2, *y2, *ya;
     float* partial;
     int n, m, d, cols_per_split, vec4;
+    const float4* tab;
 };
 
 template <bool ISO, int FAM, int P, int PASSES>
 static int k3_go(dim3 grid, cudaStream_t st, const K3Args& g, const ProfileSpec& spec,
                  const JetConsts& jc) {
+    constexpr size_t smem = FAM == FAM_MATERN_NU ? K3_MATERN_SMEM : sizeof(K3Shared);
+    if (FAM == FAM_MATERN_NU && g.tab == nullptr) return (int)cudaErrorInvalidValue;
     static const cudaError_t attr = cudaFuncSetAttribute(
-        k3_tc<ISO, FAM, P, PASSES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)sizeof(K3Shared));
+        k3_tc<ISO, FAM, P, PASSES>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (attr != cudaSuccess) return (int)attr;
-    k3_tc<ISO, FAM, P, PASSES><<<grid, K3_THREADS, sizeof(K3Shared), st>>>(
+    k3_tc<ISO, FAM, P, PASSES><<<grid, K3_THREADS, smem, st>>>(
         g.x, g.y, g.A, g.x2, g.y2, g.ya, g.partial, g.n, g.m, g.d, g.cols_per_split, g.vec4, spec,
-        jc);
+        jc, g.tab);
     return 0;
 }
 
@@ -387,6 +401,7 @@ static int k3_by_family(int iso, int family, int p, dim3 grid, cudaStream_t st,
     case FAM_RQ: return k3_go<true, FAM_RQ, 0, PASSES>(grid, st, g, spec, jc);
     case FAM_CAUCHY: return k3_go<true, FAM_CAUCHY, 0, PASSES>(grid, st, g, spec, jc);
     case FAM_IMQ: return k3_go<true, FAM_IMQ, 0, PASSES>(grid, st, g, spec, jc);
+    case FAM_MATERN_NU: return k3_go<true, FAM_MATERN_NU, 0, PASSES>(grid, st, g, spec, jc);
     default: return (int)cudaErrorInvalidValue;
     }
 }
@@ -395,10 +410,10 @@ extern "C" int k3_grad_matvec(const float* x, const float* y, const float* A, co
                               const float* y2, const float* ya, float* partial, float* out,
                               int n, int m, int d, int iso, int splits, int cols_per_split,
                               int passes, int family, int p, int vec4, ProfileSpec spec,
-                              JetConsts jc, void* stream) {
+                              JetConsts jc, const float4* tab, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     dim3 grid((n + K3_TM - 1) / K3_TM, splits);
-    const K3Args g{x, y, A, x2, y2, ya, partial, n, m, d, cols_per_split, vec4};
+    const K3Args g{x, y, A, x2, y2, ya, partial, n, m, d, cols_per_split, vec4, tab};
     int bad;
     switch (passes) {
     case 1: bad = k3_by_family<1>(iso, family, p, grid, st, g, spec, jc); break;

@@ -14,6 +14,9 @@
 //                    (ProfileSpec.family), with its folded constants, in
 //                    registers: no stack, no opcode reads (the real-nu
 //                    Matern family reads its table, `matern_nu_tabled`);
+//   family_jet<FAM, P>: f' and f'' of a one-leaf derivative spec's family
+//                    (the real-nu Matern's from two tables,
+//                    `matern_nu_jet_tabled`);
 //   matern_nu<JET>:  Matern(nu).profile at real nu (and its jet), the
 //                    MATERN_NU / MATERN_NU_JET opcodes, with x^nu K_nu(x)
 //                    computed here by Temme's series, Steed's continued
@@ -60,8 +63,10 @@ struct ProfileSpec {
 #define FAM_MATERN_NU 6
 #define FAM_CONSTS 9
 // intervals of the real-nu Matern family's table (utils/besselk.py
-// MATERN_KNOTS: 32 octaves of 32)
+// MATERN_KNOTS: 32 octaves of 32), and of each of its jet family's two
+// tables (MATERN_JET_KNOTS: 40 octaves of 32)
 #define MATERN_KNOTS 1024
+#define MATERN_JET_KNOTS 1280
 
 struct FamilyConsts {
     float c[FAM_CONSTS];
@@ -365,32 +370,50 @@ __device__ __forceinline__ float ex2_split(float u, float c0, float c1) {
     return fmaf(e, lo * 0.693147180559945f, e);
 }
 
+// x = sqrt(sc) (c0 + c1), sc = max(s, 1e-30), and its place in a table
+// from octave e_lo of 32 intervals an octave (kernels/profile_spec.py
+// `_table_point` its plain version): the interval is read off x's bits
+// (the exponent and the top 5 mantissa bits) and returned; q, the offset
+// in it over its width, is the other 18 bits. x is rounded three times
+// (the root, the constant and their product); its rounding error xlo (the
+// root's residual, two FMAs and the constant's remainder c1) moves q, so
+// the cubic sees x to about float32's rounding. One MUFU (rsqrt).
+__device__ __forceinline__ int table_point(float s, float c0, float c1, float e_lo, float& x,
+                                           float& q) {
+    const float sc = fmaxf(s, 1e-30f);
+    const float rs = rsqrt_approx(sc);
+    const float sq = sc * rs;
+    const float sqlo = fmaf(-sq, sq, sc) * (0.5f * rs);   // sqrt(sc) - sq, to first order
+    x = sq * c0;
+    const float xlo = fmaf(c0, sqlo, fmaf(sq, c1, fmaf(sq, c0, -x)));
+    const int bits = __float_as_int(x);
+    // 2^(5 - e), the reciprocal of the interval's width, for x = 1.m 2^e
+    const float inv_h = __int_as_float((259 - (bits >> 23)) << 23);
+    q = fmaf(xlo, inv_h, (float)(bits & 0x3FFFF) * (1.f / 262144.f));
+    return (bits >> 18) - ((127 + (int)e_lo) << 5);
+}
+
+// a table's row at q: f(x_k) 2^(q (a1 + q (a2 + q a3))), one MUFU (ex2)
+__device__ __forceinline__ float table_value(const float4 t, float q) {
+    return t.x * ex2_approx(q * fmaf(fmaf(t.w, q, t.z), q, t.y));
+}
+
 // The real-nu Matern family at s (kernels/profile_spec.py
 // FAMILY_MATERN_NU, `_matern_nu_family` its plain version), from the table
 // of nu in shared memory: interval k of x = sqrt(2 nu sigma s) holds
 // (f(x_k), a1, a2, a3), f(x) = f(x_k) 2^(q (a1 + q (a2 + q a3))) with q the
 // offset of x in the interval over its width (utils/besselk.py
-// `matern_nu_knots`). The interval is read off x's bits: the exponent and
-// the top 5 mantissa bits (32 intervals an octave, from octave c7), q is
-// the other 18 bits. x is rounded three times (the root, the constant and
-// their product); its rounding error xlo (the root's residual, two FMAs
-// and the constant's remainder c1) moves q before the cubic, so the
-// cubic sees x to about float32's rounding. 2 MUFU (rsqrt, ex2) and no
-// logarithm: the offset is exact, and ln f at the knot is in f(x_k), so no
-// large exponent is formed. Below the table (or the guard's bound c2) the
-// Taylor polynomial 1 + c3 s + c4 s^2 (nu > 1) or 1 - c5 x^(2 nu) (nu <
-// 1); above it 0, where f has left float32; at s = 0 the limit 1.
+// `matern_nu_knots`; `table_point`, from octave c7). 2 MUFU (rsqrt, ex2)
+// and no logarithm: the offset is exact, and ln f at the knot is in
+// f(x_k), so no large exponent is formed. Below the table (or the guard's
+// bound c2) the Taylor polynomial 1 + c3 s + c4 s^2 (nu > 1) or 1 - c5
+// x^(2 nu) (nu < 1); above it 0, where f has left float32; at s = 0 the
+// limit 1.
 __device__ __forceinline__ float matern_nu_tabled(float s, const FamilyConsts& f,
                                                   const float4* tab) {
     const float* c = f.c;
-    const float sc = fmaxf(s, 1e-30f);
-    const float rs = rsqrt_approx(sc);
-    const float sq = sc * rs;
-    const float sqlo = fmaf(-sq, sq, sc) * (0.5f * rs);   // sqrt(sc) - sq, to first order
-    const float x = sq * c[0];
-    const float xlo = fmaf(c[0], sqlo, fmaf(sq, c[1], fmaf(sq, c[0], -x)));
-    const int bits = __float_as_int(x);
-    const int idx = (bits >> 18) - ((127 + (int)c[7]) << 5);
+    float x, q;
+    const int idx = table_point(s, c[0], c[1], c[7], x, q);
     float v;
     if (s < c[2] || idx < 0) {
         v = fmaf(fmaf(c[4], s, c[3]), s, 1.f);
@@ -398,13 +421,33 @@ __device__ __forceinline__ float matern_nu_tabled(float s, const FamilyConsts& f
     } else if (idx >= MATERN_KNOTS) {
         v = 0.f;
     } else {
-        const float4 t = tab[idx];
-        // 2^(5 - e), the reciprocal of the interval's width, for x = 1.m 2^e
-        const float inv_h = __int_as_float((259 - (bits >> 23)) << 23);
-        const float q = fmaf(xlo, inv_h, (float)(bits & 0x3FFFF) * (1.f / 262144.f));
-        v = t.x * ex2_approx(q * fmaf(fmaf(t.w, q, t.z), q, t.y));
+        v = table_value(tab[idx], q);
     }
     return s > 0.f ? v : 1.f;
+}
+
+// The real-nu Matern jet family at s (a derivative spec's FAMILY_MATERN_NU,
+// kernels/profile_spec.py `_jet_family` its constants, `_matern_nu_jet_family`
+// its plain version): f' = c5 T1(x), f'' = c6 T2(x) from the two tables
+// in shared memory, tab[0 .. MATERN_JET_KNOTS) of T1 = -f' and the next
+// MATERN_JET_KNOTS of T2 = f'' (utils/besselk.py `matern_nu_jet_knots`),
+// one interval for both; below the table or the Taylor bound c2 (s = 0
+// included) f' = c3 + c4 s, f'' = c4; above it 0. 3 MUFU (rsqrt, 2 ex2).
+__device__ __forceinline__ void matern_nu_jet_tabled(float s, const float* c,
+                                                     const float4* tab, float& f1,
+                                                     float& f2) {
+    float x, q;
+    const int idx = table_point(s, c[0], c[1], c[7], x, q);
+    if (s < c[2] || idx < 0) {
+        f1 = fmaf(c[4], s, c[3]);
+        f2 = c[4];
+    } else if (idx >= MATERN_JET_KNOTS) {
+        f1 = 0.f;
+        f2 = 0.f;
+    } else {
+        f1 = c[5] * table_value(tab[idx], q);
+        f2 = c[6] * table_value(tab[MATERN_JET_KNOTS + idx], q);
+    }
 }
 
 // The family form of a one-leaf spec at s (ProfileSpec.evaluate(s,
@@ -512,7 +555,8 @@ __device__ __forceinline__ void maternp_jet_fixed(const float* t, float s, float
 // Families of one-leaf derivative specs (ProfileSpec.family of
 // to_spec(k, derivative=True)): f'(s) and f''(s) in registers, the
 // lengthscales and the Constant folded into the table (kernels/
-// profile_spec.py `_jet_family` documents each layout).
+// profile_spec.py `_jet_family` documents each layout); the real-nu
+// Matern's reads its two tables `tab` in shared memory.
 #define JET_CONSTS 16
 
 struct JetConsts {
@@ -520,7 +564,8 @@ struct JetConsts {
 };
 
 template <int FAM, int P>
-__device__ __forceinline__ void family_jet(float s, const JetConsts& j, float& f1, float& f2) {
+__device__ __forceinline__ void family_jet(float s, const JetConsts& j, float& f1, float& f2,
+                                           const float4* tab = nullptr) {
     const float* c = j.c;
     if constexpr (FAM == FAM_EQ) {
         // f = scale exp2(s (c0 + c1)); f' = c2 e, f'' = c3 e
@@ -547,6 +592,9 @@ __device__ __forceinline__ void family_jet(float s, const JetConsts& j, float& f
         const float r2 = r * r;
         f1 = c[1] * r2;
         f2 = c[2] * r2 * r;
+    } else if constexpr (FAM == FAM_MATERN_NU) {
+        // the two tables in shared memory (`matern_nu_jet_tabled`)
+        matern_nu_jet_tabled(s, c, tab, f1, f2);
     } else {
         static_assert(FAM == FAM_IMQ, "unknown derivative family");
         // r = (c0 s + c1)^(-1/2); f' = c2 r^3, f'' = c3 r^5

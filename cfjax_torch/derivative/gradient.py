@@ -183,8 +183,11 @@ class GradientGramian(LinearOperator):
         self.block = block
         self._spec, self.kernel_reason = select_grad_kernel(self)
         # the hyperparameters on the points' device and dtype, once (the spec
-        # above reads the kernel as given)
+        # above reads the kernel as given); a real-nu Matern's jet tables go
+        # to the card here too
         self.k = to_points(k, self.x)
+        if self._spec is not None:
+            _grad_mvm.jet_table(self._spec, self.device)
 
     @property
     def is_symmetric(self):

@@ -25,8 +25,8 @@ exp2 of a prescaled argument) and the Constant as a factor of the row
 sum. K1 has an instance per family, evaluated in registers, where the
 program would be interpreted; `ProfileSpec.evaluate(s, family=True)` is
 the plain torch evaluator of the folded form. Other specs (sums,
-products, Power, GammaExp) keep the interpreter. K2 and K3 take the
-closed-form families; a real-nu Matern runs their interpreter.
+products, Power, GammaExp) keep the interpreter. K2 takes the same
+families as K1, the real-nu Matern's table included.
 
 The real-nu Matern family (FAMILY_MATERN_NU) reads a table of nu
 (`utils/besselk.py` `matern_nu_knots`): for x = sqrt(2 nu s) in an octave
@@ -64,10 +64,14 @@ autograd. A derivative spec declines nu <= 1, where the profile has no
 finite f' at s = 0.
 
 A derivative spec of a one-leaf iso kernel (EQ, MaternP(1..3), RQ,
-Cauchy, IMQ under lengthscales, times at most one Constant) carries a
-family too, with a table for f' and f'' in closed form (`_jet_family`,
-up to JET_CONSTS values): the tensor-core K3 evaluates it in registers,
-and `ProfileSpec.evaluate_jet_family(s)` is its plain torch evaluator.
+Cauchy, IMQ, real-nu Matern with 1 < nu <= 64, under lengthscales, times
+at most one Constant) carries a family too, with a table for f' and f''
+in closed form (`_jet_family`, up to JET_CONSTS values): the tensor-core
+K3 evaluates it in registers, the real-nu Matern's from two tables of nu
+laid out as the value family's (`utils/besselk.py`
+`matern_nu_jet_knots`: -f' and f'' as functions of x, one interval for
+both), and `ProfileSpec.evaluate_jet_family(s)` is its plain torch
+evaluator.
 """
 
 from __future__ import annotations
@@ -95,7 +99,8 @@ from .stationary import (
     MaternP,
     matern_profile,
 )
-from ..utils.besselk import (MATERN_KNOTS, MATERN_STEPS, MATERN_TABLE_MAX_NU, matern_nu_knots,
+from ..utils.besselk import (MATERN_STEPS, MATERN_TABLE_MAX_NU, matern_nu_jet_knots,
+                              matern_nu_jet_octave, matern_nu_jet_taylor, matern_nu_knots,
                               matern_nu_octave, matern_nu_small, matern_nu_table)
 from .derivatives import elementwise_derivatives
 from .transforms import Lengthscale
@@ -211,15 +216,13 @@ def _exp2_split(u, c0, c1):
     return e + e * (lo * math.log(2.0))
 
 
-def _matern_nu_family(s, c):
-    """The tabulated real-nu Matern family at s, as K1 computes it (csrc/
-    profile_spec.cuh `matern_nu_tabled`), in s's dtype: x and its rounding
-    error (the FMA residuals taken in float64), the interval from x's
-    exponent and mantissa, the cubic at the offset moved by the rounding
-    error, against the table in s's dtype."""
-    r0, r1, bound, t1, t2, a, two_nu, e_lo, nu = c
+def _table_point(s, r0, r1, e_lo):
+    """(the interval's index, q) of x = sqrt(2 nu sigma s) in a table that
+    starts at octave e_lo, as the kernels form them (csrc/profile_spec.cuh
+    `table_point`), in s's dtype: x and its rounding error (the FMA
+    residuals taken in float64), the interval from x's exponent and
+    mantissa, the offset q moved by the rounding error."""
     dt = s.dtype
-    tab = matern_nu_knots(nu).to(device=s.device, dtype=dt)
     sc = torch.clamp(s, min=1e-30)
     sq = torch.sqrt(sc)
     sd = sq.double()
@@ -230,13 +233,43 @@ def _matern_nu_family(s, c):
     u = (2 * m - 1) * MATERN_STEPS
     j = torch.floor(u)
     idx = (e - 1 - int(e_lo)) * MATERN_STEPS + j.long()
-    q = (u - j) + xlo * MATERN_STEPS * torch.exp2(-(e - 1).to(dt))
-    row = tab[idx.clamp(0, MATERN_KNOTS - 1)]
+    return idx, (u - j) + xlo * MATERN_STEPS * torch.exp2(-(e - 1).to(dt))
+
+
+def _table_value(tab, idx, q):
+    """The cubic of interval idx at q (0 past the table's end)."""
+    row = tab[idx.clamp(0, tab.shape[0] - 1)]
     f = row[..., 0] * torch.exp2(q * ((row[..., 3] * q + row[..., 2]) * q + row[..., 1]))
+    return torch.where(idx >= tab.shape[0], torch.zeros_like(f), f)
+
+
+def _matern_nu_family(s, c):
+    """The tabulated real-nu Matern family at s, as K1 and K2 compute it
+    (csrc/profile_spec.cuh `matern_nu_tabled`), in s's dtype, against the
+    table in s's dtype."""
+    r0, r1, bound, t1, t2, a, two_nu, e_lo, nu = c
+    tab = matern_nu_knots(nu).to(device=s.device, dtype=s.dtype)
+    idx, q = _table_point(s, r0, r1, e_lo)
+    f = _table_value(tab, idx, q)
+    x = torch.sqrt(torch.clamp(s, min=1e-30)) * r0
     small = 1 + s * (t1 + s * t2) - a * torch.exp2(two_nu * torch.log2(x))
-    f = torch.where(idx >= MATERN_KNOTS, torch.zeros_like(f), f)
     f = torch.where((s < bound) | (idx < 0), small, f)
     return torch.where(s <= 0, torch.ones_like(f), f)
+
+
+def _matern_nu_jet_family(s, c):
+    """(f', f'') of the tabulated real-nu Matern jet family at s, as K3
+    computes them (csrc/profile_spec.cuh `matern_nu_jet_tabled`), in s's
+    dtype: one interval for both tables (`utils/besselk.py`
+    `matern_nu_jet_knots`); below the table (or the Taylor bound c2, s = 0
+    included) f' = c3 + c4 s, f'' = c4."""
+    r0, r1, bound, c3, c4, c5, c6, e_lo, nu = c
+    t1, t2 = (t.to(device=s.device, dtype=s.dtype) for t in matern_nu_jet_knots(nu))
+    idx, q = _table_point(s, r0, r1, e_lo)
+    f1, f2 = c5 * _table_value(t1, idx, q), c6 * _table_value(t2, idx, q)
+    taylor = (s < bound) | (idx < 0)
+    return (torch.where(taylor, c3 + c4 * s, f1),
+            torch.where(taylor, torch.full_like(f2, c4), f2))
 
 
 def _chain(u, g, g1, g2):
@@ -390,6 +423,8 @@ class ProfileSpec:
         if self.family == FAMILY_IMQ:
             r = torch.rsqrt(s * c[0] + c[1])
             return c[2] * r ** 3, c[3] * r ** 5
+        if self.family == FAMILY_MATERN_NU:
+            return _matern_nu_jet_family(s, c)
         raise ValueError(f"unknown family {self.family}")
 
     def evaluate_jet(self, s):
@@ -666,7 +701,16 @@ def _jet_family(k):
                r = 1 / (1 + c0 s), f' = c1 r^2, f'' = c2 r^3;
       IMQ      c0 = sigma, c1 = c^2, c2 = -scale sigma / 2,
                c3 = 3 scale sigma^2 / 4: r = (c0 s + c1)^(-1/2), f' = c2 r^3,
-               f'' = c3 r^5."""
+               f'' = c3 r^5;
+      Matern   real nu, 1 < nu <= MATERN_TABLE_MAX_NU: c0 + c1 = sqrt(2 nu
+               sigma) (split), c2 = the Taylor bound / sigma, c3 = scale
+               sigma t1, c4 = 2 scale sigma^2 t2 (`matern_nu_jet_taylor`),
+               c5 = -scale sigma, c6 = scale sigma^2, c7 = e_lo
+               (`matern_nu_jet_octave`), c8 = nu: with x = sqrt(2 nu sigma
+               s), f' = c5 T1(x), f'' = c6 T2(x) from the two tables of
+               `matern_nu_jet_knots` (T1 = -f', T2 = f'' of Matern(nu)'s
+               profile in x), below the table or c2 f' = c3 + c4 s,
+               f'' = c4."""
     k, sigma, scale = _leaf(k)
     if isinstance(k, EQ):
         return (FAMILY_EQ, 0, _split(-sigma / (2 * math.log(2.0)))
@@ -683,6 +727,17 @@ def _jet_family(k):
     if isinstance(k, InverseMultiQuadratic):
         return (FAMILY_IMQ, 0, (sigma, _scalar(k, "c") ** 2, -scale * sigma / 2,
                                 0.75 * scale * sigma * sigma), 1.0)
+    if isinstance(k, Matern):
+        nu = _scalar(k, "nu")
+        if not 1 < nu <= MATERN_TABLE_MAX_NU:
+            return None
+        t1, t2, bound = matern_nu_jet_taylor(nu)
+        return (FAMILY_MATERN_NU, 0,
+                _split(math.sqrt(2 * nu * sigma)) + (bound / sigma, scale * sigma * t1,
+                                                      2 * scale * sigma * sigma * t2,
+                                                      -scale * sigma, scale * sigma * sigma,
+                                                      float(matern_nu_jet_octave(nu)), nu),
+                1.0)
     return None
 
 

@@ -277,6 +277,17 @@ def _tier() -> str:
     return f"matmul_precision {resolve_precision()!r}: {tier_passes()} tf32 pass(es)"
 
 
+def _instance(spec) -> str:
+    """Which instance of K2 or K3 a spec runs."""
+    from ..kernels.profile_spec import FAMILY_MATERN_NU
+
+    if not spec.family:
+        return "interpreted instance"
+    if spec.family == FAMILY_MATERN_NU:
+        return "family instance: the real-nu Matern's table"
+    return "family instance"
+
+
 def explain(k, x, y=None, **opts) -> str:
     """Describe the structure the dispatcher detected, and whether the
     lazy Gramian's or gradient gramian's MVM runs on a CUDA kernel (and
@@ -298,16 +309,17 @@ def explain(k, x, y=None, **opts) -> str:
             parts.append(f"cuda kernel K1 gramian_matvec_direct ({one}); multi-RHS K1 "
                          f"gramian_matmat_direct ({cols})")
         elif why is None:
-            parts.append(f"cuda kernel K2 gramian_matvec_expand ({_tier()}); multi-RHS "
-                         f"declined: K2 has no many-column variant (plain path)")
+            parts.append(f"cuda kernel K2 gramian_matvec_expand ({_instance(op._spec)}; "
+                         f"{_tier()}); multi-RHS declined: K2 has no many-column variant "
+                         f"(plain path)")
         else:
             parts.append(f"cuda kernel declined: {why}")
     g = op.inner if isinstance(op, JacobianConjugatedGradientGramian) else op
     if isinstance(g, GradientGramian):
         parts.append(f"gradient mode = {g.mode}")
         why = g.kernel_reason
-        parts.append(f"cuda kernel K3 grad_matvec ({_tier()})" if why is None
-                     else f"cuda kernel declined: {why}")
+        parts.append(f"cuda kernel K3 grad_matvec ({_instance(g._spec)}; {_tier()})"
+                     if why is None else f"cuda kernel declined: {why}")
     if isinstance(op, KroneckerOperator):
         parts.append("factors: " + " ⊗ ".join(f"{type(f).__name__}{f.shape}" for f in op.factors))
     if isinstance(op, SumOperator):

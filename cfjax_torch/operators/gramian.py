@@ -175,7 +175,7 @@ class Gramian(LinearOperator):
         # from the host and can be captured in a CUDA graph; a real-nu
         # Matern's table goes to the card here too
         self.k = to_points(k, self.x)
-        if self.kernel == "direct":
+        if self.kernel is not None:
             _mvm.family_table(self._spec, self.device)
 
     @property

@@ -18,11 +18,14 @@ from .. import config as _config
 from .linop import LinearOperator, LowRankOperator
 
 
-def cg(matvec, b, x0=None, tol: float = None, maxiter: int = None, M=None):
+def cg(matvec, b, x0=None, tol: float = None, maxiter: int = None, M=None,
+       callback=None):
     """Preconditioned conjugate gradients for SPD operators.
 
     matvec: callable v -> A v. M: callable v -> M^-1 v. Returns (x, info)
-    with info = (iterations, final residual norm).
+    with info = (iterations, final residual norm). `callback(i, x, r)`,
+    if given, sees each iteration's iterate (in its accumulation dtype)
+    and recursive residual.
 
     A float32 solve accumulates its iterate x in float64 (and returns it
     in float32): the rounding of a float32 x after every update, times
@@ -54,6 +57,8 @@ def cg(matvec, b, x0=None, tol: float = None, maxiter: int = None, M=None):
         p = z + (gamma_new / gamma) * p
         gamma = gamma_new
         i += 1
+        if callback is not None:
+            callback(i, xa, r)
     return xa.to(b.dtype), (i, torch.linalg.norm(r))
 
 

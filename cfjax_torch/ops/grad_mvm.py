@@ -15,10 +15,12 @@ torch version `grad_matvec_plain`, which takes f' and f'' from autodiff of
 products at the matmul tier. The kernel runs its four products on the
 tensor cores at the tier's passes (`tiles.TIER_PASSES`), takes f' and f''
 from the derivative spec's family in registers (`to_spec(k,
-derivative=True)`, one-leaf kernels) or its interpreted jet, and
-recomputes every near-coincident pair in difference form, exact at
-coincident points (see the source's header). Forward-only, like the
-Pallas kernel. Launches count in `gramian_mvm.LAUNCHES["grad"]`.
+derivative=True)`, one-leaf kernels; the real-nu Matern's from two
+tables, `matern_jet_table`) or its interpreted jet, and recomputes every
+near-coincident pair in difference form, exact at coincident points (see
+the source's header). Forward-only, like the Pallas kernel. Launches
+count in `gramian_mvm.LAUNCHES["grad"]`, the real-nu Matern family's
+under "grad_matern".
 """
 
 from __future__ import annotations
@@ -29,7 +31,9 @@ import functools
 import torch
 
 from ..kernels.derivatives import elementwise_derivatives
-from ..kernels.profile_spec import FAMILY_EQ, FAMILY_MATERN, JET_CONSTS, ProfileSpec, to_spec
+from ..kernels.profile_spec import (FAMILY_EQ, FAMILY_MATERN, FAMILY_MATERN_NU, JET_CONSTS,
+                                    ProfileSpec, to_spec)
+from ..utils.besselk import matern_nu_jet_knots
 from ..utils.roofline import Work
 from . import build as _build
 from .gramian_mvm import _cdiv, _CSpec, _cspec, _launch, _ptr, column_split, vec4_ok
@@ -63,15 +67,43 @@ def library() -> ctypes.CDLL:
     """The K3 library (built once per source digest), with its C signature set."""
     lib = _build.load("grad_mvm")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.k3_grad_matvec.argtypes = [p] * 8 + [i] * 10 + [_CSpec, _CJet, p]
+    lib.k3_grad_matvec.argtypes = [p] * 8 + [i] * 10 + [_CSpec, _CJet, p, p]
     lib.k3_grad_matvec.restype = i
     return lib
 
 
 # (fp32 instructions, SFU operations) of a derivative family's jet f', f''
 # per entry, by (family, p): EQ's FMUL, ex2 and two FMUL; MaternP(2)'s
-# eleven fp32 and rsqrt, ex2, rcp
-JET_OPS = {(FAMILY_EQ, 0): (3, 1), (FAMILY_MATERN, 2): (11, 3)}
+# eleven fp32 and rsqrt, ex2, rcp; the tabulated real-nu Matern's
+# (csrc/profile_spec.cuh `matern_nu_jet_tabled`) max, the root and its
+# residual (4), x and its rounding error (4), the interval's offset and its
+# correction (3), each table's cubic (4) and knot factor (1), the two
+# folded constants, the guard's two compares, and rsqrt and two ex2
+JET_OPS = {(FAMILY_EQ, 0): (3, 1), (FAMILY_MATERN, 2): (11, 3),
+           (FAMILY_MATERN_NU, 0): (26, 3)}
+
+
+@functools.lru_cache(maxsize=16)
+def matern_jet_table(nu: float, device: torch.device) -> torch.Tensor:
+    """The real-nu Matern jet family's two tables of nu on `device`, float32
+    (2 MATERN_JET_KNOTS, 4): -f' then f'' (`utils/besselk.py`
+    `matern_nu_jet_knots`), copied once per nu and device."""
+    return torch.cat(matern_nu_jet_knots(nu)).to(device=device, dtype=torch.float32).contiguous()
+
+
+def grad_route(spec: ProfileSpec) -> str:
+    """The LAUNCHES key of K3's instance for a derivative spec:
+    "grad_matern" for the real-nu Matern jet family (its tables,
+    `jet_table`), else "grad"."""
+    return "grad_matern" if spec.family == FAMILY_MATERN_NU else "grad"
+
+
+def jet_table(spec, device):
+    """A derivative family spec's tables on `device` (the real-nu Matern's),
+    else None."""
+    if spec.family != FAMILY_MATERN_NU:
+        return None
+    return matern_jet_table(spec.family_consts[-1], device)
 
 
 def jet_ops(spec: ProfileSpec) -> tuple:
@@ -172,7 +204,8 @@ def grad_matvec(k, x, y, A, mode: str = "iso", spec: ProfileSpec = None, precisi
     splits = _cdiv(m, per)
     partial = out if splits == 1 else torch.empty((splits, n, d), dtype=torch.float32,
                                                   device=x.device)
-    return _launch("grad", library().k3_grad_matvec, out,
+    return _launch(grad_route(spec), library().k3_grad_matvec, out,
                    _ptr(x), _ptr(y), _ptr(A), _ptr(x2), _ptr(y2), _ptr(ya), _ptr(partial),
                    _ptr(out), n, m, d, int(iso), splits, per, passes, spec.family,
-                   spec.family_p, int(vec4_ok(d, x, y, A)), _cspec(spec), _cjet(spec))
+                   spec.family_p, int(vec4_ok(d, x, y, A)), _cspec(spec), _cjet(spec),
+                   _ptr(jet_table(spec, x.device)))

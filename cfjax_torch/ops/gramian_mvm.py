@@ -21,7 +21,8 @@ K2 in `cfjax_torch/csrc/expand_mvm.cu`:
     for isotropic kernels at any d through ||x||^2 + ||y||^2 - 2 x.y, and
     for dot-product kernels through x.y, the x.y tile on the tensor cores
     at the matmul tier's passes (`tiles.TIER_PASSES`), a one-leaf profile
-    through its family instance, any other through the interpreter.
+    through its family instance (the real-nu Matern's reads K1's table),
+    any other through the interpreter.
 
 The sources are compiled with nvcc for sm_90a at first use into `build/`
 at the checkout root and loaded with ctypes (`ops/build.py`). Each
@@ -29,8 +30,9 @@ wrapper takes the kernel's plain torch version when its tensors lie on
 the CPU; for CUDA tensors it launches the kernel or raises. `LAUNCHES`
 counts kernel launches per kernel ("direct_cols" the many-column K1's,
 one a call, or one a column for the interpreted instance; "matern" K1's
-launches of the real-nu Matern family, single- and many-column; K3, in
-`ops/grad_mvm.py`, counts under "grad"; K4, in `ops/tile_ell_mvm.py`,
+launches of the real-nu Matern family, single- and many-column,
+"expand_matern" K2's; K3, in `ops/grad_mvm.py`, counts under "grad" and
+its Matern family under "grad_matern"; K4, in `ops/tile_ell_mvm.py`,
 under "tile_ell"). Both kernels are forward-only, like the Pallas
 kernels.
 """
@@ -61,8 +63,8 @@ _K2_BM, _K2_BN = 64, 64
 _K1F_BM = 128
 _K1F_TN = {1: 512, 2: 512, 3: 512, 4: 256, 8: 128, 16: 128}
 
-LAUNCHES = {"direct": 0, "direct_cols": 0, "matern": 0, "expand": 0, "grad": 0,
-            "tile_ell": 0}
+LAUNCHES = {"direct": 0, "direct_cols": 0, "matern": 0, "expand": 0, "expand_matern": 0,
+            "grad": 0, "grad_matern": 0, "tile_ell": 0}
 
 
 class _CSpec(ctypes.Structure):
@@ -132,7 +134,7 @@ def expand_library() -> ctypes.CDLL:
     set."""
     lib = _build.load("expand_mvm")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.k2_gramian_matvec_expand.argtypes = [p] * 7 + [i] * 10 + [_CSpec, _CFamily, p]
+    lib.k2_gramian_matvec_expand.argtypes = [p] * 7 + [i] * 10 + [_CSpec, _CFamily, p, p]
     lib.k2_gramian_matvec_expand.restype = i
     return lib
 
@@ -396,6 +398,13 @@ def gramian_matmat_direct(k, x, y, A, spec: ProfileSpec = None, precision=None):
                    _ptr(family_table(spec, x.device)))
 
 
+def expand_route(spec: ProfileSpec) -> str:
+    """The LAUNCHES key of K2's instance for a value spec: "expand_matern"
+    for the real-nu Matern family (its table, `family_table`), else
+    "expand" (the other families and the interpreter)."""
+    return "expand_matern" if spec.family == FAMILY_MATERN_NU else "expand"
+
+
 def gramian_matvec_expand(k, x, y, a, mode: str = "iso", precision=None,
                           spec: ProfileSpec = None):
     """K2: b = K a for an isotropic (any d) or dot-product kernel (CUDA),
@@ -416,10 +425,8 @@ def gramian_matvec_expand(k, x, y, a, mode: str = "iso", precision=None,
     splits, per = column_split(_cdiv(n, _K2_BM), m, _K2_BN, x.device)
     partial = out if splits == 1 else torch.empty((splits, n), dtype=torch.float32,
                                                   device=x.device)
-    # K2 takes the closed-form families; a real-nu Matern runs its interpreter
-    family, fam_p = ((FAMILY_NONE, 0) if spec.family == FAMILY_MATERN_NU
-                     else (spec.family, spec.family_p))
-    return _launch("expand", expand_library().k2_gramian_matvec_expand, out,
+    return _launch(expand_route(spec), expand_library().k2_gramian_matvec_expand, out,
                    _ptr(x), _ptr(y), _ptr(x2), _ptr(y2), _ptr(a), _ptr(partial),
                    _ptr(out), n, m, d, int(mode == "iso"), splits, per, passes,
-                   family, fam_p, int(vec4_ok(d, x, y)), _cspec(spec), _cfamily(spec))
+                   spec.family, spec.family_p, int(vec4_ok(d, x, y)), _cspec(spec),
+                   _cfamily(spec), _ptr(family_table(spec, x.device)))

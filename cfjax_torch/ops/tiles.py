@@ -12,7 +12,8 @@ put large absolute error on the squared-distance tile. Two remedies:
 On the CPU every tier is exact fp32/fp64, as cfjax's tiers are on XLA's
 CPU backend. On CUDA the tf32 tiers are emulated by rounding the inputs
 to tf32 and multiplying in full fp32, which gives the tensor cores'
-tf32 products exactly, independent of torch's global tf32 flags.
+tf32 products exactly, independent of torch's global tf32 flags; the
+full fp32 products (and "highest") hold those flags off (`full_fp32`).
 
 The CUDA kernels K2 and K3 run each tier as passes over the tensor cores
 (`TIER_PASSES`, csrc/tc_tile.cuh): "default" one tf32 pass, "high" the
@@ -23,6 +24,8 @@ measured (PERF.md), so "highest" takes the faster split.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -51,15 +54,47 @@ def _tf32(t):
     return ((b + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
+@contextlib.contextmanager
+def full_fp32():
+    """Hold CUDA float32 matrix products at full fp32 inside the block,
+    whatever torch's global setting: with TF32 allowed
+    (`torch.backends.cuda.matmul.fp32_precision = "tf32"`, or the older
+    `allow_tf32` / `set_float32_matmul_precision("high")`, which it
+    reflects) cuBLAS would round their inputs to tf32. cfjax's "highest"
+    is f32-class whatever XLA's defaults are. The flag is set and restored
+    through `fp32_precision` (reading the older flags after a mix of the two
+    APIs raises in torch, restoring the value read does not)."""
+    m = torch.backends.cuda.matmul
+    if not hasattr(m, "fp32_precision"):   # torch before the fp32_precision API
+        saved = m.allow_tf32
+        m.allow_tf32 = False
+        try:
+            yield
+        finally:
+            m.allow_tf32 = saved
+        return
+    saved = m.fp32_precision
+    # "none" defers to the backends' common setting
+    if (saved if saved != "none" else getattr(torch.backends, "fp32_precision", "none")) != "tf32":
+        yield
+        return
+    m.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        m.fp32_precision = saved
+
+
 def _mm(a, b, precision):
     p = resolve_precision(precision)
-    if p == "highest" or not a.is_cuda or a.dtype != torch.float32:
-        return a @ b
-    ah, bh = _tf32(a), _tf32(b)
-    if p == "default":
-        return ah @ bh
-    al, bl = a - ah, b - bh
-    return ah @ bh + (ah @ _tf32(bl) + _tf32(al) @ bh)
+    with full_fp32():
+        if p == "highest" or not a.is_cuda or a.dtype != torch.float32:
+            return a @ b
+        ah, bh = _tf32(a), _tf32(b)
+        if p == "default":
+            return ah @ bh
+        al, bl = a - ah, b - bh
+        return ah @ bh + (ah @ _tf32(bl) + _tf32(al) @ bh)
 
 
 def matmul_p(a, b, precision=None):

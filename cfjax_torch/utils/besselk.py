@@ -7,7 +7,9 @@ K_nu(x) = int_0^inf exp(-x cosh t) cosh(nu t) dt as cfjax: 400 nodes, in
 log space, with the same clamps, so that the gradients in x and in nu
 flow through it. This is the plain version of the real-nu Matern profile;
 the CUDA kernels evaluate K_nu by Temme's series and Steed's continued
-fraction instead (`csrc/profile_spec.cuh`).
+fraction instead (`csrc/profile_spec.cuh`), or, for a one-leaf Matern,
+read tables of the profile (`matern_nu_knots`) and of its derivatives
+(`matern_nu_jet_knots`) built here from the same method in float64.
 
 The quadrature loses accuracy at small x, more so for large nu (against
 scipy.special.kv: 1e-7 relative below x ~ 1e-3 at nu = 0.5, ~ 7e-3 at
@@ -85,10 +87,7 @@ def matern_nu_table(nu: float, jet: bool) -> tuple:
     mu = nu - n
     flip = jet and n == 1
     l = -mu if flip else mu
-    gp, gm = 1.0 / math.gamma(1.0 + l), 1.0 / math.gamma(1.0 - l)
-    # gamma1 -> -(Euler's gamma) as l -> 0; the difference cancels below 1e-7
-    gam1 = (gm - gp) / (2.0 * l) if abs(l) > 1e-7 else -0.5772156649015329
-    fact = math.pi * l / math.sin(math.pi * l) if l else 1.0
+    gam1, gam2, gp, gm, fact = _temme(l)
     log2c = 1.0 - nu - math.lgamma(nu) / math.log(2.0)
     e = math.floor(log2c) + 1
     eps = 2.0 ** -23
@@ -98,7 +97,17 @@ def matern_nu_table(nu: float, jet: bool) -> tuple:
     root = math.sqrt(2 * nu)
     root32 = float(np.float32(root))
     return (nu, root32, 2.0 ** (log2c - e), float(e), t1, t2, bound, l, float(flip),
-            float(n), gam1, (gm + gp) / 2.0, gp, gm, fact, root - root32)
+            float(n), gam1, gam2, gp, gm, fact, root - root32)
+
+
+def _temme(l: float) -> tuple:
+    """Temme's constants at order |l| <= 1/2 (entries 10-14 of
+    `matern_nu_table`)."""
+    gp, gm = 1.0 / math.gamma(1.0 + l), 1.0 / math.gamma(1.0 - l)
+    # gamma1 -> -(Euler's gamma) as l -> 0; the difference cancels below 1e-7
+    gam1 = (gm - gp) / (2.0 * l) if abs(l) > 1e-7 else -0.5772156649015329
+    fact = math.pi * l / math.sin(math.pi * l) if l else 1.0
+    return gam1, (gm + gp) / 2.0, gp, gm, fact
 
 
 # the kernels' stopping rule: their float32 loops end once an increment
@@ -295,6 +304,28 @@ def _matern_log(nu: float, x):
     return math.log(t[2]) + t[3] * math.log(2.0) + torch.log(g), -x * gm / g
 
 
+def _knots(e_lo: int, octaves: int) -> torch.Tensor:
+    """x_k = 2^(e_lo + k // 32) (1 + (k % 32) / 32), k = 0 .. 32 octaves, float64."""
+    k = torch.arange(octaves * MATERN_STEPS + 1, dtype=torch.float64)
+    e = e_lo + k.div(MATERN_STEPS, rounding_mode="floor")
+    return torch.exp2(e) * (1 + k.remainder(MATERN_STEPS) / MATERN_STEPS)
+
+
+def _log2_hermite(x, lnf, dlnf, upto_left: bool = False) -> torch.Tensor:
+    """The rows (f(x_k), a1, a2, a3) of a table over the knots x: f(x_k + q
+    h) = f(x_k) 2^(q (a1 + q (a2 + q a3))), h = x_(k+1) - x_k, the cubic
+    Hermite interpolant of log2 f(x) / f(x_k) from ln f and d ln f / dx at
+    both knots; 0 where the next knot's value (with `upto_left`, the
+    knot's own) is below float32's smallest normal."""
+    h = x[1:] - x[:-1]
+    ln2 = math.log(2.0)
+    p1 = (lnf[1:] - lnf[:-1]) / ln2
+    m0, m1 = h * dlnf[:-1] / ln2, h * dlnf[1:] / ln2
+    tab = torch.stack([torch.exp(lnf[:-1]), m0, 3 * p1 - 2 * m0 - m1, m0 + m1 - 2 * p1], dim=1)
+    live = ((lnf[:-1] if upto_left else lnf[1:]) > -126 * ln2) & torch.isfinite(tab).all(dim=1)
+    return torch.where(live[:, None], tab, torch.zeros_like(tab))
+
+
 @functools.lru_cache(maxsize=16)
 def matern_nu_knots(nu: float) -> torch.Tensor:
     """The table of the tabulated Matern family at nu, float64 (MATERN_KNOTS,
@@ -305,15 +336,64 @@ def matern_nu_knots(nu: float) -> torch.Tensor:
     derivative at both knots, in float64 by `_matern_log`. Where a knot's
     value is below float32's smallest normal the interval is 0. Cached by
     nu: a fit that moves nu builds a new table."""
-    e = matern_nu_octave(nu) + torch.arange(MATERN_KNOTS + 1, dtype=torch.float64) \
-        .div(MATERN_STEPS, rounding_mode="floor")
-    j = torch.arange(MATERN_KNOTS + 1, dtype=torch.float64).remainder(MATERN_STEPS)
-    x = torch.exp2(e) * (1 + j / MATERN_STEPS)
-    lnf, dlnf = _matern_log(nu, x)
-    h = x[1:] - x[:-1]
-    ln2 = math.log(2.0)
-    p1 = (lnf[1:] - lnf[:-1]) / ln2
-    m0, m1 = h * dlnf[:-1] / ln2, h * dlnf[1:] / ln2
-    tab = torch.stack([torch.exp(lnf[:-1]), m0, 3 * p1 - 2 * m0 - m1, m0 + m1 - 2 * p1], dim=1)
-    live = (lnf[1:] > -126 * ln2) & torch.isfinite(tab).all(dim=1)
-    return torch.where(live[:, None], tab, torch.zeros_like(tab))
+    x = _knots(matern_nu_octave(nu), MATERN_OCTAVES)
+    return _log2_hermite(x, *_matern_log(nu, x))
+
+
+# The jet family's tables (kernels/profile_spec.py FAMILY_MATERN_NU in a
+# derivative spec, csrc/profile_spec.cuh `matern_nu_jet_tabled`): -f' and
+# f'' of Matern(nu).profile as functions of x, on knots laid out as the
+# value table's over MATERN_JET_OCTAVES octaves. They start an octave below
+# x at float64's Taylor bound (`matern_nu_reference`'s), since f' and f''
+# keep changing down to it for nu near 1 (f'' grows like x^(2 nu - 4)).
+MATERN_JET_OCTAVES = 40
+MATERN_JET_KNOTS = MATERN_JET_OCTAVES * MATERN_STEPS
+
+
+def matern_nu_jet_taylor(nu: float) -> tuple:
+    """(t1, t2, bound) of `matern_nu_reference`'s Taylor branch at nu > 1:
+    below s = bound (float64's: eps for nu <= 2, sqrt(eps) above) f' = t1 +
+    2 t2 s and f'' = 2 t2."""
+    eps = float(torch.finfo(torch.float64).eps)
+    t1 = nu / (2 * (1 - nu))
+    t2 = nu ** 2 / (8 * (2 - 3 * nu + nu ** 2)) if nu > 2 else 0.0
+    return t1, t2, math.sqrt(eps) if nu > 2 else eps
+
+
+def matern_nu_jet_octave(nu: float) -> int:
+    """e_lo of the jet tables: an octave below x at the Taylor bound."""
+    return math.floor(math.log2(math.sqrt(2 * nu * matern_nu_jet_taylor(nu)[2]))) - 1
+
+
+def _scaled_kv(b: float, x):
+    """x^b K_b(x) at real order b, x > 0, float64: Temme's series or Steed's
+    fraction at the order l = b - floor(b + 1/2) in [-1/2, 1/2), then the
+    recurrence up, every term positive; below b = -1/2 by x^(2b) x^-b K_-b."""
+    if b < -0.5:
+        return x ** (2 * b) * _scaled_kv(-b, x)
+    m = math.floor(b + 0.5)
+    l = b - m
+    g0, g1, _ = _kv_pair((0.0,) * 7 + (l, 0.0, 0.0) + _temme(l), x)
+    if m == 0:
+        return g0
+    for k in range(1, m):
+        g0, g1 = g1, x * x * g0 + 2 * (l + k) * g1
+    return g1
+
+
+@functools.lru_cache(maxsize=16)
+def matern_nu_jet_knots(nu: float) -> tuple:
+    """The jet family's two tables at 1 < nu <= MATERN_TABLE_MAX_NU, float64
+    (MATERN_JET_KNOTS, 4) each, laid out as `matern_nu_knots`'s: of -f' =
+    c nu x^(nu-1) K_(nu-1)(x) and f'' = c nu^2 x^(nu-2) K_|nu-2|(x), c =
+    2^(1-nu) / Gamma(nu), as functions of x = sqrt(2 nu s), with d/dx
+    x^a K_a(x) = -x x^(a-1) K_(a-1)(x) for their slopes. An interval is
+    kept while its left knot is a normal float32, so that each table holds
+    its function wherever that is one. Cached by nu."""
+    if not 1 < nu <= MATERN_TABLE_MAX_NU:
+        raise ValueError(f"the jet tables take 1 < nu <= {MATERN_TABLE_MAX_NU}, got {nu}")
+    x = _knots(matern_nu_jet_octave(nu), MATERN_JET_OCTAVES)
+    lnc = (1 - nu) * math.log(2.0) - math.lgamma(nu)
+    g1, g2, g3 = (_scaled_kv(nu - j, x) for j in (1, 2, 3))
+    return (_log2_hermite(x, lnc + math.log(nu) + torch.log(g1), -x * g2 / g1, True),
+            _log2_hermite(x, lnc + 2 * math.log(nu) + torch.log(g2), -x * g3 / g2, True))

@@ -35,17 +35,20 @@ card, then drives the paths a user runs:
     `BarnesHutFactorization` (host plans, plain-torch MVM; K1 computes
     the exact rows it is held to) at the reference README's n = 65536
     and at BASELINE config 5's n = 10^6, config 5's GP solve at n = 10^6
-    (`gp_condition`: K1 + rank-2048 Nystrom PCG; `approx_refined_solve`
-    with the treecode inside, K1 outside) and `refined_solve` at
-    n = 10^5 (K1 inside, the float64 Gramian outside);
-  * phase 21, the real-nu Matern kernel through K1 (its tabulated family,
-    single- and many-column; the interpreted instance beside it), K2 and
-    K3 (the K_nu routine of the profile interpreter): its profile through
-    K1 at 10^5 distances for nu from 0.3 to 25, K1 at BASELINE config 1's
-    shape, K2 at d = 64 and K3 at config 4's shape at each tier, each
-    against a float64 reference by the kernels' method and against cfjax's
-    quadrature where that is accurate, then `gp_condition` at n = 2^15
-    (Nystrom PCG through K1's Matern family);
+    (`gp_condition`: K1 + rank-2048 Nystrom PCG, on its own points and on
+    cfjax's; `approx_refined_solve` with the treecode inside, K1 outside)
+    and `refined_solve` at n = 10^5 (K1 inside, the float64 Gramian
+    outside);
+  * phase 21, the real-nu Matern kernel through its tabulated families in
+    K1 (single- and many-column), K2 and K3 (the K_nu routine of the
+    profile interpreter beside each): its profile through K1 at 10^5
+    distances for nu from 0.3 to 25, K1 at BASELINE config 1's shape, K2
+    at d = 64 and K3 at config 4's shape at each tier, each against a
+    float64 reference by the kernels' method and against cfjax's
+    quadrature where that is accurate, then three GP solves, each its own
+    path: `gp_condition` at n = 2^15, d = 3 (21d, Nystrom PCG through K1's
+    family) and d = 64 (21e, through K2's), and on gradient observations
+    at n = d = 1024 (21f, CG through K3's jet family);
   * phases 22-23, BASELINE config 5's hyperparameter inference as the
     north-star demo runs it: NUTS and HMC over (log l, log v) on the
     Cholesky logML of a 4096-point subset of n = 2^20 points, then host
@@ -1667,7 +1670,9 @@ def relres64(k, x, y, v, noise, rows, mvm, block=64):
 def phase19_gp_solves(tk, ops, gp, bh, mvm):
     """BASELINE config 5's GP solve (run_baseline.py:495-548): Lengthscale(EQ,
     1), n = 10^6, x ~ U(-10, 10)^2, sigma^2 = 1e-2, y = sin(x_0) + 0.1 w.
-    (a) gp_condition, rank-2048 Nystrom PCG through K1, tol 1e-4, maxiter 60;
+    (a) gp_condition, rank-2048 Nystrom PCG through K1, tol 1e-4, maxiter 60,
+    on this phase's points (seed 19) and on cfjax's own (run_baseline's
+    draw), where the float32 Nystrom build stalled (PERF.md);
     (b) approx_refined_solve: GMRES with the same preconditioner against the
     theta = 1/2 Barnes-Hut matvec_linear + sigma^2 I, corrected by K1 +
     sigma^2 I residuals. Whether (b) converges is read, not checked. K1 at
@@ -1707,6 +1712,22 @@ def phase19_gp_solves(tk, ops, gp, bh, mvm):
     check(r64_a <= 2e-4, f"phase 19a: float64 residual on {RESIDUAL_ROWS} rows {r64_a:.3e} "
           f"> 2 x the tolerance 1e-4")
     del post, a, Ka, Ka64, mag64
+    # (a) again on cfjax's own points (run_baseline's draw, seed 0), where
+    # the float32 Nystrom build stalled at relres 5.2e-3 after 60 iterations
+    from cfjax_torch.benchmarks.run_baseline import SIZES, barneshut_draws
+
+    dr = barneshut_draws(SIZES["full"])
+    x0 = cuda_tensor(dr["x5"])
+    y0 = torch.sin(x0[:, 0]) + 0.1 * cuda_tensor(dr["w3"])
+    del dr
+    post0, wall_0 = sync_time(lambda: gp.gp_condition(k, x0, y0, noise=s2, precond_rank=2048,
+                                                      tol=1e-4, maxiter=60))
+    it_0, rel_0 = post0.solve_info[0], float(post0.solve_info[1]) / float(torch.linalg.norm(y0))
+    _, r64_0 = relres64(k, x0, y0, post0.alpha, s2, rows, mvm)
+    check(it_0 < 60 and rel_0 <= 1e-4 and r64_0 <= 2e-4,
+          f"phase 19a: on cfjax's points the Nystrom PCG took {it_0} iterations to relres "
+          f"{rel_0:.3e}, float64 residual on {RESIDUAL_ROWS} rows {r64_0:.3e}")
+    del post0, x0, y0
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -1747,7 +1768,8 @@ def phase19_gp_solves(tk, ops, gp, bh, mvm):
           f"{wall_a:.3f} s, K1 launches {launches_a}, float64 residual on {RESIDUAL_ROWS} rows "
           f"{r64_a:.3e}; K1 there vs float64 plain: K |alpha| {k1_m:.3e}, K alpha {k1_a:.3e} "
           f"of ||K |alpha||| (plain float32 {f32_a:.3e}; {rel_Ka:.3e} of ||K alpha||, which "
-          f"cancels {can_a:.1f}x) | (b) "
+          f"cancels {can_a:.1f}x); on cfjax's points (seed 0) {it_0} iterations, relres "
+          f"{rel_0:.3e}, {wall_0:.3f} s, float64 residual {r64_0:.3e} | (b) "
           f"approx_refined_solve (theta 0.5 BH inner, GMRES(20), inner_tol 3e-2, tol 1e-4): "
           f"{outer} outer steps, exact relres per step "
           f"{', '.join(f'{r:.3e}' for r in steps)}; converged: {rel_b <= 1e-4}; {calls[0]} BH "
@@ -2039,11 +2061,16 @@ def phase21a_headline(tk, mvm):
 
 def phase21b_k2(tk, mvm):
     """K2: Lengthscale(Matern(1.3), 4) at d = 64, n = 16384 (N(0, I) points,
-    the first 16 rows of y rows of x and the next 16 those rows moved by
-    1e-3), at each tier: against the float64 reference, and against the
-    reference's profile on the tier's squared distances (`check_tiers`, the
-    TIER_BOUND["K2"] limits); times and the bound at "highest" and
-    "default"."""
+    rows 16..31 rows 0..15 moved by 1e-3), through its tabulated family
+    (`family_value` on K1's table) at each tier: against the float64
+    reference and against the reference's profile on the tier's squared
+    distances (`check_tiers`, the TIER_BOUND["K2"] limits), its launches
+    counted under "expand_matern"; the interpreted instance (the K_nu
+    opcodes) once, at "highest", against the same reference. Times and
+    bounds of the family at "highest" and "default" and of the interpreted
+    instance at "highest" (the K_nu routine's operations on this run's
+    distances); the plain version's time (cfjax's quadrature)."""
+    from cfjax_torch.kernels.profile_spec import FAMILY_MATERN_NU, to_spec
     from cfjax_torch.ops.tiles import tier_passes
 
     rng = np.random.default_rng(212)
@@ -2052,31 +2079,59 @@ def phase21b_k2(tk, mvm):
     xs[16:32] = xs[:16] + 1e-3 * rng.standard_normal((16, d))
     x, a = cuda_tensor(xs), cuda_tensor(rng.standard_normal(n))
     k, kx = tk.Lengthscale(tk.Matern(1.3), 4.0), tk.Lengthscale(exact_matern(tk, 1.3), 4.0)
+    spec = to_spec(k)[0]
+    check(spec.family == FAMILY_MATERN_NU, "phase 21b: Lengthscale(Matern(1.3), 4) has no family")
+    itp = dataclasses.replace(spec, family=0)
     with torch.no_grad():
         ref = mvm.gramian_matvec_direct_plain(kx, x.double(), x.double(), a.double(), block=256)
     tiers = tier_record()
-    check_tiers(tiers, "K2", "phase 21b K2 Lengthscale(Matern(1.3), 4) d=64", ref,
-                lambda tier: mvm.gramian_matvec_expand(k, x, x, a, precision=tier),
-                lambda tier: mvm.gramian_matvec_expand_plain(kx, x, x, a, precision=tier,
-                                                             block=256))
-    out = mvm.gramian_matvec_expand(k, x, x, a)
-    abs_err = float((out.double() - ref).abs().max())
+    before = dict(mvm.LAUNCHES)
+    outs = {}
+
+    def fam(tier):
+        outs[tier] = mvm.gramian_matvec_expand(k, x, x, a, precision=tier)
+        return outs[tier]
+
+    check_tiers(tiers, "K2", "phase 21b K2 Lengthscale(Matern(1.3), 4) d=64 (the family)", ref,
+                fam, lambda tier: mvm.gramian_matvec_expand_plain(kx, x, x, a, precision=tier,
+                                                                  block=256))
+    moved = {key: mvm.LAUNCHES[key] - before[key] for key in before}
+    check(moved["expand_matern"] == len(TIERS) and moved["expand"] == 0,
+          f"phase 21b: the family did not launch at each tier: {moved}")
+    out_i = mvm.gramian_matvec_expand(k, x, x, a, spec=itp)
+    check(mvm.LAUNCHES["expand"] == before["expand"] + 1, "phase 21b: the interpreter's launch")
+    err_i = rel(out_i, ref)
+    check(err_i <= TIER_BOUND["K2"][1]["highest"], f"phase 21b: the interpreted instance "
+          f"{err_i:.3e} vs float64 > {TIER_BOUND['K2'][1]['highest']:.0e}")
+    abs_err = max(float((o.double() - ref).abs().max()) for o in [out_i, *outs.values()])
     hist = pair_histogram(x, x, scale=16.0)
     fp32, sfu = matern_nu_ops(1.3, hist)
     times = {}
-    before = mvm.LAUNCHES["expand"]
     for tier in ("highest", "default"):
         call, dev = call_and_device_ms(lambda: mvm.gramian_matvec_expand(k, x, x, a,
                                                                          precision=tier))
-        b = roof(mvm.work_expand(n, n, d, (fp32, sfu), tier_passes(tier)))
-        times[tier] = (call, dev, b)
-    mvm.LAUNCHES["expand"] = before
+        work = mvm.work_expand(n, n, d, mvm.profile_ops(spec), tier_passes(tier))
+        summ = summarize(work, dev / 1e3)
+        check(summ["valid"], f"phase 21b: {summ.get('why')}")
+        times[tier] = (call, dev, roof(work))
+    icall, idev = call_and_device_ms(lambda: mvm.gramian_matvec_expand(k, x, x, a, spec=itp))
+    ibound = roof(mvm.work_expand(n, n, d, (fp32, sfu), tier_passes("highest")))
+    with torch.no_grad():
+        _, plain_s = sync_time(lambda: mvm.gramian_matvec_expand_plain(k, x, x, a, block=64))
+    mvm.LAUNCHES.update(before)   # the checks and timings are not the path's
     print(f"phase 21b K2 Lengthscale(Matern(1.3), 4) n={n} d={d}, 16 coincident and 16 "
-          f"near-coincident rows: {tier_text(tiers, 'K2')}; max abs {abs_err:.3e}; the K_nu "
-          f"routine {fp32:.1f} fp32 + {sfu:.2f} SFU an entry; " + "; ".join(
-              f"{tier} {c:.4f} ms a call ({dv:.4f} device), bound {b[0]:.4f} ms ({b[1]}) = "
-              f"{100 * b[0] / dv:.1f}% of device" for tier, (c, dv, b) in times.items()), flush=True)
-    return dict(tiers=tiers, times=times, abs_err=abs_err, ops=(fp32, sfu))
+          f"near-coincident rows, the tabulated family: {tier_text(tiers, 'K2')}; the "
+          f"interpreted instance (K_nu opcodes) {err_i:.3e} vs float64; max abs "
+          f"{abs_err:.3e}; " + "; ".join(
+              f"family {tier} {c:.4f} ms a call ({dv:.4f} device), bound {b[0]:.4f} ms ({b[1]}, "
+              f"{mvm.profile_ops(spec)} fp32 and SFU an entry) = {100 * b[0] / dv:.1f}% of device"
+              for tier, (c, dv, b) in times.items()) +
+          f"; the interpreted instance at highest {icall:.4f} ms a call ({idev:.4f} device), "
+          f"the K_nu routine {fp32:.1f} fp32 + {sfu:.2f} SFU an entry, bound {ibound[0]:.4f} ms "
+          f"({ibound[1]}) = {100 * ibound[0] / idev:.1f}%; plain (float32, cfjax's quadrature) "
+          f"{plain_s * 1e3:.1f} ms", flush=True)
+    return dict(tiers=tiers, times=times, abs_err=abs_err, ops=(fp32, sfu), interp=(icall, idev),
+                ibound=ibound, plain_ms=plain_s * 1e3)
 
 
 def k3_matern_reference(nu, x, y, A, precision=None, block=256):
@@ -2102,11 +2157,16 @@ def phase21c_k3(tk, gmvm):
     """K3: GradientKernel(Matern(2.7)) at BASELINE config 4's shape (n =
     4096, d = 16, 0.5 N(0, I) points; the gradient gramian of x with
     itself: every diagonal pair coincident, and rows 16..31 rows 0..15
-    moved by 1e-3 / sqrt(d)), and Matern(1.5) once, at each tier against
-    the float64 reference and the reference's jet on the tier's products
-    (`check_tiers`, the K3 limits); K3 against the float64 plain version
-    (cfjax's quadrature, autograd's jet) on rows 0..255, reported; times
-    and the bound of Matern(2.7)."""
+    moved by 1e-3 / sqrt(d)), and Matern(1.5), through the tabulated jet
+    family (two tables of nu) at each tier against the float64 reference
+    and the reference's jet on the tier's products (`check_tiers`, the K3
+    limits), its launches counted under "grad_matern"; the interpreted
+    instance (the K_nu jet opcodes) once, Matern(2.7) at "highest"; K3
+    against the float64 plain version (cfjax's quadrature, autograd's
+    jet) on rows 0..255, reported; times and bounds of Matern(2.7) through
+    the family and the interpreted instance; the plain version's time."""
+    from cfjax_torch.kernels.profile_spec import FAMILY_MATERN_NU, to_spec
+    from cfjax_torch.ops import gramian_mvm as mvm
     from cfjax_torch.ops.tiles import tier_passes
 
     rng = np.random.default_rng(213)
@@ -2115,37 +2175,69 @@ def phase21c_k3(tk, gmvm):
     xs[16:32] = xs[:16] + 1e-3 * rng.standard_normal((16, d)) / np.sqrt(d)
     x, A = cuda_tensor(xs), cuda_tensor(rng.standard_normal((n, d)))
     tiers, plain_err, out, abs_err = tier_record(), {}, {}, 0.0
+    before = dict(mvm.LAUNCHES)
     for nu in (2.7, 1.5):
         k = tk.Matern(nu)
+        check(to_spec(k, derivative=True)[0].family == FAMILY_MATERN_NU,
+              f"phase 21c: Matern({nu}) has no jet family")
         ref = k3_matern_reference(nu, x.double(), x.double(), A.double())
-        check_tiers(tiers, "K3", f"phase 21c K3 Matern({nu}) n={n} d={d}", ref,
-                    lambda tier: gmvm.grad_matvec(k, x, x, A, precision=tier),
+        outs = {}
+
+        def fam(tier, k=k, outs=outs):
+            outs[tier] = gmvm.grad_matvec(k, x, x, A, precision=tier)
+            return outs[tier]
+
+        check_tiers(tiers, "K3", f"phase 21c K3 Matern({nu}) n={n} d={d} (the family)", ref, fam,
                     lambda tier: k3_matern_reference(nu, x, x, A, precision=tier))
-        out[nu] = gmvm.grad_matvec(k, x, x, A)
-        abs_err = max(abs_err, float((out[nu].double() - ref).abs().max()))
+        out[nu] = outs["highest"]
+        abs_err = max([abs_err] + [float((o.double() - ref).abs().max()) for o in outs.values()])
         with torch.no_grad():
             plain = gmvm.grad_matvec_plain(k, x[:256].double(), x.double(), A.double(), block=8)
         plain_err[nu] = (rel(out[nu][:256], plain), rel(plain, ref[:256]))
-    from cfjax_torch.ops import gramian_mvm as mvm
-
+        if nu == 2.7:
+            ref27 = ref
+    moved = {key: mvm.LAUNCHES[key] - before[key] for key in before}
+    check(moved["grad_matern"] == 2 * len(TIERS) and moved["grad"] == 0,
+          f"phase 21c: the family did not launch at each tier: {moved}")
     k = tk.Matern(2.7)
-    before = mvm.LAUNCHES["grad"]
+    spec = to_spec(k, derivative=True)[0]
+    itp = dataclasses.replace(spec, family=0)
+    out_i = gmvm.grad_matvec(k, x, x, A, spec=itp)
+    check(mvm.LAUNCHES["grad"] == before["grad"] + 1, "phase 21c: the interpreter's launch")
+    err_i = rel(out_i, ref27)
+    check(err_i <= TIER_BOUND["K3"][1]["highest"], f"phase 21c: the interpreted instance "
+          f"{err_i:.3e} vs float64 > {TIER_BOUND['K3'][1]['highest']:.0e}")
+    abs_err = max(abs_err, float((out_i.double() - ref27).abs().max()))
     times = {}
     hist = pair_histogram(x, x)
     fp32, sfu = matern_nu_ops(2.7, hist, jet=True)
     for tier in ("highest", "default"):
         call, dev = call_and_device_ms(lambda: gmvm.grad_matvec(k, x, x, A, precision=tier))
-        times[tier] = (call, dev, roof(gmvm.work_grad(n, n, d, (fp32, sfu), tier_passes(tier))))
-    mvm.LAUNCHES["grad"] = before
+        work = gmvm.work_grad(n, n, d, gmvm.jet_ops(spec), tier_passes(tier))
+        summ = summarize(work, dev / 1e3)
+        check(summ["valid"], f"phase 21c: {summ.get('why')}")
+        times[tier] = (call, dev, roof(work))
+    icall, idev = call_and_device_ms(lambda: gmvm.grad_matvec(k, x, x, A, spec=itp))
+    ibound = roof(gmvm.work_grad(n, n, d, (fp32, sfu), tier_passes("highest")))
+    with torch.no_grad():
+        _, plain_s = sync_time(lambda: gmvm.grad_matvec_plain(k, x, x, A, block=64))
+    mvm.LAUNCHES.update(before)   # the checks and timings are not the path's
     print(f"phase 21c K3 GradientKernel(Matern(2.7)) and (Matern(1.5)) n={n} d={d} (config 4's "
-          f"shape, coincident and near-coincident pairs): {tier_text(tiers, 'K3')}; against the "
-          f"float64 plain version (cfjax's quadrature, autograd's jet) on rows 0..255: " + ", ".join(
+          f"shape, coincident and near-coincident pairs), the tabulated jet family: "
+          f"{tier_text(tiers, 'K3')}; the interpreted instance (K_nu jet opcodes) {err_i:.3e} vs "
+          f"float64; max abs {abs_err:.3e}; against the float64 plain version (cfjax's "
+          f"quadrature, autograd's jet) on rows 0..255: " + ", ".join(
               f"Matern({nu}) {e:.3e} (the plain version vs the reference {p:.3e})"
-              for nu, (e, p) in plain_err.items()) + f"; the K_nu jet {fp32:.1f} fp32 + {sfu:.2f} "
-          f"SFU an entry; " + "; ".join(
-              f"{tier} {c:.4f} ms a call ({dv:.4f} device), bound {b[0]:.4f} ms ({b[1]}) = "
-              f"{100 * b[0] / dv:.1f}% of device" for tier, (c, dv, b) in times.items()), flush=True)
-    return dict(tiers=tiers, times=times, ops=(fp32, sfu), abs_err=abs_err)
+              for nu, (e, p) in plain_err.items()) + "; " + "; ".join(
+              f"family {tier} {c:.4f} ms a call ({dv:.4f} device), bound {b[0]:.4f} ms ({b[1]}, "
+              f"{gmvm.jet_ops(spec)} fp32 and SFU a pair's jet) = {100 * b[0] / dv:.1f}% of device"
+              for tier, (c, dv, b) in times.items()) +
+          f"; the interpreted instance at highest {icall:.4f} ms a call ({idev:.4f} device), the "
+          f"K_nu jet {fp32:.1f} fp32 + {sfu:.2f} SFU an entry, bound {ibound[0]:.4f} ms "
+          f"({ibound[1]}) = {100 * ibound[0] / idev:.1f}%; plain (float32, autograd through "
+          f"cfjax's quadrature) {plain_s * 1e3:.1f} ms", flush=True)
+    return dict(tiers=tiers, times=times, ops=(fp32, sfu), abs_err=abs_err, interp=(icall, idev),
+                ibound=ibound, plain_ms=plain_s * 1e3)
 
 
 def phase21d_solve(tk, ops, gp, mvm):
@@ -2187,12 +2279,123 @@ def phase21d_solve(tk, ops, gp, mvm):
     bound = roof(work)
     print(f"phase 21d gp_condition Lengthscale(Matern(2.3), 1) n={n} d=3 noise {NOISE}: "
           f"{it} Nystrom-PCG iterations, {launches} K1 launches of the tabulated family, "
-          f"{wall:.3f} s (peak {peak:.2f} GiB: the Nystrom panel through cfjax's quadrature), "
+          f"{wall:.3f} s (peak {peak:.2f} GiB), "
           f"float64 residual on 4096 rows {res64:.3e} (bound 2e-4); K1 at this shape "
           f"{call:.3f} ms a call ({dev:.3f} ms device), bound {bound[0]:.3f} ms ({bound[1]}) = "
           f"{summ['roofline_pct']:.1f}% of device (valid) | {how}", flush=True)
     return dict(iters=it, wall=wall, res64=res64, call_ms=call, ms=dev, launches=launches,
                 bound=bound)
+
+
+def timed_cg(gp):
+    """Wrap the GP module's `cg` to time each call (to a synchronize); the
+    walls land in the returned list. Undo with `gp_regression.cg =
+    walls.cg`."""
+    import cfjax_torch.gp.regression as gp_regression
+
+    walls, inner = [], gp_regression.cg
+
+    def cg(*args, **kw):
+        out, wall = sync_time(lambda: inner(*args, **kw))
+        walls.append(wall)
+        return out
+
+    gp_regression.cg = cg
+    return walls, lambda: setattr(gp_regression, "cg", inner)
+
+
+def phase21e_k2_solve(tk, ops, gp, mvm):
+    """gp_condition(Lengthscale(Matern(1.3), 4), x, y, noise=1e-2) at n =
+    2^15, d = 64, x ~ N(0, I), y = sin(x_0) + 0.1 N(0, 1): above
+    max_cholesky_size, so Nystrom PCG at the default rank through K2's
+    tabulated Matern family (counted under "expand_matern"; the Nystrom
+    panel through the family's plain version). explain() names the family;
+    its launches cover the iterations; the float64 residual on 4096 rows
+    through the float64 reference <= 2e-4. The wall, the PCG's share, K2's
+    device ms a call."""
+    rng = np.random.default_rng(215)
+    n, d = 1 << 15, 64
+    x = cuda_tensor(rng.standard_normal((n, d)))
+    y = torch.sin(x[:, 0]) + 0.1 * cuda_tensor(rng.standard_normal(n))
+    k = tk.Lengthscale(tk.Matern(1.3), 4.0)
+    how = ops.explain(k, x)
+    check("cuda kernel K2 gramian_matvec_expand (family instance: the real-nu Matern's table"
+          in how, f"phase 21e: explain() {how!r}")
+    before = mvm.LAUNCHES["expand_matern"]
+    walls, undo = timed_cg(gp)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        post, wall = sync_time(lambda: gp.gp_condition(k, x, y, noise=NOISE, tol=1e-5,
+                                                       maxiter=500))
+    finally:
+        undo()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = mvm.LAUNCHES["expand_matern"] - before
+    it = int(post.solve_info[0])
+    check(len(walls) == 1 and it < 500 and launches >= it,
+          f"phase 21e: {it} PCG iterations, {launches} K2 launches, {len(walls)} PCG calls")
+    rows = slice(4096)
+    with torch.no_grad():
+        Ka = mvm.gramian_matvec_direct_plain(tk.Lengthscale(exact_matern(tk, 1.3), 4.0),
+                                             x[rows].double(), x.double(),
+                                             post.alpha.double(), block=64)
+    res64 = float(torch.linalg.norm(Ka + NOISE * post.alpha[rows].double() - y[rows].double())
+                  / torch.linalg.norm(y[rows].double()))
+    check(res64 <= 2e-4, f"phase 21e: float64 residual on 4096 rows {res64:.3e} > 2e-4")
+    a = cuda_tensor(rng.standard_normal(n))
+    with mvm.uncounted():
+        call, dev = call_and_device_ms(lambda: mvm.gramian_matvec_expand(k, x, x, a), reps=5)
+    print(f"phase 21e gp_condition Lengthscale(Matern(1.3), 4) n={n} d={d} noise {NOISE}: {it} "
+          f"Nystrom-PCG iterations, {launches} K2 launches of the tabulated family, {wall:.3f} s "
+          f"(the PCG {walls[0]:.3f} s = {100 * walls[0] / wall:.1f}%; peak {peak:.2f} GiB), "
+          f"float64 residual on 4096 rows {res64:.3e} (bound 2e-4); K2 at this shape "
+          f"{call:.3f} ms a call ({dev:.3f} ms device) | {how}", flush=True)
+    return dict(iters=it, wall=wall, pcg=walls[0], res64=res64, launches=launches, ms=dev,
+                call_ms=call, peak=peak)
+
+
+def phase21f_k3_solve(tk, ops, gp, mvm):
+    """gp_condition(GradientKernel(Matern(2.7)), x, g, noise=1e-3, tol=1e-6,
+    maxiter=200) at n = d = 1024, x ~ N(0, I), g the gradients of sin(x_0)
+    stacked point-major plus 0.01 N(0, 1): the system of `run_baseline`'s
+    gradient_solve_maternp2_n1024_d1024 row with Matern(2.7), CG through
+    K3's tabulated jet family (counted under "grad_matern"; a gradient
+    gramian takes no Nystrom preconditioner). Its launches cover the
+    iterations; the float64 residual through the float64 reference's jet
+    <= SOLVE_BOUND."""
+    from cfjax_torch.derivative import GradientKernel
+
+    rng = np.random.default_rng(216)
+    n = d = 1024
+    x = cuda_tensor(rng.standard_normal((n, d)))
+    g = torch.zeros((n, d), device="cuda")
+    g[:, 0] = torch.cos(x[:, 0])
+    g = (g + Y_NOISE * cuda_tensor(rng.standard_normal((n, d)))).reshape(-1)
+    k = GradientKernel(tk.Matern(2.7))
+    how = ops.explain(k, x)
+    check("cuda kernel K3 grad_matvec (family instance: the real-nu Matern's table" in how,
+          f"phase 21f: explain() {how!r}")
+    before = dict(mvm.LAUNCHES)
+    post, wall = sync_time(lambda: gp.gp_condition(k, x, g, noise=1e-3, tol=1e-6, maxiter=200))
+    launches = mvm.LAUNCHES["grad_matern"] - before["grad_matern"]
+    it = int(post.solve_info[0])
+    check(it < 200 and launches >= it and mvm.LAUNCHES["grad"] == before["grad"],
+          f"phase 21f: {it} CG iterations, {launches} launches of K3's Matern family, "
+          f"{mvm.LAUNCHES['grad'] - before['grad']} of other K3 instances")
+    al = post.alpha.double().reshape(n, d)
+    Ka = k3_matern_reference(2.7, x.double(), x.double(), al).reshape(-1)
+    res64 = float(torch.linalg.norm(Ka + 1e-3 * post.alpha.double() - g.double())
+                  / torch.linalg.norm(g.double()))
+    check(res64 <= SOLVE_BOUND["highest"],
+          f"phase 21f: float64 residual {res64:.3e} > {SOLVE_BOUND['highest']:.0e}")
+    A, G = cuda_tensor(rng.standard_normal((n, d))), ops.gramian(k, x)
+    with mvm.uncounted():
+        call, dev = call_and_device_ms(lambda: G._apply(A), reps=5)
+    print(f"phase 21f gp_condition GradientKernel(Matern(2.7)) n=d={n} noise 1e-3 tol 1e-6: "
+          f"{it} CG iterations, {launches} K3 launches of the tabulated jet family, {wall:.3f} s, "
+          f"float64 residual {res64:.3e} (bound {SOLVE_BOUND['highest']:.0e}); K3 at this shape "
+          f"{call:.3f} ms a call ({dev:.3f} ms device) | {how}", flush=True)
+    return dict(iters=it, wall=wall, res64=res64, launches=launches, ms=dev, call_ms=call)
 
 
 def config5_data(n, seed=22):
@@ -2904,16 +3107,16 @@ def main():
     built_s = time.perf_counter() - t0
     fam_n, fam_stack, fam_spill, fam_regs = ptxas_k1_family(build, "k1_family", 54)
     cols_n, cols_stack, cols_spill, cols_regs = ptxas_k1_family(build, "k1_matmat_family", 108)
-    k2_n, k2_regs, k2_stack = ptxas_tc(build, "expand_mvm", "k2_tc", 20)
-    k3_n, k3_regs, k3_stack = ptxas_tc(build, "grad_mvm", "k3_tc", 18)
+    k2_n, k2_regs, k2_stack = ptxas_tc(build, "expand_mvm", "k2_tc", 22)
+    k3_n, k3_regs, k3_stack = ptxas_tc(build, "grad_mvm", "k3_tc", 20)
     print(f"phase 0 card: {smi} | torch {torch.__version__} cuda {torch.version.cuda} | "
           f"kernel libraries {', '.join(build.LIBRARIES)} built in {built_s:.1f} s | ptxas: "
           f"{fam_n} K1 family instances (6 D x 9 profiles, the real-nu Matern's table among "
           f"them), stack frame {fam_stack} bytes, spills {fam_spill} bytes, registers "
           f"{fam_regs}; {cols_n} many-column K1 instances (6 D x 9 profiles x 1 or 3 tensor-"
           f"core passes, 16 columns a chunk), stack frame {cols_stack} bytes, spills {cols_spill} "
-          f"bytes, registers {cols_regs}; K2 {k2_n} instances (10 profiles x 1, 3 passes), "
-          f"K3 {k3_n} (9 x 1, 3 passes): family instances 0 bytes stack, no instance spills, "
+          f"bytes, registers {cols_regs}; K2 {k2_n} instances (11 profiles x 1, 3 passes), "
+          f"K3 {k3_n} (10 x 1, 3 passes): family instances 0 bytes stack, no instance spills, "
           f"registers {k2_regs} / {k3_regs}, the interpreted instances' stack {k2_stack} / {k3_stack} "
           f"bytes (the profile interpreter's)", flush=True)
 
@@ -3176,16 +3379,29 @@ def main():
     bounds["matern"] = p21h["bound"]
     p21b = phase21b_k2(tk, mvm)
     p21c = phase21c_k3(tk, gmvm)
-    for key in mvm.LAUNCHES:
-        mvm.LAUNCHES[key] = 0
-    p21d = phase21d_solve(tk, ops, gp, mvm)
-    check(mvm.LAUNCHES["matern"] > 0,
-          "K1's real-nu Matern family was not launched on the Matern GP path")
-    launches["matern"] = mvm.LAUNCHES["matern"]
-    launches["direct"] += mvm.LAUNCHES["direct"]
+    times["expand_matern"] = (p21b["times"]["highest"][0], p21b["times"]["highest"][1],
+                              p21b["plain_ms"])
+    bounds["expand_matern"] = p21b["times"]["highest"][2]
+    times["grad_matern"] = (p21c["times"]["highest"][0], p21c["times"]["highest"][1],
+                            p21c["plain_ms"])
+    bounds["grad_matern"] = p21c["times"]["highest"][2]
+    # the three Matern GP paths, each with the counts set to 0 just before it
+    paths = {}
+    for key, label, run in (
+            ("matern", "21d K1", lambda: phase21d_solve(tk, ops, gp, mvm)),
+            ("expand_matern", "21e K2", lambda: phase21e_k2_solve(tk, ops, gp, mvm)),
+            ("grad_matern", "21f K3", lambda: phase21f_k3_solve(tk, ops, gp, mvm))):
+        for kind in mvm.LAUNCHES:
+            mvm.LAUNCHES[kind] = 0
+        paths[key] = run()
+        check(mvm.LAUNCHES[key] > 0,
+              f"phase {label}: the real-nu Matern family was not launched on its GP path")
+        launches[key] = mvm.LAUNCHES[key]
+        launches["direct"] += mvm.LAUNCHES["direct"]
+    p21d = paths["matern"]
     print(f"phase 21 real-nu Matern {time.perf_counter() - t21:.1f} s: launches on the GP "
-          f"path: K1's Matern family {mvm.LAUNCHES['matern']}, other K1 "
-          f"{mvm.LAUNCHES['direct']}", flush=True)
+          f"paths: K1's Matern family {launches['matern']} (21d), K2's {launches['expand_matern']} "
+          f"(21e), K3's {launches['grad_matern']} (21f)", flush=True)
 
     # ---- phases 22-23: config 5's hyperparameter sampling: counts from here to the end of 23 ----
     from cfjax_torch.gp import hmc
@@ -3244,10 +3460,15 @@ def main():
                        max(p1["matern"][2], m21_fam, p21h[2.3][2], p21h[2.5][2],
                            p21h["cols_abs"]), None),
             "expand": ("K2 gramian_matvec_expand", "cfjax_torch/csrc/expand_mvm.cu",
-                       "cfjax/ops/pallas_mvm.py:152", max(p1["expand"][2], p21b["abs_err"]),
-                       None),
+                       "cfjax/ops/pallas_mvm.py:152", p1["expand"][2], None),
+            "expand_matern": ("K2 real-nu Matern family (tabulated; Lengthscale(Matern(1.3), 4) "
+                              "d=64 n=16384)", "cfjax_torch/csrc/expand_mvm.cu",
+                              "cfjax/ops/pallas_mvm.py:152", p21b["abs_err"], None),
             "grad": ("K3 grad_matvec", "cfjax_torch/csrc/grad_mvm.cu",
-                     "cfjax/ops/pallas_mvm.py:374", max(p6[2], p21c["abs_err"]), None),
+                     "cfjax/ops/pallas_mvm.py:374", p6[2], None),
+            "grad_matern": ("K3 real-nu Matern jet family (tabulated; GradientKernel(Matern(2.7)) "
+                            "n=4096 d=16)", "cfjax_torch/csrc/grad_mvm.cu",
+                            "cfjax/ops/pallas_mvm.py:374", p21c["abs_err"], None),
             "tile_ell": ("K4 rows_matvec", "cfjax_torch/csrc/tile_ell_mvm.cu",
                          "cfjax/operators/tile_ell.py:344", f32[2],
                          (k4["library_call_ms"], k4["library_ms"]))}

@@ -274,6 +274,37 @@ def test_a_row_read_below_its_bound_is_invalid():
     assert not row["valid"] and row["why"].startswith("ZeroDivisionError")
 
 
+@pytest.mark.parametrize("misses", [0, 1, rb.CHAINED_ATTEMPTS - 1, rb.CHAINED_ATTEMPTS])
+def test_a_chained_row_is_timed_afresh_after_a_burst(monkeypatch, misses):
+    """A slope the host's spread hid is timed again, at most
+    `CHAINED_ATTEMPTS` times; the row keeps a reading that separated and
+    says so, and reads invalid when none did."""
+    calls = []
+
+    def timer(step, v0, **kw):
+        calls.append(kw)
+        if len(calls) <= misses:
+            raise MeasurementError("flat", upper_bound=1e-4 * len(calls))
+        return 2e-3
+
+    monkeypatch.setattr(rb, "time_chained", timer)
+    run = rb.Run(device="cpu", scale="tiny", echo=False)
+    row = run.row("toeplitz_fft_mvm_n65536",
+                  lambda: dict(run.chained(lambda v: v, torch.ones(4)), note="its own"))
+    assert len(calls) == min(misses + 1, rb.CHAINED_ATTEMPTS)
+    assert all(kw == dict(iters=(4, 36), **rb.SIZES["tiny"]["timing"]) for kw in calls)
+    if misses == rb.CHAINED_ATTEMPTS:
+        assert not row["valid"] and row["seconds"] is None
+        assert row["why"].startswith("not separable") and f"{1e-4 * misses:.2e}" in row["why"]
+        return
+    assert row["valid"] and row["seconds"] == 2e-3
+    assert row["note"].startswith("its own")
+    assert ("attempt" in row["note"]) == (misses > 0)
+    if misses:
+        assert f"timed at attempt {misses + 1}" in row["note"]
+        assert all(f"{1e-4 * i:.2e} s" in row["note"] for i in range(1, misses + 1))
+
+
 def test_a_row_past_its_wall_is_not_run():
     import time
 

@@ -1033,3 +1033,98 @@ def test_sweep_row_through_k2_holds_its_tier_error():
         assert r["valid"], r["why"]
         assert r["route"] == "K2" and r["rel_err_f64"] <= rb.TIER_BOUND["K2"][tier]
 
+
+
+@needs_gpu
+@pytest.mark.parametrize("tier", ["highest", "high", "default"])
+def test_k2_matern_family_matches_plain(tier):
+    """K2's tabulated real-nu Matern family (Lengthscale(Matern(1.3), 4) at
+    d = 64, coincident rows included) at each tier, counted under
+    "expand_matern": against its plain version on the reference's profile
+    at the same tier (5e-6) and against float64 (phase 21b's limits)."""
+    k, kr = tk.Lengthscale(tk.Matern(1.3), 4.0), tk.Lengthscale(_matern_reference(1.3), 4.0)
+    x, y, a = _cuda_data(700, 500, 64, seed=3)
+    y[:16] = x[:16]
+    before = dict(mvm.LAUNCHES)
+    out = mvm.gramian_matvec_expand(k, x, y, a, precision=tier)
+    assert mvm.LAUNCHES["expand_matern"] == before["expand_matern"] + 1
+    assert mvm.LAUNCHES["expand"] == before["expand"]
+    plain = mvm.gramian_matvec_expand_plain(kr, x, y, a, precision=tier)
+    ref = mvm.gramian_matvec_direct_plain(kr, x.double(), y.double(), a.double())
+    assert _rel(out, plain.double()) <= 5e-6
+    assert _rel(out, ref) <= {"highest": 5e-6, "high": 5e-6, "default": 1e-3}[tier]
+
+
+@needs_gpu
+@pytest.mark.parametrize("nu", [1.2, 1.5, 2.7, 7.2])
+def test_k3_matern_family_matches_reference(nu):
+    """K3's tabulated real-nu Matern jet family (d = 16, coincident and
+    near-coincident pairs), counted under "grad_matern", against the
+    float64 reference built from the kernels' method (3e-5, phase 21c's
+    "highest" limit); the interpreted instance on the same inputs too."""
+    from cfjax_torch.utils.besselk import matern_nu_reference
+
+    k = tk.Matern(nu)
+    x, y, _ = _cuda_data(400, 300, 16, scale=0.25, seed=7)
+    y[:16] = x[:16]
+    y[16:32] = x[:16] + 1e-3 / 4
+    A = torch.randn((300, 16), device="cuda", generator=torch.Generator("cuda").manual_seed(7))
+    xd, yd, Ad = x.double(), y.double(), A.double()
+    # s in difference form: cdist's expansion leaves ~1e-16 at the coincident
+    # pairs, where f' of nu near 1 moves like s^(nu - 1) (1e-3 at nu = 1.2)
+    r = xd[:, None, :] - yd[None, :, :]
+    _, f1, f2 = matern_nu_reference(nu, torch.sum(r * r, dim=-1))
+    ref = -2 * f1 @ Ad - 4 * torch.einsum("ij,ijk->ik", f2 * torch.einsum("ijk,jk->ij", r, Ad), r)
+    before = dict(mvm.LAUNCHES)
+    out = grad_mvm.grad_matvec(k, x, y, A)
+    assert mvm.LAUNCHES["grad_matern"] == before["grad_matern"] + 1
+    assert mvm.LAUNCHES["grad"] == before["grad"]
+    assert _rel(out, ref) <= 3e-5
+    itp = dataclasses.replace(to_spec(k, derivative=True)[0], family=0)
+    assert _rel(grad_mvm.grad_matvec(k, x, y, A, spec=itp), ref) <= 3e-5
+
+
+@needs_gpu
+def test_highest_tier_ignores_global_tf32():
+    """matmul_p at "highest" stays full fp32 with TF32 allowed globally,
+    where a plain product rounds to tf32; the caller's setting survives."""
+    from cfjax_torch.ops import tiles
+
+    g = torch.Generator("cuda").manual_seed(11)
+    a, b = (torch.randn((512, 512), device="cuda", generator=g) for _ in range(2))
+    exact = a.double() @ b.double()
+    m = torch.backends.cuda.matmul
+    saved = m.fp32_precision
+    try:
+        m.fp32_precision = "tf32"
+        rounded = a @ b
+        out = tiles.matmul_p(a, b, precision="highest")
+        assert m.fp32_precision == "tf32"
+    finally:
+        m.fp32_precision = saved
+    assert _rel(out, exact) <= 1e-6 < _rel(rounded, exact)
+
+
+@needs_gpu
+def test_config5_pcg_converges_on_cfjax_points():
+    """BASELINE config 5's solve on cfjax's own points (n = 10^6, rank 2048,
+    sigma^2 = 1e-2, tol 1e-4): the float64 build of the preconditioner
+    converges within 55 PCG iterations (the float32 build stalled at 5.2e-3
+    after 60 on an H100, PERF.md), the float64 residual on 4096 rows within
+    2e-4."""
+    from cfjax_torch.benchmarks.config5_probe import eq_matvec_f64
+    from cfjax_torch.benchmarks.run_baseline import SIZES, barneshut_draws, check_rows
+    from cfjax_torch.operators import cg, nystrom_preconditioner
+
+    dr = barneshut_draws(SIZES["full"])
+    x = torch.tensor(dr["x5"], dtype=torch.float32, device="cuda")
+    y = torch.sin(x[:, 0]) + 0.1 * torch.tensor(dr["w3"], dtype=torch.float32, device="cuda")
+    k = tk.Lengthscale(tk.EQ(), 1.0)
+    G = gramian(k, x)
+    M = nystrom_preconditioner(k, x, 1e-2, rank=2048)
+    alpha, (it, res) = cg(lambda v: G._matvec(v) + 1e-2 * v, y, tol=1e-4, maxiter=60, M=M)
+    assert it <= 55 and float(res) <= 1e-4 * float(torch.linalg.norm(y))
+    rows = torch.as_tensor(check_rows(x.shape[0], 4096), device="cuda")
+    yr = y[rows].double()
+    r = yr - eq_matvec_f64(x[rows], x, alpha) - 1e-2 * alpha[rows].double()
+    assert float(torch.linalg.norm(r) / torch.linalg.norm(yr)) <= 2e-4
