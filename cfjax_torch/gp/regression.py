@@ -18,10 +18,13 @@ import numpy as np
 import torch
 from torch.func import vmap
 
+from ..kernels.base import Kernel
+from ..kernels.parameters import leaves
 from ..operators.dispatch import gramian
 from ..operators.kronecker import KroneckerOperator
 from ..operators.solvers import cg, cg_columns, solve_with_info
 from ..operators.toeplitz import CirculantOperator
+from ..utils import trace
 from ..utils.grids import as_points, point_device
 
 
@@ -52,8 +55,12 @@ class GPPosterior:
     solve_info: tuple = None
 
     def mean(self, x_test):
-        Ks = gramian(self.kernel, x_test, self.x_train)
-        return Ks @ self.alpha
+        sp = trace.begin("gp.mean")
+        try:
+            Ks = gramian(self.kernel, x_test, self.x_train)
+            return Ks @ self.alpha
+        finally:
+            trace.end(sp)
 
     def variance(self, x_test, tol: float = 1e-6, maxiter: int = 200):
         """Posterior variance diag(K_ss) - diag(K_s K^-1 K_s^T), exact: one
@@ -83,25 +90,29 @@ def gp_condition(kernel, x, y, noise: float = 1e-6,
     from .. import config as _config
     from ..operators.gramian import Gramian
 
-    K0 = gramian(kernel, x)
-    K = K0.add_diagonal(noise)
-    n = K.shape[0]
-    y = _observations(y, x, K0)
-    if (precondition == "auto" and isinstance(K0, Gramian)
-            and torch.as_tensor(noise).ndim == 0
-            and n > _config.DEFAULT.max_cholesky_size):
-        from ..operators.preconditioner import nystrom_preconditioner
+    sp = trace.begin("gp.condition")
+    try:
+        K0 = gramian(kernel, x)
+        K = K0.add_diagonal(noise)
+        n = K.shape[0]
+        y = _observations(y, x, K0)
+        if (precondition == "auto" and isinstance(K0, Gramian)
+                and torch.as_tensor(noise).ndim == 0
+                and n > _config.DEFAULT.max_cholesky_size):
+            from ..operators.preconditioner import nystrom_preconditioner
 
-        extra = set(solve_opts) - {"tol", "maxiter", "x0"}
-        if extra:
-            raise TypeError(
-                f"unsupported solve_opts for the preconditioned CG path: {sorted(extra)}")
-        M = nystrom_preconditioner(kernel, x, noise, rank=min(precond_rank, n // 2),
-                                   seed=seed)
-        alpha, info = cg(K._matvec, y, M=M, x0=solve_opts.get("x0"),
-                         tol=solve_opts.get("tol"), maxiter=solve_opts.get("maxiter"))
-        return GPPosterior(kernel, x, alpha, noise, info)
-    alpha, info = solve_with_info(K, y, **solve_opts)
+            extra = set(solve_opts) - {"tol", "maxiter", "x0"}
+            if extra:
+                raise TypeError(
+                    f"unsupported solve_opts for the preconditioned CG path: {sorted(extra)}")
+            M = nystrom_preconditioner(kernel, x, noise, rank=min(precond_rank, n // 2),
+                                       seed=seed)
+            alpha, info = cg(K._matvec, y, M=M, x0=solve_opts.get("x0"),
+                             tol=solve_opts.get("tol"), maxiter=solve_opts.get("maxiter"))
+        else:
+            alpha, info = solve_with_info(K, y, **solve_opts)
+    finally:
+        trace.end(sp)
     return GPPosterior(kernel, x, alpha, noise, info)
 
 
@@ -129,6 +140,31 @@ def _slq_terms(kernel, x, y, noise, generator, probes, iters, tol, maxiter):
     return logdet, quad
 
 
+def _cholesky_terms(kernel, K, y, noise, root):
+    """(quadratic form, logdet) of K + noise I by a dense Cholesky, in three
+    device spans: the build, the factor, the solve. Under tracing, the
+    backward's stages are spans too (`*.bwd`, children of `root`), marked
+    by gradient hooks on z, L, A and the hyperparameters the build read."""
+    n = y.shape[0]
+    sp = trace.begin("gp.logml.build", y.device)
+    A = K.todense() + noise * torch.eye(n, dtype=K.dtype, device=y.device)
+    trace.end(sp)
+    sp = trace.begin("gp.logml.cholesky", y.device)
+    L = torch.linalg.cholesky(A)
+    trace.end(sp)
+    sp = trace.begin("gp.logml.solve", y.device)
+    z = torch.linalg.solve_triangular(L, y[:, None], upper=False)[:, 0]
+    quad = torch.sum(z * z)
+    logdet = 2 * torch.sum(torch.log(torch.diagonal(L)))
+    trace.end(sp)
+    if root is not None and torch.is_grad_enabled():
+        k = getattr(K, "k", kernel)
+        trace.backward_stages(root, [("gp.logml.solve.bwd", z), ("gp.logml.cholesky.bwd", L),
+                                     ("gp.logml.build.bwd", A)],
+                              leaves(k) if isinstance(k, Kernel) else [])
+    return quad, logdet
+
+
 def log_marginal_likelihood(kernel, x, y, noise: float = 1e-6, method: str = "auto",
                             generator=None, probes: int = 16, lanczos_iters: int = 48,
                             solve_tol: float = 1e-6, solve_maxiter: int = 500):
@@ -151,39 +187,39 @@ def log_marginal_likelihood(kernel, x, y, noise: float = 1e-6, method: str = "au
     Hutchinson / CG backwards)."""
     from .. import config as _config
 
-    K = gramian(kernel, x)
-    y = _observations(y, x, K)
-    n = y.shape[0]
-    mcs = _config.DEFAULT.max_cholesky_size
-    if method == "auto":
-        if isinstance(K, CirculantOperator):
-            method = "circulant"
-        elif isinstance(K, KroneckerOperator) and all(f.shape[0] <= mcs for f in K.factors):
-            method = "kronecker"
+    sp = trace.begin("gp.logml")
+    try:
+        K = gramian(kernel, x)
+        y = _observations(y, x, K)
+        n = y.shape[0]
+        mcs = _config.DEFAULT.max_cholesky_size
+        if method == "auto":
+            if isinstance(K, CirculantOperator):
+                method = "circulant"
+            elif isinstance(K, KroneckerOperator) and all(f.shape[0] <= mcs for f in K.factors):
+                method = "kronecker"
+            else:
+                method = "cholesky" if n <= mcs else "slq"
+        if method == "circulant":
+            lam = K.eigenvalues().real + noise
+            quad = torch.sum(torch.abs(torch.fft.fft(y)) ** 2 / lam) / n
+            logdet = torch.sum(torch.log(lam))
+        elif method == "kronecker":
+            ws, Qs = zip(*(torch.linalg.eigh(f.todense()) for f in K.factors))
+            lam = ws[0]
+            for w in ws[1:]:
+                lam = (lam[:, None] * w[None, :]).reshape(-1)
+            lam = lam + noise
+            z = K._apply_modes(y, [Q.T for Q in Qs], in_dims=[Q.shape[0] for Q in Qs])
+            quad = torch.sum(z * z / lam)
+            logdet = torch.sum(torch.log(lam))
+        elif method == "cholesky":
+            quad, logdet = _cholesky_terms(kernel, K, y, noise, sp)
+        elif method == "slq":
+            logdet, quad = _slq_terms(kernel, x, y, noise, generator, probes, lanczos_iters,
+                                      solve_tol, solve_maxiter)
         else:
-            method = "cholesky" if n <= mcs else "slq"
-    if method == "circulant":
-        lam = K.eigenvalues().real + noise
-        quad = torch.sum(torch.abs(torch.fft.fft(y)) ** 2 / lam) / n
-        logdet = torch.sum(torch.log(lam))
-    elif method == "kronecker":
-        ws, Qs = zip(*(torch.linalg.eigh(f.todense()) for f in K.factors))
-        lam = ws[0]
-        for w in ws[1:]:
-            lam = (lam[:, None] * w[None, :]).reshape(-1)
-        lam = lam + noise
-        z = K._apply_modes(y, [Q.T for Q in Qs], in_dims=[Q.shape[0] for Q in Qs])
-        quad = torch.sum(z * z / lam)
-        logdet = torch.sum(torch.log(lam))
-    elif method == "cholesky":
-        A = K.todense() + noise * torch.eye(n, dtype=K.dtype, device=y.device)
-        L = torch.linalg.cholesky(A)
-        z = torch.linalg.solve_triangular(L, y[:, None], upper=False)[:, 0]
-        quad = torch.sum(z * z)
-        logdet = 2 * torch.sum(torch.log(torch.diagonal(L)))
-    elif method == "slq":
-        logdet, quad = _slq_terms(kernel, x, y, noise, generator, probes, lanczos_iters,
-                                  solve_tol, solve_maxiter)
-    else:
-        raise ValueError(f"unknown logML method {method!r}")
-    return -0.5 * (quad + logdet + n * math.log(2 * math.pi))
+            raise ValueError(f"unknown logML method {method!r}")
+        return -0.5 * (quad + logdet + n * math.log(2 * math.pi))
+    finally:
+        trace.end(sp)

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import trace
+
 
 class LinearOperator:
     """Base lazy operator: shape + matvec. Subclasses define `_matvec`
@@ -83,7 +85,7 @@ class LinearOperator:
         d = torch.as_tensor(d, dtype=self.dtype)
         device = getattr(self, "device", None)
         if device is not None:
-            d = d.to(device)
+            d = trace.to_device(d, device)
         return SumOperator((self, DiagonalOperator(torch.broadcast_to(d, (n,)))))
 
     def solve(self, b, **kw):
@@ -140,7 +142,7 @@ class DiagonalOperator(LinearOperator):
 
     @property
     def is_psd(self):
-        return bool(torch.all(self.d >= 0))
+        return trace.item(torch.all(self.d >= 0))
 
     def _matvec(self, v):
         return self.d * v

@@ -35,6 +35,7 @@ import torch
 
 from ..kernels.profile_spec import FAMILY_MATERN_NU, to_spec
 from ..ops.tiles import full_fp32, matmul_p, sqdist_tile
+from ..utils import trace
 from ..utils.grids import as_points
 from ..utils.testing import pairwise_xy
 
@@ -85,24 +86,37 @@ def nystrom_factors(k, x, noise, rank: int = 256, seed: int = 0, floor_rel: floa
     `_gram_ff`). The host-side factors are rounded to `factor_dtype` before
     they reach the device, float32 as cfjax rounds them, except Kzz^-1/2
     in a float64 build of float32 points."""
+    sp = trace.begin("precond.nystrom")
+    try:
+        return _nystrom_factors(k, x, noise, rank, seed, floor_rel, factor_dtype, build_dtype)
+    finally:
+        trace.end(sp)
+
+
+def _nystrom_factors(k, x, noise, rank, seed, floor_rel, factor_dtype, build_dtype):
+    """`nystrom_factors`' build, inside its span."""
     xp = as_points(x)
     n = xp.shape[0]
     rank = min(rank, n)
     bdt = build_dtype or (torch.float64 if xp.dtype == torch.float32 else xp.dtype)
     widened = bdt != xp.dtype
+    # the host's part, in two spans: the landmarks and Kzz^-1/2, then the
+    # eigh of the Gram and the factors' copies to the device
+    host = trace.begin("precond.nystrom.host")
     idx = np.random.default_rng(seed).choice(n, rank, replace=False)
-    Z = xp[torch.as_tensor(idx, device=xp.device)]
+    Z = xp[trace.to_device(torch.as_tensor(idx), xp.device, span=host)]
     panel = _panel_fn(k)
     # Kzz eigh in float64 on the host (rank points — trivial)
-    Zh = Z.detach().cpu().to(torch.float64)
+    Zh = trace.cpu(Z.detach(), host).to(torch.float64)
     Kzz = panel(Zh, Zh).numpy()
     Kzz = 0.5 * (Kzz + Kzz.T)
     w, V = np.linalg.eigh(Kzz)
     floor = max(float(w[-1]), 0.0) * floor_rel
     inv_sqrt = np.where(w > floor, 1.0 / np.sqrt(np.maximum(w, floor)), 0.0)
     W0 = V * inv_sqrt[None, :]
-    W0 = torch.from_numpy(W0 if widened else W0.astype(factor_dtype)).to(device=xp.device,
-                                                                         dtype=bdt)
+    W0 = trace.to_device(torch.from_numpy(W0 if widened else W0.astype(factor_dtype)),
+                         xp.device, bdt, host)
+    trace.end(host)
     Zb = Z.to(bdt)
 
     # U = K_xZ W0, built block by block into one preallocated panel with
@@ -116,11 +130,13 @@ def nystrom_factors(k, x, noise, rank: int = 256, seed: int = 0, floor_rel: floa
         if widened:
             G += matmul_p(Ub.T, Ub, precision="highest")
         U[i:i + block] = Ub
-    if widened:
-        B = G.cpu().double().numpy()
-    else:
+    if not widened:
         hi, lo = _gram_ff(U, chunk=block)
-        B = hi.cpu().double().numpy() + lo.cpu().double().numpy()
+    host = trace.begin("precond.nystrom.host")
+    if widened:
+        B = trace.cpu(G, host).double().numpy()
+    else:
+        B = trace.cpu(hi, host).double().numpy() + trace.cpu(lo, host).double().numpy()
     s, E = np.linalg.eigh(0.5 * (B + B.T))
     s = np.maximum(s, 0.0)
     # Floor the per-mode residue at what a float32 apply can represent by
@@ -130,8 +146,10 @@ def nystrom_factors(k, x, noise, rank: int = 256, seed: int = 0, floor_rel: floa
     # scaling keeps M SPD with cond(M^-1 K) ~ s_max / s_cap.
     s_cap = float(noise) / (16.0 * np.finfo(np.float32).eps)
     denom = np.where(s > s_cap, s * (s_cap + float(noise)) / s_cap, s + float(noise))
-    Ej = torch.from_numpy(E.astype(factor_dtype)).to(device=xp.device, dtype=U.dtype)
-    dj = torch.from_numpy(denom.astype(factor_dtype)).to(device=xp.device, dtype=U.dtype)
+    Ej = trace.to_device(torch.from_numpy(E.astype(factor_dtype)), xp.device, U.dtype, host)
+    dj = trace.to_device(torch.from_numpy(denom.astype(factor_dtype)), xp.device, U.dtype,
+                         host)
+    trace.end(host)
     return U, Ej, dj
 
 

@@ -17,6 +17,11 @@ grad disabled, so every forward product, and the solves of the backwards,
 go to the CUDA kernels even when the parameters require grad; only the
 pull-back rebuilds the product under autograd, on the checkpointed plain
 path.
+
+Under tracing (`utils.trace`) the stages are device spans: `slq.lanczos`
+(one a probe chunk), `slq.quadform` (the CG of the quadratic form) and, in
+the backwards, `slq.cg_columns` and `slq.pull_back`, children of the span
+that was open when the forward ran.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from .. import config as _config
+from ..utils import trace
 from .solvers import cg, cg_columns
 
 
@@ -35,6 +41,7 @@ def _lanczos_batch(matvec, Z, iters: int):
     classical Gram-Schmidt a step, over the rows written so far, as cfjax's
     masked sweep."""
     n, p = Z.shape
+    sp = trace.begin("slq.lanczos", Z.device)
     nrm = torch.linalg.norm(Z, dim=0)
     q = Z / nrm
     V = torch.zeros((iters, n, p), dtype=Z.dtype, device=Z.device)
@@ -56,6 +63,7 @@ def _lanczos_batch(matvec, Z, iters: int):
         q_prev, q = q, q_next
         alphas.append(alpha)
         betas.append(beta)
+    trace.end(sp, iters=iters)
     return torch.stack(alphas), torch.stack(betas[:-1]), nrm
 
 
@@ -121,6 +129,7 @@ class _SLQLogdet(torch.autograd.Function):
         est = _slq_estimate(lambda V: matvec_fn(params, V), Z, iters)
         ctx.matvec_fn, ctx.probes = matvec_fn, probes
         ctx.solve = (solve_tol, solve_maxiter)
+        ctx.span = trace.current()
         ctx.save_for_backward(Z, *params)
         return est
 
@@ -129,9 +138,13 @@ class _SLQLogdet(torch.autograd.Function):
         Z, *params = ctx.saved_tensors
         tol, maxiter = ctx.solve
         plain = [p.detach() for p in params]
-        W, _ = cg_columns(lambda V: ctx.matvec_fn(plain, V), Z, tol=tol, maxiter=maxiter)
+        sp = trace.begin("slq.cg_columns", Z.device, ctx.span)
+        W, its = cg_columns(lambda V: ctx.matvec_fn(plain, V), Z, tol=tol, maxiter=maxiter)
+        trace.end(sp, iters=its)
         # (1/p) sum_i w_i^T dK z_i: the pull-back of params -> K(params) Z at W / p
+        sp = trace.begin("slq.pull_back", Z.device, ctx.span)
         grads = _pull_back(ctx.matvec_fn, params, Z, W * (gbar / ctx.probes))
+        trace.end(sp)
         return (None,) * 9 + grads
 
 
@@ -160,15 +173,20 @@ def slq_logdet(matvec_fn, n, probes, iters, solve_tol, solve_maxiter, params, ge
 class _CGQuadform(torch.autograd.Function):
     @staticmethod
     def forward(ctx, matvec_fn, solve_tol, solve_maxiter, y, *params):
-        alpha, _ = cg(lambda v: matvec_fn(params, v), y, tol=solve_tol, maxiter=solve_maxiter)
-        ctx.matvec_fn = matvec_fn
+        sp = trace.begin("slq.quadform", y.device)
+        alpha, (its, _) = cg(lambda v: matvec_fn(params, v), y, tol=solve_tol,
+                             maxiter=solve_maxiter)
+        trace.end(sp, iters=its)
+        ctx.matvec_fn, ctx.span = matvec_fn, trace.current()
         ctx.save_for_backward(alpha, *params)
         return torch.dot(y, alpha)
 
     @staticmethod
     def backward(ctx, gbar):
         alpha, *params = ctx.saved_tensors
+        sp = trace.begin("slq.pull_back", alpha.device, ctx.span)
         grads = _pull_back(ctx.matvec_fn, params, alpha, alpha * (-gbar))
+        trace.end(sp)
         return (None, None, None, 2.0 * gbar * alpha) + grads
 
 

@@ -3,7 +3,10 @@
 src/lazy_linear_algebra.jl:135-144 and src/barneshut.jl:64-72).
 
 CG, MINRES and GMRES are Python loops with one host sync per residual
-check (cfjax's are `lax.while_loop`s). `torch.linalg.cholesky` raises on a
+check (cfjax's are `lax.while_loop`s). Every read to the host here is
+counted in `utils.trace`'s `host_syncs`; `cg` and `cg_columns` are spans
+(`solvers.cg`, `solvers.cg_columns`) with their iterations and the host's
+wait in their reads. `torch.linalg.cholesky` raises on a
 matrix that is not positive definite where `jnp.linalg.cholesky` returns
 NaN, so the rank-revealing tests use `torch.linalg.cholesky_ex` and its
 `info`. The refinement solvers run their outer loops on the host, as
@@ -15,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from .. import config as _config
+from ..utils import trace
 from .linop import LinearOperator, LowRankOperator
 
 
@@ -41,24 +45,28 @@ def cg(matvec, b, x0=None, tol: float = None, maxiter: int = None, M=None,
     xa = x.to(acc)
     Minv = (lambda v: v) if M is None else M
 
-    atol2 = float(tol * torch.linalg.norm(b)) ** 2
-    r = b - matvec(x)
-    z = Minv(r)
-    p = z
-    gamma = torch.dot(r, z)
+    sp = trace.begin("solvers.cg")
     i = 0
-    while i < maxiter and float(torch.dot(r, r)) > atol2:
-        Ap = matvec(p)
-        alpha = gamma / torch.dot(p, Ap)
-        xa = xa + alpha.to(acc) * p.to(acc)
-        r = r - alpha * Ap
+    try:
+        atol2 = trace.item(tol * torch.linalg.norm(b), sp) ** 2
+        r = b - matvec(x)
         z = Minv(r)
-        gamma_new = torch.dot(r, z)
-        p = z + (gamma_new / gamma) * p
-        gamma = gamma_new
-        i += 1
-        if callback is not None:
-            callback(i, xa, r)
+        p = z
+        gamma = torch.dot(r, z)
+        while i < maxiter and trace.item(torch.dot(r, r), sp) > atol2:
+            Ap = matvec(p)
+            alpha = gamma / torch.dot(p, Ap)
+            xa = xa + alpha.to(acc) * p.to(acc)
+            r = r - alpha * Ap
+            z = Minv(r)
+            gamma_new = torch.dot(r, z)
+            p = z + (gamma_new / gamma) * p
+            gamma = gamma_new
+            i += 1
+            if callback is not None:
+                callback(i, xa, r)
+    finally:
+        trace.end(sp, iters=i)
     return xa.to(b.dtype), (i, torch.linalg.norm(r))
 
 
@@ -76,20 +84,24 @@ def cg_columns(matvec, B, tol: float = None, maxiter: int = None):
     X = torch.zeros_like(B, dtype=acc)
     R, P = B, B
     g = torch.sum(R * R, dim=0)
+    sp = trace.begin("solvers.cg_columns")
     i = 0
-    live = g > atol2
-    while i < maxiter and bool(live.any()):
-        AP = matvec(P)
-        pAp = torch.sum(P * AP, dim=0)
-        alpha = torch.where(live, g / torch.where(pAp != 0, pAp, 1.0), 0.0)
-        X = X + alpha.to(acc)[None, :] * P.to(acc)
-        R = R - alpha[None, :] * AP
-        g_new = torch.sum(R * R, dim=0)
-        beta = torch.where(live, g_new / torch.where(g != 0, g, 1.0), 0.0)
-        P = torch.where(live[None, :], R + beta[None, :] * P, P)
-        g = torch.where(live, g_new, g)
+    try:
         live = g > atol2
-        i += 1
+        while i < maxiter and trace.item(live.any(), sp):
+            AP = matvec(P)
+            pAp = torch.sum(P * AP, dim=0)
+            alpha = torch.where(live, g / torch.where(pAp != 0, pAp, 1.0), 0.0)
+            X = X + alpha.to(acc)[None, :] * P.to(acc)
+            R = R - alpha[None, :] * AP
+            g_new = torch.sum(R * R, dim=0)
+            beta = torch.where(live, g_new / torch.where(g != 0, g, 1.0), 0.0)
+            P = torch.where(live[None, :], R + beta[None, :] * P, P)
+            g = torch.where(live, g_new, g)
+            live = g > atol2
+            i += 1
+    finally:
+        trace.end(sp, iters=i)
     return X.to(B.dtype), i
 
 
@@ -111,7 +123,7 @@ def minres(matvec, b, x0=None, tol: float = None, maxiter: int = None):
 
     r0 = b - matvec(x0)
     beta1 = torch.linalg.norm(r0)
-    bnorm = float(torch.linalg.norm(b))
+    bnorm = trace.item(torch.linalg.norm(b))
     atol = tol * (bnorm if bnorm > 0 else 1.0)
     tiny = torch.finfo(b.dtype).tiny
     safe = lambda t: torch.where(t > tiny, t, torch.ones_like(t))
@@ -125,7 +137,7 @@ def minres(matvec, b, x0=None, tol: float = None, maxiter: int = None):
     g0, g1, s0, s1 = one, one, 0 * one, 0 * one
     eta = beta1
     i = 0
-    while i < maxiter and float(torch.abs(eta)) > atol:
+    while i < maxiter and trace.item(torch.abs(eta)) > atol:
         Av = matvec(v)
         alpha = torch.dot(v, Av)
         v_next = Av - alpha * v - beta * v_prev
@@ -163,7 +175,7 @@ def gmres(matvec, b, x0=None, tol: float = None, maxiter: int = None, restart: i
     x = torch.zeros_like(b) if x0 is None else torch.as_tensor(x0)
     Minv = (lambda v: v) if M is None else M
     m = int(min(restart, maxiter))
-    bnorm = float(torch.linalg.norm(b))
+    bnorm = trace.item(torch.linalg.norm(b))
     atol = tol * (bnorm if bnorm > 0 else 1.0)
     eps = torch.finfo(b.dtype).eps
     safe = lambda t, lo: torch.where(t > lo, t, torch.ones_like(t))
@@ -182,19 +194,19 @@ def gmres(matvec, b, x0=None, tol: float = None, maxiter: int = None, restart: i
             H[j + 1, j] = torch.linalg.norm(w)
             V[j + 1] = w / safe(H[j + 1, j], eps)
         e1 = torch.zeros((m + 1, 1), dtype=torch.float64)
-        e1[0, 0] = beta.double().cpu()
+        e1[0, 0] = trace.cpu(beta.double())
         # minimum-norm least squares (SVD-based, as jnp.linalg.lstsq), on
         # the host: the problem is (restart + 1) x restart
-        y = torch.linalg.lstsq(H.double().cpu(), e1, driver="gelsd").solution[:, 0]
-        return x + V[:m].T @ y.to(device=b.device, dtype=b.dtype)
+        y = torch.linalg.lstsq(trace.cpu(H.double()), e1, driver="gelsd").solution[:, 0]
+        return x + V[:m].T @ trace.to_device(y, b.device, b.dtype)
 
-    res = float(torch.linalg.norm(b - matvec(x)))
+    res = trace.item(torch.linalg.norm(b - matvec(x)))
     it = 0
     while it < maxiter and res > atol:
         x = arnoldi_cycle(x)
         # stopping test on the true residual (one extra matvec per cycle):
         # with M the Arnoldi residual lives in preconditioned space
-        res = float(torch.linalg.norm(b - matvec(x)))
+        res = trace.item(torch.linalg.norm(b - matvec(x)))
         it += m + 1
     return x, (it, res)
 
@@ -224,12 +236,12 @@ def refined_solve(matvec_hi, matvec_lo, b, M=None, tol: float = 1e-8,
         return b - Ax
 
     x = torch.zeros_like(b)
-    bnorm = float(torch.linalg.norm(b))
+    bnorm = trace.item(torch.linalg.norm(b))
     it = 0
     for it in range(1, refinements + 1):
         r = residual(x)
         res = torch.linalg.norm(r)
-        if float(res) <= tol * bnorm:
+        if trace.item(res) <= tol * bnorm:
             return x, (it - 1, res)
         d, _ = cg(matvec_lo, r.to(torch.float32), tol=inner_tol, maxiter=inner_maxiter, M=M)
         x = x + d.to(torch.float64)
@@ -251,12 +263,12 @@ def approx_refined_solve(matvec_exact, matvec_approx, b, M=None,
     recurrence. Returns (x, (outer_iters, final exact-residual norm))."""
     b = torch.as_tensor(b)
     x = torch.zeros_like(b)
-    bnorm = float(torch.linalg.norm(b))
+    bnorm = trace.item(torch.linalg.norm(b))
     r = b
     it = 0
     for it in range(1, refinements + 1):
         res = torch.linalg.norm(r)
-        if float(res) <= tol * bnorm:
+        if trace.item(res) <= tol * bnorm:
             return x, (it - 1, res)
         d, _ = gmres(matvec_approx, r, tol=inner_tol, maxiter=inner_maxiter,
                      restart=inner_maxiter, M=M)
@@ -287,7 +299,7 @@ class CholeskyFactorization:
         jitter = _config.DEFAULT.default_tol if jitter is None else jitter
         if _L0 is None:
             _L0, info = torch.linalg.cholesky_ex(A)
-            if int(info) != 0:
+            if trace.item(info) != 0:
                 scale = torch.mean(torch.diagonal(A))
                 shift = (jitter * scale) * torch.eye(n, dtype=A.dtype, device=A.device)
                 _L0 = torch.linalg.cholesky(A + shift)
@@ -318,7 +330,7 @@ class LowRankFactorization:
             U0 = op.U
             s, W = torch.linalg.eigh(U0.T @ U0)
             smax = torch.clamp(s[-1], min=torch.finfo(U0.dtype).tiny)
-            r = max(1, int(torch.sum(s > tol * smax)))
+            r = max(1, trace.item(torch.sum(s > tol * smax)))
             w = s[-r:]
             Q = U0 @ (W[:, -r:] / torch.sqrt(w)[None, :])
             self.shape = op.shape
@@ -326,7 +338,7 @@ class LowRankFactorization:
             A = _dense(op)
             w, Q = torch.linalg.eigh(A)
             wmax = torch.clamp(w[-1], min=torch.finfo(A.dtype).tiny)
-            r = max(1, int(torch.sum(w > tol * wmax)))
+            r = max(1, trace.item(torch.sum(w > tol * wmax)))
             w = w[-r:]
             Q = Q[:, -r:]
             self.shape = tuple(A.shape)
@@ -356,7 +368,7 @@ def factorize(op, max_cholesky_size: int = None, rank_tol: float = None):
             return LowRankFactorization(op, tol=rank_tol)
         A = _dense(op)
         L0, info = torch.linalg.cholesky_ex(A)
-        if int(info) != 0:
+        if trace.item(info) != 0:
             return LowRankFactorization(A, tol=rank_tol)
         return CholeskyFactorization(A, _L0=L0)
     return op

@@ -1237,59 +1237,67 @@ def cols_text(k1c):
     return "; ".join(parts)
 
 
-def lml_grads(tk, gp, x, y, l0=1.0, **kw):
+def lml_grads(tk, gp, x, y, l0=1.0, keep=None, **kw):
     """log_marginal_likelihood of Lengthscale(MaternP(2), l0) + NOISE I at
     (x, y) and its gradient in log l and in the noise (autograd over
-    float64 leaves): (value, d/dlog l, d/dnoise)."""
+    float64 leaves): (value, d/dlog l, d/dnoise). With `keep`, a dict, the
+    slq branch's quadratic-form alpha is kept in it under "alpha"."""
     l = torch.tensor(l0, dtype=torch.float64, requires_grad=True)
     nz = torch.tensor(NOISE, dtype=torch.float64, requires_grad=True)
     v = gp.log_marginal_likelihood(tk.Lengthscale(tk.MaternP(2), l), x, y, noise=nz, **kw)
+    if keep is not None:
+        keep["alpha"] = quadform_alpha(v)
     gl, gn = torch.autograd.grad(v, (l, nz))
     return float(v.detach()), l0 * float(gl), float(gn)
 
 
+def quadform_alpha(v):
+    """The CG solution alpha that the slq branch's quadratic form saved for
+    its backward, read off v's autograd graph (None where there is none)."""
+    todo, seen = [v.grad_fn], {}
+    while todo:
+        node = todo.pop()
+        if node is None or id(node) in seen:
+            continue
+        seen[id(node)] = node       # kept alive: a freed node's id may be reused
+        if getattr(getattr(node, "_forward_cls", None), "__name__", None) == "_CGQuadform":
+            return node.saved_tensors[0].detach()
+        todo += [nxt for nxt, _ in node.next_functions]
+    return None
+
+
 @contextlib.contextmanager
-def slq_stages(slq, maxiter):
+def slq_stages(maxiter):
     """The iterations and walls of the slq stages of the logML calls made
-    inside: wraps `_lanczos_batch`, `cg_columns`, `cg` and `_pull_back` in
-    `cfjax_torch.operators.slq`, each between two synchronizes, and keeps
-    the quadratic form's alpha."""
+    inside, read from the program's spans (`cfjax_torch.utils.trace`,
+    recorded inside the block) once it ends: a stage's wall is the device's
+    time between its span's two events, which the program records without
+    a synchronize; the last `slq.cg_columns` and `slq.quadform` give the
+    iterations."""
+    from cfjax_torch.utils import trace
+
     st = dict(lanczos_calls=0, lanczos_s=0.0, cols_s=0.0, quad_s=0.0, vjp_s=0.0)
-    orig = {name: getattr(slq, name) for name in ("_lanczos_batch", "cg_columns", "cg",
-                                                  "_pull_back")}
-
-    def lanczos(out):
-        st["lanczos_calls"] += 1
-
-    def cols(out):
-        st["cols_iters"] = int(out[1])
-        st["cols_hit"] = st["cols_iters"] >= maxiter
-
-    def quad(out):
-        st["quad_iters"], st["alpha"] = int(out[1][0]), out[0]
-        st["quad_hit"] = st["quad_iters"] >= maxiter
-
-    def timed(name, key, seen=None):
-        def run(*a, **kw):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = orig[name](*a, **kw)
-            torch.cuda.synchronize()
-            st[key] += time.perf_counter() - t0
-            if seen is not None:
-                seen(out)
-            return out
-        return run
-
-    slq._lanczos_batch = timed("_lanczos_batch", "lanczos_s", lanczos)
-    slq.cg_columns = timed("cg_columns", "cols_s", cols)
-    slq.cg = timed("cg", "quad_s", quad)
-    slq._pull_back = timed("_pull_back", "vjp_s")
-    try:
+    t0 = time.perf_counter()
+    with trace.recording():
         yield st
-    finally:
-        for name, fn in orig.items():
-            setattr(slq, name, fn)
+    for sp in trace.spans():
+        if sp["start"] < t0:
+            continue
+        a, name = sp["attrs"], sp["name"]
+        wall = a["device_ms"] * 1e-3 if "device_ms" in a else sp["end"] - sp["start"]
+        if name == "slq.lanczos":
+            st["lanczos_calls"] += 1
+            st["lanczos_s"] += wall
+        elif name == "slq.cg_columns":
+            st["cols_s"] += wall
+            st["cols_iters"] = a["iters"]
+            st["cols_hit"] = a["iters"] >= maxiter
+        elif name == "slq.quadform":
+            st["quad_s"] += wall
+            st["quad_iters"] = a["iters"]
+            st["quad_hit"] = a["iters"] >= maxiter
+        elif name == "slq.pull_back":
+            st["vjp_s"] += wall
 
 
 def stage_text(st):
@@ -1346,7 +1354,7 @@ def phase15_logdet(tk, ops, slq):
     return dict(ld32=ld32, ld64=ld64, err=err, s32=s32, s64=s64, exact=exact, sweep=sweep)
 
 
-def phase15_logml(tk, gp, mvm, slq, p3):
+def phase15_logml(tk, gp, mvm, p3):
     """The lazy logML and its gradient in log l and the noise.
     (a) n = 16384, phase 3's kind of points, method="slq" forced (solves to
     cfjax's 1e-6, up to 2000 iterations), against the float64 dense
@@ -1362,7 +1370,7 @@ def phase15_logml(tk, gp, mvm, slq, p3):
     x = cuda_tensor(rng.standard_normal((n, 3)))
     y = torch.sin(x[:, 0]) + Y_NOISE * cuda_tensor(rng.standard_normal(n))
     before = dict(mvm.LAUNCHES)
-    with slq_stages(slq, 2000) as st_a:
+    with slq_stages(2000) as st_a:
         (va, gla, gna), wall_a = sync_time(lambda: lml_grads(tk, gp, x, y, method="slq",
                                                              solve_maxiter=2000))
     cols_a, one_a = logml_launches("phase 15a", before, dict(mvm.LAUNCHES), st_a)
@@ -1393,8 +1401,9 @@ def phase15_logml(tk, gp, mvm, slq, p3):
     x, y = p3["x"], p3["y"]
     n = x.shape[0]
     before = dict(mvm.LAUNCHES)
-    with slq_stages(slq, 500) as st_b:
-        (vb, glb, gnb), wall_b = sync_time(lambda: lml_grads(tk, gp, x, y, solve_tol=1e-5))
+    with slq_stages(500) as st_b:
+        (vb, glb, gnb), wall_b = sync_time(lambda: lml_grads(tk, gp, x, y, keep=st_b,
+                                                             solve_tol=1e-5))
     check(st_b["lanczos_calls"] > 0, "phase 15b: the auto route did not take the slq branch")
     cols_b, one_b = logml_launches("phase 15b", before, dict(mvm.LAUNCHES), st_b)
     check(all(np.isfinite([vb, glb, gnb])), f"phase 15b: logML {vb} gradient {glb}, {gnb}")
@@ -2494,7 +2503,7 @@ def phase22_subset_chain(tk, gp, hmc):
                 w_hmc=w_hmc, e_hmc=e_hmc, a_hmc=float(a_hmc))
 
 
-def phase23_host_chain(tk, gp, hmc, mvm, slq, p22):
+def phase23_host_chain(tk, gp, hmc, mvm, p22):
     """nuts_sample_host over the lazy slq logML at n = 2^16 (config 5's data
     law, kernel and prior), with the north-star demo's knobs (2 probes, 10
     Lanczos steps, solves to 3e-2 in at most 15 iterations; 3 warmup, 8
@@ -2507,7 +2516,7 @@ def phase23_host_chain(tk, gp, hmc, mvm, slq, p22):
     logpost = config5_logpost(tk, gp, x, y, cnt, probes=2, lanczos_iters=10, solve_tol=3e-2,
                               solve_maxiter=15)
     before = dict(mvm.LAUNCHES)
-    with slq_stages(slq, 15) as st:
+    with slq_stages(15) as st:
         (s, a), wall = sync_time(lambda: hmc.nuts_sample_host(
             logpost, p22["mean"], 3, num_samples=8, num_warmup=3, max_tree_depth=2,
             init_step=0.02))
@@ -3348,7 +3357,7 @@ def main():
     for key in mvm.LAUNCHES:
         mvm.LAUNCHES[key] = 0
     t_lml = time.perf_counter()
-    p15 = phase15_logml(tk, gp, mvm, slq, p3)
+    p15 = phase15_logml(tk, gp, mvm, p3)
     p16 = phase16_fit(tk, gp, mvm, p3, p15["wall_b"])
     launches["direct_cols"] = mvm.LAUNCHES["direct_cols"]
     launches["direct"] += mvm.LAUNCHES["direct"]
@@ -3410,7 +3419,7 @@ def main():
         mvm.LAUNCHES[key] = 0
     t22 = time.perf_counter()
     p22 = phase22_subset_chain(tk, gp, hmc)
-    p23 = phase23_host_chain(tk, gp, hmc, mvm, slq, p22)
+    p23 = phase23_host_chain(tk, gp, hmc, mvm, p22)
     check(mvm.LAUNCHES["direct_cols"] > 0 and mvm.LAUNCHES["direct"] > 0,
           "the many-column K1 or K1 was not launched on the sampling path")
     launches["direct_cols"] += mvm.LAUNCHES["direct_cols"]
