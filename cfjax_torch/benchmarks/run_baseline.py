@@ -65,6 +65,7 @@ import torch
 from .. import config as _config
 from ..ops import gramian_mvm as mvm
 from ..utils.roofline import Work, summarize
+from ..utils.testing import kernel_runs
 from ..utils.timing import MeasurementError, graph_ms, sync_time, time_chained, time_dispatch
 from .common import DEVICES, card, commit, take_device
 
@@ -991,8 +992,8 @@ def bench_logml(run: Run):
                  "n never materialized")
 
     def slq_work(n, d, k, launches, probes):
-        """The K1 products an slq logML launched (a lower bound: the plain
-        VJP and the rest are not counted); None where nothing launched."""
+        """The K1 products an slq logML ran (a lower bound: the plain VJP
+        and the rest are not counted); None where nothing ran."""
         if not launches:
             return None
         prof = mvm.profile_ops(to_spec(k)[0])
@@ -1000,10 +1001,14 @@ def bench_logml(run: Run):
                 + launches.get("direct_cols", 0) * mvm.work_direct(n, n, d, prof, p=probes))
 
     def counted(fn):
-        before = dict(mvm.LAUNCHES)
-        out = fn()
-        return out, {k: mvm.LAUNCHES[k] - before[k] for k in before
-                     if mvm.LAUNCHES[k] > before[k]}
+        """fn()'s result and its K1 products by `LAUNCHES` key, as they ran
+        on the card (a CG step captured in a CUDA graph runs once a replay,
+        and is launched once)."""
+        with kernel_runs("k1_family", "k1_direct", "k1_matmat_family") as runs:
+            out = fn()
+        ran = {"direct": runs["k1_family"] + runs["k1_direct"],
+               "direct_cols": runs["k1_matmat_family"]}
+        return out, {k: v for k, v in ran.items() if v}
 
     n, d = z["slq_n"], 3
     x = run.t(rng.standard_normal((n, d)))
@@ -1019,7 +1024,7 @@ def bench_logml(run: Run):
         val, launches = counted(lambda: g(yv))
         run.hold("logml_slq_eq_n65536_d3", x=x, y=yv, out=val)
         return {"seconds": s, "spread": spread, "work": slq_work(n, d, EQ(), launches, 8),
-                "note": f"logML {float(val):.9e}; one evaluation's launches {launches} (the "
+                "note": f"logML {float(val):.9e}; one evaluation's K1 runs {launches} (the "
                         "bound counts their K1 products)"}
 
     run.row("logml_slq_eq_n65536_d3", slq, expect="K1 many-column",
@@ -1040,7 +1045,7 @@ def bench_logml(run: Run):
         (val, launches), s = run.wall(lambda: counted(lambda: h(y20)))
         run.hold("logml_slq_eq_n2pow20_d2", x=x20, y=y20, out=val)
         return {"seconds": s, "work": slq_work(n20, 2, EQ(), launches, 4),
-                "note": f"logML {float(val):.6e}; launches {launches}"}
+                "note": f"logML {float(val):.6e}; K1 runs {launches}"}
 
     run.row("logml_slq_eq_n2pow20_d2", value, expect="K1 many-column",
             note="n = 2^20 lazy logML value: 24 Lanczos steps x 4 probes, CG tol 1e-3 in at "
@@ -1057,7 +1062,7 @@ def bench_logml(run: Run):
         ((val, gl), launches), s = run.wall(lambda: counted(vg))
         run.hold("logml_slq_eq_n2pow20_d2_grad", x=x20, y=y20, out=val, grad=gl)
         return {"seconds": s, "work": slq_work(n20, 2, EQ(), launches, 4),
-                "note": f"logML {float(val):.6e}, d/dlog l {float(gl):.6e}; launches "
+                "note": f"logML {float(val):.6e}, d/dlog l {float(gl):.6e}; K1 runs "
                         f"{launches}; the backward is the plain VJP"}
 
     run.row("logml_slq_eq_n2pow20_d2_grad", grad, expect="K1 many-column",

@@ -2,11 +2,18 @@
 (counterpart of `cfjax.operators.solvers`, reference src/gramian.jl:193-238,
 src/lazy_linear_algebra.jl:135-144 and src/barneshut.jl:64-72).
 
-CG, MINRES and GMRES are Python loops with one host sync per residual
-check (cfjax's are `lax.while_loop`s). Every read to the host here is
-counted in `utils.trace`'s `host_syncs`; `cg` and `cg_columns` are spans
-(`solvers.cg`, `solvers.cg_columns`) with their iterations and the host's
-wait in their reads. `torch.linalg.cholesky` raises on a
+CG runs its iterations in blocks between convergence reads (cfjax's is a
+`lax.while_loop`): each iteration is one predicated step on device
+tensors, which changes nothing once the residual has met the tolerance, so
+the host reads the residual and the iteration count once a block, and
+sizes the next block from the residual's decrease. On a CUDA device the
+step is captured once a solve into a CUDA graph and each block is that
+many replays: the host launches one graph an iteration instead of some
+twenty kernels. MINRES and GMRES are Python loops with one host sync per
+residual check. Every read to the host here is counted in `utils.trace`'s
+`host_syncs`; `cg` and `cg_columns` are spans (`solvers.cg`,
+`solvers.cg_columns`) with their iterations and the host's wait in their
+reads. `torch.linalg.cholesky` raises on a
 matrix that is not positive definite where `jnp.linalg.cholesky` returns
 NaN, so the rank-revealing tests use `torch.linalg.cholesky_ex` and its
 `info`. The refinement solvers run their outer loops on the host, as
@@ -15,11 +22,29 @@ cfjax's do: one residual norm read a refinement.
 
 from __future__ import annotations
 
+import math
+import threading
+
 import torch
 
 from .. import config as _config
 from ..utils import trace
 from .linop import LinearOperator, LowRankOperator
+
+
+# CG's first block of iterations between two convergence reads, and the
+# largest block
+FIRST_BLOCK, MAX_BLOCK = 8, 32
+
+
+class _Captures(threading.local):
+    def __init__(self):
+        # this thread's device index -> [the stream CG's step is captured
+        # on, the memory pool the captures share, the last graph captured]
+        self.held = {}
+
+
+_CAPTURES = _Captures()
 
 
 def cg(matvec, b, x0=None, tol: float = None, maxiter: int = None, M=None,
@@ -36,38 +61,163 @@ def cg(matvec, b, x0=None, tol: float = None, maxiter: int = None, M=None,
     A's spread of eigenvalues, otherwise caps the true residual far above
     the recursive one (measured on an H100 at n = 2^17: 7.3e-4 true vs
     1e-5 recursive after 316 PCG iterations). The operator and every
-    other vector stay in b's dtype."""
+    other vector stay in b's dtype.
+
+    The iterations run in blocks (`_next_block`) of one predicated step
+    on device tensors: a step taken after the residual met the tolerance
+    is frozen (alpha and beta 0: x, the residual and gamma kept, the count
+    not advanced), so x, the residual and the count are those of the first
+    converged iteration whatever the block. The host reads the residual
+    and the count before the first block and after each, and with a
+    callback after every step. On a CUDA device, with no callback and no
+    autograd graph, the first step runs eagerly (caches fill) and the
+    step is then captured into a CUDA graph that each block replays; a
+    step that cannot be captured (one that reads to the host) runs
+    eagerly. The span `solvers.cg` carries `iters`, `captured` (1: the
+    graph), `replays` (the steps replayed from it), `reads` (the host's
+    reads) and `frozen` (steps run after convergence). Its `launch.*`
+    deltas count the kernels the host launched: a captured step's once,
+    however often it is replayed."""
     tol = _config.DEFAULT.cg_tol if tol is None else tol
     maxiter = _config.DEFAULT.cg_maxiter if maxiter is None else maxiter
     b = torch.as_tensor(b)
     x = torch.zeros_like(b) if x0 is None else torch.as_tensor(x0)
     acc = torch.float64 if b.dtype == torch.float32 else b.dtype
-    xa = x.to(acc)
     Minv = (lambda v: v) if M is None else M
 
     sp = trace.begin("solvers.cg")
-    i = 0
+    its = steps = reads = replays = 0
+    graph = None
     try:
-        atol2 = trace.item(tol * torch.linalg.norm(b), sp) ** 2
         r = b - matvec(x)
         z = Minv(r)
-        p = z
-        gamma = torch.dot(r, z)
-        while i < maxiter and trace.item(torch.dot(r, r), sp) > atol2:
+        # in place unless autograd records the solve
+        inplace = not (torch.is_grad_enabled()
+                       and any(t.requires_grad for t in (b, x, r, z)))
+        atol2 = (tol * torch.linalg.norm(b)).to(torch.float64) ** 2
+        state = [x.to(acc, copy=True), r, z.clone(), torch.dot(r, z), torch.dot(r, r),
+                 torch.zeros((), dtype=torch.int64, device=b.device)]
+        zero = torch.zeros((), dtype=b.dtype, device=b.device)
+
+        def step():
+            # once the residual met the tolerance, alpha is 0: x and r stay,
+            # z, gamma and the residual's norm come out as before, and p
+            # becomes z, which no longer reaches x
+            xa, r, p, gamma, rr, i = state
+            out = (lambda t: t) if inplace else (lambda t: None)
+            live = rr > atol2
             Ap = matvec(p)
-            alpha = gamma / torch.dot(p, Ap)
-            xa = xa + alpha.to(acc) * p.to(acc)
-            r = r - alpha * Ap
+            alpha = torch.where(live, gamma / torch.dot(p, Ap), zero)
+            xa = torch.addcmul(xa, alpha, p, out=out(xa))   # float32 products exact in float64
+            r = torch.sub(r, alpha * Ap, out=out(r))
             z = Minv(r)
             gamma_new = torch.dot(r, z)
-            p = z + (gamma_new / gamma) * p
-            gamma = gamma_new
-            i += 1
-            if callback is not None:
-                callback(i, xa, r)
+            beta = torch.where(live, gamma_new / gamma, zero)
+            p = torch.add(z, beta * p, out=out(p))
+            gamma = torch.where(live, gamma_new, gamma, out=out(gamma))
+            state[:] = [xa, r, p, gamma, torch.dot(r, r, out=out(rr)),
+                        torch.add(i, live, out=out(i))]
+
+        def read(*ts):
+            nonlocal reads
+            reads += 1
+            return trace.cpu(torch.stack([t.to(torch.float64) for t in ts]), sp).tolist()
+
+        rr0, atol2_h = read(state[4], atol2)
+        capture = b.is_cuda and callback is None and inplace
+        least = rr0
+        k = 0 if rr0 <= atol2_h else min(1 if callback is not None else FIRST_BLOCK, maxiter)
+        while k > 0:
+            run = k
+            if capture and graph is None:
+                step()                  # the warm-up: caches fill, nothing is captured
+                steps, run = steps + 1, run - 1
+                if run:
+                    graph = _capture(step, b.device)
+                    capture = graph is not None
+            if graph is not None:
+                for _ in range(run):
+                    graph.replay()
+                replays += run
+            else:
+                for _ in range(run):
+                    step()
+            steps += run
+            rr, i = read(state[4], state[5])
+            i = int(i)
+            if callback is not None and i > its:
+                callback(i, state[0], state[1])
+            its = i
+            if rr <= atol2_h or its >= maxiter:
+                break
+            least = min(least, rr)
+            k = 1 if callback is not None else _next_block(least, atol2_h, rr0, its)
+            k = max(1, min(k, maxiter - its))
     finally:
-        trace.end(sp, iters=i)
-    return xa.to(b.dtype), (i, torch.linalg.norm(r))
+        trace.end(sp, iters=its, captured=int(graph is not None), replays=replays,
+                  reads=reads, frozen=steps - its)
+    xa, r = state[0], state[1]
+    return xa.to(b.dtype), (its, torch.linalg.norm(r))
+
+
+def _next_block(least, atol2, rr0, its):
+    """The steps to run before the next convergence read, in [1, MAX_BLOCK]:
+    a third of the iterations left, at the mean log decrease of the squared
+    residual over the `its` iterations so far (from `rr0` to `least`, the
+    least one read), from `least` down to `atol2`. CG's residual is not
+    monotone: on config 4's gradient system it swings by half a decade from
+    one iteration to the next near the end, where blocks of the whole
+    estimate from the last block's decrease ran 11-14 steps a solve past
+    convergence, and this rule 0.4 (PERF.md). A residual that has not
+    decreased, or a tolerance of 0, asks for the largest block."""
+    k = MAX_BLOCK
+    if atol2 > 0 and 0 < least < rr0:
+        k = min(k, its * math.log(least / atol2) / (3 * math.log(rr0 / least)))
+    return max(1, int(k))
+
+
+def _capture(step, device):
+    """A CUDA graph of `step()`, or None where the current stream is already
+    capturing or capturing raises, as a step that reads to the host does.
+    The capture checks this thread's calls alone (`thread_local`): another
+    thread's work that is not capture-safe neither fails nor spoils it. The
+    captures of one thread on one device share a side stream and a memory
+    pool, so a solve's capture reuses the memory of the last one, which is
+    never replayed again; the last graph is kept until the next capture,
+    since a pool that no graph holds is freed, so between solves the pool
+    holds one step's temporaries. `torch.cuda.graph` would synchronize the
+    device and empty the allocator's cache at every capture. A failed
+    capture leaves the allocator recording to its pool, which no later
+    capture may then begin: that pool is closed and retired with its
+    stream."""
+    if torch.cuda.is_current_stream_capturing():
+        return None
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    held = _CAPTURES.held
+    if idx not in held:
+        with torch.cuda.device(idx):
+            held[idx] = [torch.cuda.Stream(), torch.cuda.graph_pool_handle(), None]
+    side, pool, _ = held[idx]
+    graph = torch.cuda.CUDAGraph()
+    here = torch.cuda.current_stream(idx)
+    side.wait_stream(here)
+    try:
+        with torch.cuda.stream(side):
+            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+            try:
+                step()
+            finally:
+                graph.capture_end()
+        held[idx][2] = graph
+    except RuntimeError:        # torch's CUDA errors included
+        graph = None
+        del held[idx]
+        try:
+            torch._C._cuda_endAllocateToPool(idx, pool)
+        except (AttributeError, RuntimeError):
+            pass
+    here.wait_stream(side)
+    return graph
 
 
 def cg_columns(matvec, B, tol: float = None, maxiter: int = None):

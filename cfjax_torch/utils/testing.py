@@ -8,13 +8,18 @@ independent of the trait-specialized tiles. The Nystrom build uses
 `isstationary_probe` and `isisotropic_probe` test a kernel on numpy draws
 from the same seeds as cfjax's, on the CPU in float64. `run_world` runs a
 function on every rank of a spawned `torch.distributed` world (the tests
-of `cfjax_torch.parallel` and the card's multi-rank smoke phase)."""
+of `cfjax_torch.parallel` and the card's multi-rank smoke phase).
+`kernel_runs` counts the port's kernels that ran on the card, from a
+profiler trace."""
 
 from __future__ import annotations
 
+import contextlib
 import os
 import pickle
+import re
 import tempfile
+import time
 
 import numpy as np
 import torch
@@ -125,3 +130,43 @@ def run_world(fn, world: int, *args, backend: str = "gloo", device: str = "cpu")
                            nprocs=world, join=True, start_method="spawn")
         with open(os.path.join(tmp, "result.pkl"), "rb") as f:
             return pickle.load(f)
+
+
+PAD_S = 0.005
+
+
+@contextlib.contextmanager
+def kernel_runs(*names):
+    """Count how often the CUDA kernels `names` (their function names in
+    `csrc/`, e.g. "k1_family", "k3_tc") ran on the device inside the block,
+    from a `torch.profiler` trace of the device alone. The dict yielded is
+    filled when the block ends. A kernel captured in a CUDA graph runs once
+    a replay, where `ops.gramian_mvm.LAUNCHES` counts the host's launches:
+    the capture once. Without CUDA every count is 0.
+
+    The trace's window is padded: the device is idle when it opens, and
+    `PAD_S` of host time passes, the device idle, after it opens and
+    before it closes. Unpadded, 4 of about 80 traces of a solve on an
+    H100 missed one to three of its kernels; padded, one card test's
+    trace still reads one run short when its whole file runs (PERF.md)."""
+    out = dict.fromkeys(names, 0)
+    if not torch.cuda.is_available():
+        yield out
+        return
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def pad():
+        torch.cuda.synchronize()
+        time.sleep(PAD_S)
+
+    pats = {name: re.compile(rf"(^|\s){re.escape(name)}\b") for name in names}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        pad()
+        yield out
+        pad()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for name, pat in pats.items():
+                out[name] += bool(pat.search(e.name))

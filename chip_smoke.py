@@ -123,10 +123,18 @@ import torch
 
 from cfjax_torch.utils.besselk import matern_nu_ops
 from cfjax_torch.utils.roofline import Work, summarize
+from cfjax_torch.utils.testing import kernel_runs
 from cfjax_torch.utils.timing import (call_and_device_ms, event_ms, graph_ms, kernel_times,
                                       sync_time)
 
 K1_BOUND = 1e-5   # relative L2 error of K1 vs its float64 plain version
+# the CUDA kernels of each key of `ops.gramian_mvm.LAUNCHES`, by their names
+# in csrc/: CG's step is captured in a CUDA graph, whose kernels run once a
+# replay, and the solve checks count those runs from a profiler trace
+# (`runs_of`), where `LAUNCHES` counts the capture once
+KERNELS = {"direct": ("k1_family", "k1_direct"), "matern": ("k1_family",),
+           "direct_cols": ("k1_matmat_family",), "expand": ("k2_tc",),
+           "expand_matern": ("k2_tc",), "grad": ("k3_tc",), "grad_matern": ("k3_tc",)}
 K2_BOUND = 1e-4   # K2: the expansion cancels (cfjax's interpret tolerance is 2e-4)
 K3_BOUND = 1e-4   # K3: float32 jet and Taylor bound (cfjax's interpret tolerance is 3e-4)
 # K2 and K3 at each matmul tier (relative L2): (against their plain version
@@ -183,6 +191,14 @@ Y_NOISE = 0.01    # standard deviation of the noise in the observations y
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"check failed: {msg}")
+
+
+def runs_of(kind, fn):
+    """fn()'s result, and how often the kernels of `LAUNCHES` key `kind`
+    (`KERNELS`) ran on the card inside it."""
+    with kernel_runs(*KERNELS[kind]) as runs:
+        out = fn()
+    return out, sum(runs.values())
 
 
 def rel(out, ref):
@@ -404,9 +420,8 @@ def phase_gp(tk, ops, gp, mvm, n, d, kernel, kind, label, rng, solve_opts, resid
     b = G @ a
     check(rel(b[:256], plain(kernel, xd[:256], xd, a.double())) <= bound,
           f"{label}: gramian @ a rows disagree with the plain version")
-    before = mvm.LAUNCHES[kind]
-    post, wall = sync_time(lambda: gp.gp_condition(kernel, x, y, noise=NOISE, **solve_opts))
-    launches = mvm.LAUNCHES[kind] - before
+    (post, wall), launches = runs_of(kind, lambda: sync_time(
+        lambda: gp.gp_condition(kernel, x, y, noise=NOISE, **solve_opts)))
     # the residual recomputed from alpha through the kernel, and through
     # the float64 plain version
     res = residual(G @ post.alpha, post.alpha, y)
@@ -437,10 +452,8 @@ def phase_float64_observations(tk, gp, mvm):
     k = tk.MaternP(2)
     cfjax_torch.set_config(max_cholesky_size=1024)
     try:
-        before = mvm.LAUNCHES["direct"]
-        post = gp.gp_condition(k, x, y, noise=NOISE, precondition="never", tol=1e-5,
-                               maxiter=1000)
-        launches = mvm.LAUNCHES["direct"] - before
+        post, launches = runs_of("direct", lambda: gp.gp_condition(
+            k, x, y, noise=NOISE, precondition="never", tol=1e-5, maxiter=1000))
     finally:
         cfjax_torch.set_config(max_cholesky_size=cfjax_torch.config.Config.max_cholesky_size)
     it = post.solve_info[0]
@@ -448,10 +461,10 @@ def phase_float64_observations(tk, gp, mvm):
     res64 = residual(mvm.gramian_matvec_direct_plain(k, x.double(), x.double(),
                                                      post.alpha.double()), post.alpha, yt)
     check(post.alpha.dtype == torch.float32 and launches >= it and res64 <= 1e-3,
-          f"phase 2b: alpha {post.alpha.dtype}, {launches} K1 launches for {it} CG "
+          f"phase 2b: alpha {post.alpha.dtype}, {launches} K1 runs for {it} CG "
           f"iterations, float64 residual {res64:.3e}")
     print(f"phase 2b float32 points, float64 observations, precondition='never' n=4096: "
-          f"alpha {post.alpha.dtype}, {it} CG iterations, {launches} K1 launches, float64 "
+          f"alpha {post.alpha.dtype}, {it} CG iterations, {launches} K1 runs, float64 "
           f"residual {res64:.3e} (bound 1e-3)", flush=True)
     return dict(iters=it, launches=launches, residual64=res64)
 
@@ -522,10 +535,8 @@ def phase7_gradient_gp(tk, ops, gp, mvm, gmvm):
     a = cuda_tensor(rng.standard_normal(n * d))
     Ga = G @ a
     share = float(torch.linalg.norm(Ga - a) / torch.linalg.norm(Ga))  # -2 f'(0) = 1 for EQ
-    before = mvm.LAUNCHES["grad"]
-    post, wall = sync_time(lambda: gp.gp_condition(kernel, x, y, noise=NOISE, tol=1e-5,
-                                                   maxiter=1000))
-    launches = mvm.LAUNCHES["grad"] - before
+    (post, wall), launches = runs_of("grad", lambda: sync_time(
+        lambda: gp.gp_condition(kernel, x, y, noise=NOISE, tol=1e-5, maxiter=1000)))
     it, res_norm = post.solve_info
     check(it < 1000, f"phase 7: CG did not converge in 1000 iterations (residual {float(res_norm):.3e})")
     alpha = post.alpha
@@ -551,7 +562,7 @@ def phase7_gradient_gp(tk, ops, gp, mvm, gmvm):
 
     print(f"phase 7 gradient GP (BASELINE config 4) EQ n=4096 d=16, 65536 unknowns: "
           f"{it} CG iterations (tol 1e-5), residual {res:.3e} (K3) / {res64:.3e} float64 "
-          f"(bound 1e-4), K3 launches {launches}, gp_condition {wall:.3f} s, mean(1024) "
+          f"(bound 1e-4), K3 runs {launches}, gp_condition {wall:.3f} s, mean(1024) "
           f"{mean_wall:.4f} s, mean rows rel {mean_err:.3e}, off-diagonal share "
           f"||G a - a|| / ||G a|| = {share:.3f} | {how}", flush=True)
     return dict(cg_iters=it, launches=launches, residual=res, residual64=res64,
@@ -1280,9 +1291,9 @@ def slq_stages(maxiter):
     t0 = time.perf_counter()
     with trace.recording():
         yield st
-    for sp in trace.spans():
-        if sp["start"] < t0:
-            continue
+    spans = [sp for sp in trace.spans() if sp["start"] >= t0]
+    quad = {sp["id"] for sp in spans if sp["name"] == "slq.quadform"}
+    for sp in spans:
         a, name = sp["attrs"], sp["name"]
         wall = a["device_ms"] * 1e-3 if "device_ms" in a else sp["end"] - sp["start"]
         if name == "slq.lanczos":
@@ -1298,6 +1309,10 @@ def slq_stages(maxiter):
             st["quad_hit"] = a["iters"] >= maxiter
         elif name == "slq.pull_back":
             st["vjp_s"] += wall
+        elif name == "solvers.cg" and sp["parent"] in quad:
+            # the quadratic form's steps run after it converged, which launch
+            # the operator's kernel too
+            st["quad_frozen"] = a["frozen"]
 
 
 def stage_text(st):
@@ -1307,17 +1322,19 @@ def stage_text(st):
             f"{st['quad_s']:.3f} s, VJP (plain, checkpointed) {st['vjp_s']:.3f} s")
 
 
-def logml_launches(label, before, after, st):
-    """Every forward product of the logML ran on K1: one many-column launch a
-    Lanczos step (one probe sweep) and a cg_columns iteration, one
-    single-column launch a quadratic-form CG iteration and one for its
-    first residual."""
-    cols = after["direct_cols"] - before["direct_cols"]
-    one = after["direct"] - before["direct"]
-    check(cols == 48 + st["cols_iters"] and one == st["quad_iters"] + 1,
-          f"{label}: {cols} many-column K1 launches for 48 Lanczos steps and "
-          f"{st['cols_iters']} cg_columns iterations, {one} K1 launches for "
-          f"{st['quad_iters']} CG iterations: a forward product ran elsewhere")
+def logml_launches(label, runs, st):
+    """Every forward product of the logML ran on K1: the many-column K1 once
+    a Lanczos step (one probe sweep) and a cg_columns iteration, K1 once a
+    quadratic-form CG step (its iterations and the steps of its last block
+    after convergence) and once for its first residual; `runs` counts the
+    runs on the card (`kernel_runs`)."""
+    cols = sum(runs[k] for k in KERNELS["direct_cols"])
+    one = sum(runs[k] for k in KERNELS["direct"])
+    steps = st["quad_iters"] + st["quad_frozen"]
+    check(cols == 48 + st["cols_iters"] and one == steps + 1,
+          f"{label}: {cols} many-column K1 runs for 48 Lanczos steps and "
+          f"{st['cols_iters']} cg_columns iterations, {one} K1 runs for "
+          f"{steps} CG steps: a forward product ran elsewhere")
     return cols, one
 
 
@@ -1369,11 +1386,11 @@ def phase15_logml(tk, gp, mvm, p3):
     n = 16384
     x = cuda_tensor(rng.standard_normal((n, 3)))
     y = torch.sin(x[:, 0]) + Y_NOISE * cuda_tensor(rng.standard_normal(n))
-    before = dict(mvm.LAUNCHES)
-    with slq_stages(2000) as st_a:
+    k1 = KERNELS["direct"] + KERNELS["direct_cols"]
+    with kernel_runs(*k1) as runs_a, slq_stages(2000) as st_a:
         (va, gla, gna), wall_a = sync_time(lambda: lml_grads(tk, gp, x, y, method="slq",
                                                              solve_maxiter=2000))
-    cols_a, one_a = logml_launches("phase 15a", before, dict(mvm.LAUNCHES), st_a)
+    cols_a, one_a = logml_launches("phase 15a", runs_a, st_a)
     (vc, glc, gnc), wall_c = sync_time(lambda: lml_grads(tk, gp, x.double(), y.double(),
                                                          method="cholesky"))
     err_v = abs(va - vc) / abs(vc)
@@ -1395,17 +1412,16 @@ def phase15_logml(tk, gp, mvm, p3):
           f"0.02); at cfjax's 48 steps {va:.6e} (rel {err_v:.3e}, the quadrature's bias), d/dlog l {gla:.6e} "
           f"vs {glc:.6e} (|diff| {err_l:.3e}, bound {tol_l:.3e}); d/dnoise {gna:.6e} vs "
           f"{gnc:.6e} (|diff| {err_n:.3e}, bound {tol_n:.3e}); value and gradient {wall_a:.3f} "
-          f"s ({stage_text(st_a)}), Cholesky and its gradient {wall_c:.3f} s; launches: "
-          f"{cols_a} many-column K1, {one_a} K1", flush=True)
+          f"s ({stage_text(st_a)}), Cholesky and its gradient {wall_c:.3f} s; runs on the "
+          f"card: {cols_a} many-column K1, {one_a} K1", flush=True)
 
     x, y = p3["x"], p3["y"]
     n = x.shape[0]
-    before = dict(mvm.LAUNCHES)
-    with slq_stages(500) as st_b:
+    with kernel_runs(*k1) as runs_b, slq_stages(500) as st_b:
         (vb, glb, gnb), wall_b = sync_time(lambda: lml_grads(tk, gp, x, y, keep=st_b,
                                                              solve_tol=1e-5))
     check(st_b["lanczos_calls"] > 0, "phase 15b: the auto route did not take the slq branch")
-    cols_b, one_b = logml_launches("phase 15b", before, dict(mvm.LAUNCHES), st_b)
+    cols_b, one_b = logml_launches("phase 15b", runs_b, st_b)
     check(all(np.isfinite([vb, glb, gnb])), f"phase 15b: logML {vb} gradient {glb}, {gnb}")
     alpha = st_b["alpha"]
     k = tk.Lengthscale(tk.MaternP(2), 1.0)
@@ -1414,9 +1430,9 @@ def phase15_logml(tk, gp, mvm, p3):
     print(f"phase 15b lazy logML n=131072 (phase 3's points) Lengthscale(MaternP(2), 1), the "
           f"auto route to slq, solve_tol 1e-5, solve_maxiter 500: value {vb:.6e}, d/dlog l "
           f"{glb:.6e}, d/dnoise {gnb:.6e}; {wall_b:.3f} s: {stage_text(st_b)}; float64 "
-          f"relative residual of alpha {res64:.3e}; launches: {cols_b} many-column K1 (48 + "
-          f"{st_b['cols_iters']}), {one_b} K1 ({st_b['quad_iters']} + 1); no preconditioner "
-          f"(as cfjax's slq branch)", flush=True)
+          f"relative residual of alpha {res64:.3e}; runs on the card: {cols_b} many-column K1 (48 + "
+          f"{st_b['cols_iters']}), {one_b} K1 ({st_b['quad_iters']} + {st_b['quad_frozen']} "
+          f"+ 1); no preconditioner (as cfjax's slq branch)", flush=True)
     return dict(va=va, vc=vc, err_v=err_v, wall_a=wall_a, st_a=st_a, vb=vb, glb=glb, gnb=gnb,
                 wall_b=wall_b, st_b=st_b, res64=res64, launches_b=(cols_b, one_b))
 
@@ -2264,13 +2280,12 @@ def phase21d_solve(tk, ops, gp, mvm):
     k = tk.Lengthscale(tk.Matern(2.3), 1.0)
     how = ops.explain(k, x)
     check("K1 gramian_matvec_direct (family instance)" in how, f"phase 21d: explain() {how!r}")
-    before = mvm.LAUNCHES["matern"]
     torch.cuda.reset_peak_memory_stats()
-    post, wall = sync_time(lambda: gp.gp_condition(k, x, y, noise=NOISE, tol=1e-5, maxiter=500))
+    (post, wall), launches = runs_of("matern", lambda: sync_time(
+        lambda: gp.gp_condition(k, x, y, noise=NOISE, tol=1e-5, maxiter=500)))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    launches = mvm.LAUNCHES["matern"] - before
     it = int(post.solve_info[0])
-    check(it < 500 and launches >= it, f"phase 21d: {it} PCG iterations, {launches} K1 launches")
+    check(it < 500 and launches >= it, f"phase 21d: {it} PCG iterations, {launches} K1 runs")
     rows = slice(4096)
     with torch.no_grad():
         Ka = mvm.gramian_matvec_direct_plain(tk.Lengthscale(exact_matern(tk, 2.3), 1.0),
@@ -2280,14 +2295,14 @@ def phase21d_solve(tk, ops, gp, mvm):
                   / torch.linalg.norm(y[rows].double()))
     check(res64 <= 2e-4, f"phase 21d: float64 residual on 4096 rows {res64:.3e} > 2e-4")
     a = cuda_tensor(rng.standard_normal(n))
-    call, dev = call_and_device_ms(lambda: mvm.gramian_matvec_direct(k, x, x, a), reps=5)
-    mvm.LAUNCHES["matern"] = before + launches
+    with mvm.uncounted():
+        call, dev = call_and_device_ms(lambda: mvm.gramian_matvec_direct(k, x, x, a), reps=5)
     work = mvm.work_direct(n, n, 3, mvm.profile_ops(to_spec(k)[0]))
     summ = summarize(work, dev / 1e3)
     check(summ["valid"], f"phase 21d: {summ.get('why')}")
     bound = roof(work)
     print(f"phase 21d gp_condition Lengthscale(Matern(2.3), 1) n={n} d=3 noise {NOISE}: "
-          f"{it} Nystrom-PCG iterations, {launches} K1 launches of the tabulated family, "
+          f"{it} Nystrom-PCG iterations, {launches} K1 runs of the tabulated family, "
           f"{wall:.3f} s (peak {peak:.2f} GiB), "
           f"float64 residual on 4096 rows {res64:.3e} (bound 2e-4); K1 at this shape "
           f"{call:.3f} ms a call ({dev:.3f} ms device), bound {bound[0]:.3f} ms ({bound[1]}) = "
@@ -2330,19 +2345,17 @@ def phase21e_k2_solve(tk, ops, gp, mvm):
     how = ops.explain(k, x)
     check("cuda kernel K2 gramian_matvec_expand (family instance: the real-nu Matern's table"
           in how, f"phase 21e: explain() {how!r}")
-    before = mvm.LAUNCHES["expand_matern"]
     walls, undo = timed_cg(gp)
     torch.cuda.reset_peak_memory_stats()
     try:
-        post, wall = sync_time(lambda: gp.gp_condition(k, x, y, noise=NOISE, tol=1e-5,
-                                                       maxiter=500))
+        (post, wall), launches = runs_of("expand_matern", lambda: sync_time(
+            lambda: gp.gp_condition(k, x, y, noise=NOISE, tol=1e-5, maxiter=500)))
     finally:
         undo()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    launches = mvm.LAUNCHES["expand_matern"] - before
     it = int(post.solve_info[0])
     check(len(walls) == 1 and it < 500 and launches >= it,
-          f"phase 21e: {it} PCG iterations, {launches} K2 launches, {len(walls)} PCG calls")
+          f"phase 21e: {it} PCG iterations, {launches} K2 runs, {len(walls)} PCG calls")
     rows = slice(4096)
     with torch.no_grad():
         Ka = mvm.gramian_matvec_direct_plain(tk.Lengthscale(exact_matern(tk, 1.3), 4.0),
@@ -2355,7 +2368,7 @@ def phase21e_k2_solve(tk, ops, gp, mvm):
     with mvm.uncounted():
         call, dev = call_and_device_ms(lambda: mvm.gramian_matvec_expand(k, x, x, a), reps=5)
     print(f"phase 21e gp_condition Lengthscale(Matern(1.3), 4) n={n} d={d} noise {NOISE}: {it} "
-          f"Nystrom-PCG iterations, {launches} K2 launches of the tabulated family, {wall:.3f} s "
+          f"Nystrom-PCG iterations, {launches} K2 runs of the tabulated family, {wall:.3f} s "
           f"(the PCG {walls[0]:.3f} s = {100 * walls[0] / wall:.1f}%; peak {peak:.2f} GiB), "
           f"float64 residual on 4096 rows {res64:.3e} (bound 2e-4); K2 at this shape "
           f"{call:.3f} ms a call ({dev:.3f} ms device) | {how}", flush=True)
@@ -2385,11 +2398,11 @@ def phase21f_k3_solve(tk, ops, gp, mvm):
     check("cuda kernel K3 grad_matvec (family instance: the real-nu Matern's table" in how,
           f"phase 21f: explain() {how!r}")
     before = dict(mvm.LAUNCHES)
-    post, wall = sync_time(lambda: gp.gp_condition(k, x, g, noise=1e-3, tol=1e-6, maxiter=200))
-    launches = mvm.LAUNCHES["grad_matern"] - before["grad_matern"]
+    (post, wall), launches = runs_of("grad_matern", lambda: sync_time(
+        lambda: gp.gp_condition(k, x, g, noise=1e-3, tol=1e-6, maxiter=200)))
     it = int(post.solve_info[0])
     check(it < 200 and launches >= it and mvm.LAUNCHES["grad"] == before["grad"],
-          f"phase 21f: {it} CG iterations, {launches} launches of K3's Matern family, "
+          f"phase 21f: {it} CG iterations, {launches} runs of K3, "
           f"{mvm.LAUNCHES['grad'] - before['grad']} of other K3 instances")
     al = post.alpha.double().reshape(n, d)
     Ka = k3_matern_reference(2.7, x.double(), x.double(), al).reshape(-1)
@@ -2401,7 +2414,7 @@ def phase21f_k3_solve(tk, ops, gp, mvm):
     with mvm.uncounted():
         call, dev = call_and_device_ms(lambda: G._apply(A), reps=5)
     print(f"phase 21f gp_condition GradientKernel(Matern(2.7)) n=d={n} noise 1e-3 tol 1e-6: "
-          f"{it} CG iterations, {launches} K3 launches of the tabulated jet family, {wall:.3f} s, "
+          f"{it} CG iterations, {launches} K3 runs of the tabulated jet family, {wall:.3f} s, "
           f"float64 residual {res64:.3e} (bound {SOLVE_BOUND['highest']:.0e}); K3 at this shape "
           f"{call:.3f} ms a call ({dev:.3f} ms device) | {how}", flush=True)
     return dict(iters=it, wall=wall, res64=res64, launches=launches, ms=dev, call_ms=call)
@@ -2606,6 +2619,20 @@ def same_on_every_rank(label, t):
     check(all(torch.equal(p, parts[0]) for p in parts), f"{label}: the ranks disagree")
 
 
+def traced_cg(kind, cg, *args, **kw):
+    """cg's answer, the steps it ran after convergence (its span's
+    `frozen`), which run the operator's kernels as its iterations do, and
+    how often the kernels of `LAUNCHES` key `kind` ran on the card."""
+    from cfjax_torch.utils import trace
+
+    t0 = time.perf_counter()
+    with trace.recording():
+        out, runs = runs_of(kind, lambda: cg(*args, **kw))
+    (frozen,) = [sp["attrs"]["frozen"] for sp in trace.spans()
+                 if sp["name"] == "solvers.cg" and sp["start"] >= t0]
+    return out, frozen, runs
+
+
 def phase24b_rank(data):
     """Phase 24b on each rank of a gloo world whose ranks share the card:
     the dry run, the 2-D PCG at n = 2^17, a 1-D ShardedGramian MVM at n =
@@ -2644,11 +2671,11 @@ def phase24b_rank(data):
     x, y = cuda_tensor(data["x3"]), cuda_tensor(data["y3"])
     M = nystrom_preconditioner(k, x, NOISE, rank=512)
     mv = lambda v: sharded_gramian_matvec_2d(k, x, x, v, "iso", mesh2) + NOISE * v
-    before = mvm.LAUNCHES["direct"]
-    (alpha, (it, _)), out["pcg_s"] = sync_time(lambda: cg(mv, y, tol=1e-5, maxiter=500, M=M))
-    out["pcg_launches"] = mvm.LAUNCHES["direct"] - before
-    check(out["pcg_launches"] == it + 1,
-          f"phase 24b: {out['pcg_launches']} K1 launches for {it} PCG iterations")
+    ((alpha, (it, _)), frozen, out["pcg_runs"]), out["pcg_s"] = sync_time(
+        lambda: traced_cg("direct", cg, mv, y, tol=1e-5, maxiter=500, M=M))
+    check(out["pcg_runs"] == it + frozen + 1,
+          f"phase 24b: {out['pcg_runs']} K1 runs for {it} PCG iterations and "
+          f"{frozen} steps after convergence")
     same_on_every_rank("phase 24b PCG", alpha)
     out["pcg_iters"], out["alpha"] = it, alpha
     out["coll_ms"] = collective_ms(mesh2, x.shape[0])
@@ -2667,12 +2694,12 @@ def phase24b_rank(data):
     x7, y7 = cuda_tensor(data["x7"]), cuda_tensor(data["y7"])
     Gg = par.ShardedGradientGramian(tk.EQ(), x7, mesh=mesh2, row_axis="rows", col_axis="cols")
     check(Gg.kernel_reason is None, f"phase 24b: the gradient shard declines K3: {Gg.kernel_reason}")
-    before = mvm.LAUNCHES["grad"]
-    (alpha_g, (it_g, _)), out["grad_s"] = sync_time(
-        lambda: cg(lambda v: Gg @ v + NOISE * v, y7, tol=1e-5, maxiter=1000))
-    out["grad_launches"] = mvm.LAUNCHES["grad"] - before
-    check(out["grad_launches"] == it_g + 1,
-          f"phase 24b: {out['grad_launches']} K3 launches for {it_g} CG iterations")
+    ((alpha_g, (it_g, _)), frozen, out["grad_runs"]), out["grad_s"] = sync_time(
+        lambda: traced_cg("grad", cg, lambda v: Gg @ v + NOISE * v, y7, tol=1e-5,
+                          maxiter=1000))
+    check(out["grad_runs"] == it_g + frozen + 1,
+          f"phase 24b: {out['grad_runs']} K3 runs for {it_g} CG iterations and "
+          f"{frozen} steps after convergence")
     same_on_every_rank("phase 24b gradient CG", alpha_g)
     out["grad_iters"], out["alpha_g"] = it_g, alpha_g
 
@@ -2743,11 +2770,10 @@ def phase24a_nccl(tk, ops, mvm, p3, F18, w18):
     check(G.kernel_reason is None and G.kernel == "direct",
           f"phase 24a: the shard does not run K1: {G.kernel_reason}")
     op = G.add_diagonal(NOISE)
-    before = mvm.LAUNCHES["direct"]
-    (alpha, (it, _)), wall = sync_time(
-        lambda: par.sharded_cg(op._matvec, y, tol=1e-5, maxiter=500, M=M))
-    launches = mvm.LAUNCHES["direct"] - before
-    check(launches == it + 1, f"phase 24a: {launches} K1 launches for {it} PCG iterations")
+    ((alpha, (it, _)), frozen, launches), wall = sync_time(
+        lambda: traced_cg("direct", par.sharded_cg, op._matvec, y, tol=1e-5, maxiter=500, M=M))
+    check(launches == it + frozen + 1, f"phase 24a: {launches} K1 runs for {it} PCG "
+                                       f"iterations and {frozen} steps after convergence")
     check(abs(it - p3["cg_iters"]) <= 3,
           f"phase 24a: {it} PCG iterations against phase 3's {p3['cg_iters']}")
     xd = x.double()
@@ -2781,7 +2807,7 @@ def phase24(tk, ops, mvm, p3, p7, F18, w18):
     print(f"phase 24a parallel layer, NCCL at world size 1 (init_distributed, default_mesh): "
           f"ShardedGramian(MaternP(2)) n=131072 d=3 + noise, rank-512 Nystrom, sharded_cg: "
           f"{a['iters']} PCG iterations (phase 3: {p3['cg_iters']}; the single-GPU Gramian "
-          f"here: {a['iters1']}), float64 residual {a['res64']:.3e} (bound 2e-5), K1 launches "
+          f"here: {a['iters1']}), float64 residual {a['res64']:.3e} (bound 2e-5), K1 runs "
           f"{a['launches']}, solve {a['wall']:.3f} s against {a['wall1']:.3f} s through the "
           f"single-GPU Gramian ({1e3 * (a['wall'] - a['wall1']) / max(a['iters'], 1):.3f} ms an "
           f"iteration; phase 3's gp_condition {p3['wall_s']:.3f} s with its Nystrom build), "
@@ -2833,13 +2859,13 @@ def phase24(tk, ops, mvm, p3, p7, F18, w18):
           f"gradient CG {int(dry['grad_iters'])} / Nystrom PCG {int(dry['pcg_iters'])} "
           f"iterations, {b['dry_s']:.2f} s | sharded_gramian_matvec_2d Nystrom PCG n=131072 d=3: "
           f"{b['pcg_iters']} iterations (phase 3: {p3['cg_iters']}), float64 residual "
-          f"{res64:.3e} (bound 2e-5), {b['pcg_launches']} K1 launches a rank, {b['pcg_s']:.3f} s "
+          f"{res64:.3e} (bound 2e-5), {b['pcg_runs']} K1 runs a rank, {b['pcg_s']:.3f} s "
           f"(24a at world 1: {a['wall']:.3f} s), collectives {b['coll_ms']:.3f} ms an "
           f"iteration | 1-D ShardedGramian MVM n=131072: rel {b['mvm1_err']:.3e} (bound "
           f"{SHARD_BOUND:.0e}) max abs {b['mvm1_max']:.3e} against the single-GPU K1 product, "
           f"{b['mvm1_s']:.4f} s | ShardedGradientGramian(EQ) n=4096 d=16, the column sum on "
           f"'cols': {b['grad_iters']} CG iterations (phase 7: {p7['cg_iters']}), float64 "
-          f"residual {res_g:.3e} (bound 1e-4), {b['grad_launches']} K3 launches a rank, "
+          f"residual {res_g:.3e} (bound 1e-4), {b['grad_runs']} K3 runs a rank, "
           f"{b['grad_s']:.3f} s | Kronecker 128^3 float64 rel {b['kron_err']:.3e} (bound "
           f"{SHARD_BOUND64:.0e}) {b['kron_s']:.4f} s | Toeplitz n=65536 x 16 columns rel "
           f"{b['toep_err']:.3e} {b['toep_s']:.4f} s | Barnes-Hut n=10^5 theta 1/2 rel "
@@ -2896,9 +2922,7 @@ def phase25_northstar(ops, mvm):
     pcg, solve = {}, demo.solve
 
     def counted_solve(*args, **kw):
-        before = dict(mvm.LAUNCHES)
-        out = solve(*args, **kw)
-        pcg.update({key: mvm.LAUNCHES[key] - before[key] for key in before})
+        out, pcg["direct"] = runs_of("direct", lambda: solve(*args, **kw))
         return out
 
     demo.solve = counted_solve
@@ -2913,7 +2937,7 @@ def phase25_northstar(ops, mvm):
     check(sol["G"].kernel_reason is None,
           f"phase 25: the Gramian declines K1: {sol['G'].kernel_reason}")
     check(relres <= 1e-4 and pcg["direct"] >= it,
-          f"phase 25: PCG relres {relres:.3e} after {it} iterations, {pcg['direct']} K1 launches")
+          f"phase 25: PCG relres {relres:.3e} after {it} iterations, {pcg['direct']} K1 runs")
     check(0.5 <= chain["astat"] <= 1.0, f"phase 25: NUTS accept-stat {chain['astat']:.3f}")
     check(bool(torch.isfinite(mean).all() and torch.isfinite(bh["mean"]).all()),
           "phase 25: a posterior mean is not finite")
@@ -2952,7 +2976,7 @@ def phase25_northstar(ops, mvm):
           f"{chain['l_sd']:.4f}), v {v:.4f}; PCG {it} iterations, relres {relres:.3e}, float64 "
           f"residual on {RESIDUAL_ROWS} rows {r64:.3e} and the exact mean's miss {miss:.3e} of ||y|| "
           f"(bound {DEMO_F32_BOUND:.0e}; K alpha cancels {can:.1f}x there; the tf32 control "
-          f"{rc64:.3e} and {miss_c:.3e}), K1 launches during the "
+          f"{rc64:.3e} and {miss_c:.3e}), K1 runs during the "
           f"PCG {pcg['direct']} | {ops.explain(k, x)}; RMSE vs the true field: exact mean "
           f"(K1) {rmse:.4f} (bound {demo.NOISE}), Barnes-Hut mean {parts['rmse_bh']:.4f} "
           f"(reported: K alpha cancels {cancels(ref64, mag64):.1f}x on 16 rows; the treecode's "
@@ -2960,7 +2984,7 @@ def phase25_northstar(ops, mvm):
           f"{rel(bh['mean'][idx], mean[idx].double()):.3e} of the mean; max_open "
           f"{bh['F'].max_open}); K1's rows vs float64 plain {k1_err:.3e} of v ||K |alpha|||",
           flush=True)
-    return dict(wall=wall, walls=walls, k1_abs=k1_abs, pcg_launches=pcg["direct"], iters=it,
+    return dict(wall=wall, walls=walls, k1_abs=k1_abs, pcg_runs=pcg["direct"], iters=it,
                 r64=r64, miss=miss, rmse=rmse, rmse_bh=parts["rmse_bh"], astat=chain["astat"])
 
 
@@ -3146,9 +3170,9 @@ def main():
     check(p3["cg_iters"] is not None and p3["cg_iters"] < 500,
           f"phase 3: PCG did not converge in 500 iterations ({p3['cg_iters']})")
     check(p3["launches"] >= p3["cg_iters"],
-          f"phase 3: {p3['launches']} K1 launches < {p3['cg_iters']} CG iterations")
+          f"phase 3: {p3['launches']} K1 runs < {p3['cg_iters']} CG iterations")
     print(f"phase 3 nystrom-pcg n=131072 d=3 MaternP(2): {p3['cg_iters']} CG iterations, "
-          f"residual {p3['residual']:.3e} / {p3['residual64']:.3e} f64 (bound 2e-5), K1 launches {p3['launches']}, "
+          f"residual {p3['residual']:.3e} / {p3['residual64']:.3e} f64 (bound 2e-5), K1 runs {p3['launches']}, "
           f"gp_condition {p3['wall_s']:.3f} s mean(4096) {p3['mean_wall_s']:.4f} s | "
           f"{p3['explain']}", flush=True)
     p4 = phase_gp(tk, ops, gp, mvm, 16384, 64, tk.Lengthscale(tk.EQ(), 4.0), "expand",
@@ -3281,7 +3305,7 @@ def main():
     grad_launches = mvm.LAUNCHES["grad"]
     check(grad_launches > 0, "kernel 'grad' was not launched on the gradient-observation path")
     check(p7["launches"] >= p7["cg_iters"],
-          f"phase 7: {p7['launches']} K3 launches < {p7['cg_iters']} CG iterations")
+          f"phase 7: {p7['launches']} K3 runs < {p7['cg_iters']} CG iterations")
     launches["grad"] = grad_launches
     # phases 7 and 8 again at the tf32 tiers, outside the path's count
     print(f"phases 7-8 at the tf32 tiers: phase 7 {at_tiers('phase 7', p7['solve'])} | "

@@ -25,6 +25,7 @@ from cfjax_torch.operators.tile_ell import TileEllOperator
 from cfjax_torch.ops import grad_mvm
 from cfjax_torch.ops import gramian_mvm as mvm
 from cfjax_torch.ops import tile_ell_mvm
+from cfjax_torch.utils.testing import kernel_runs
 
 PACKAGE = Path(__file__).resolve().parents[1] / "cfjax_torch"
 
@@ -582,14 +583,13 @@ def test_float32_solve_with_float64_observations_launches_k1():
     y = np.sin(xs[:, 0]) + 0.01 * rng.standard_normal(1000)
     cfjax_torch.set_config(max_cholesky_size=256)
     try:
-        before = mvm.LAUNCHES["direct"]
-        post = gp_condition(tk.MaternP(2), x, y, noise=1e-2, precondition="never", tol=1e-5,
-                            maxiter=1000)
-        launches = mvm.LAUNCHES["direct"] - before
+        with kernel_runs("k1_family", "k1_direct") as runs:
+            post = gp_condition(tk.MaternP(2), x, y, noise=1e-2, precondition="never",
+                                tol=1e-5, maxiter=1000)
     finally:
         cfjax_torch.set_config(max_cholesky_size=cfjax_torch.config.Config.max_cholesky_size)
     assert post.alpha.dtype == torch.float32
-    assert launches >= post.solve_info[0] > 0
+    assert sum(runs.values()) >= post.solve_info[0] > 0
 
 
 @needs_gpu
@@ -722,6 +722,155 @@ def test_gramians_as_built_capture_in_a_cuda_graph():
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(got, want)
+
+
+def _cg_systems(which):
+    """(matvec, b, M, tol, maxiter, kind, kernels): config 4's gradient
+    system through K3 (GradientKernel(EQ), n = 4096, d = 16) or a MaternP(2)
+    system through K1 with the rank-256 Nystrom preconditioner (n = 20000,
+    d = 3); `kind` is the operator's `LAUNCHES` key and `kernels` the names
+    of its CUDA kernels."""
+    from cfjax_torch.operators.preconditioner import nystrom_preconditioner
+
+    g = torch.Generator().manual_seed(11)
+    if which == "k3":
+        x = (0.5 * torch.randn(4096, 16, generator=g)).cuda()
+        y = (torch.cos(x) + 0.01 * torch.randn(4096, 16, generator=g).cuda()).reshape(-1)
+        K = gramian(GradientKernel(tk.EQ()), x).add_diagonal(1e-2)
+        return K._matvec, y, None, 1e-5, 1000, "grad", ("k3_tc",)
+    x = torch.randn(20000, 3, generator=g).cuda()
+    y = torch.sin(x[:, 0]) + 0.01 * torch.randn(20000, generator=g).cuda()
+    K = gramian(tk.MaternP(2), x).add_diagonal(1e-2)
+    M = nystrom_preconditioner(tk.MaternP(2), x, 1e-2, rank=256)
+    return K._matvec, y, M, 1e-5, 500, "direct", ("k1_family", "k1_direct")
+
+
+def _traced_cg(*args, kernels=(), **kw):
+    """cg's answer, its span's attributes (the counters' deltas among them)
+    and, as `runs`, the runs on the device of the CUDA kernels `kernels`."""
+    from cfjax_torch.operators.solvers import cg
+    from cfjax_torch.utils import trace
+
+    trace.clear()
+    with trace.recording(), kernel_runs(*kernels) as runs:
+        x, (its, res) = cg(*args, **kw)
+        torch.cuda.synchronize()
+    (sp,) = [s for s in trace.spans() if s["name"] == "solvers.cg"]
+    trace.clear()
+    return x, its, float(res), dict(sp["attrs"], runs=sum(runs.values()))
+
+
+@needs_gpu
+@pytest.mark.parametrize("which", ["k3", "k1_nystrom"])
+def test_cg_captured_step_matches_eager(which):
+    """CG on the card replays its step from a CUDA graph: the eager path's
+    iterations (a callback forces it) and a residual within the tolerance,
+    one host read a block, and the operator's kernel run on the device
+    once a step, as the profiler counts it, though the host launched it
+    three times: the first residual, the eager first step and the
+    capture."""
+    mv, b, M, tol, maxiter, kind, names = _cg_systems(which)
+    bound = tol * float(torch.linalg.norm(b))
+    x_e, its_e, res_e, at_e = _traced_cg(mv, b, tol=tol, maxiter=maxiter, M=M,
+                                         callback=lambda *a: None, kernels=names)
+    x, its, res, at = _traced_cg(mv, b, tol=tol, maxiter=maxiter, M=M, kernels=names)
+    assert at_e["captured"] == 0 and at["captured"] == 1
+    assert 8 < its == its_e < maxiter and res <= bound and res_e <= bound
+    assert _rel(x, x_e.double()) <= 1e-5
+    # one read before the first block, one after each: far fewer than
+    # the iterations
+    assert at["host_syncs"] == at["reads"] < its / 4 + 4 and at_e["reads"] == its_e + 1
+    assert at["runs"] == its + at["frozen"] + 1 == at["replays"] + 2
+    assert at["launch." + kind] == 3
+    assert at_e["runs"] == at_e["launch." + kind] == its_e + 1 and at_e["frozen"] == 0
+    assert at_e["replays"] == 0
+    # from the gradient system's gp_condition: the noise's copy and the
+    # diagonal's PSD test beside cg's reads
+    if which == "k3":
+        from cfjax_torch.gp import gp_condition
+        from cfjax_torch.utils import trace
+
+        g = torch.Generator().manual_seed(11)
+        xs = (0.5 * torch.randn(4096, 16, generator=g)).cuda()
+        trace.clear()
+        with trace.recording():
+            post = gp_condition(GradientKernel(tk.EQ()), xs, b, noise=1e-2, tol=tol,
+                                maxiter=maxiter)
+        spans = trace.spans()
+        trace.clear()
+        (cgs,) = [s["attrs"] for s in spans if s["name"] == "solvers.cg"]
+        (cond,) = [s["attrs"] for s in spans if s["name"] == "gp.condition"]
+        assert cgs["captured"] == 1 and post.solve_info[0] == its
+        assert cond["host_syncs"] <= cgs["reads"] + 4
+
+
+@needs_gpu
+@pytest.mark.parametrize("why", ["callback", "item"])
+def test_cg_falls_back_to_eager_steps(why):
+    """A callback, or a matvec that reads to the host (its capture raises),
+    runs the predicated step eagerly: the captured path's answer, the
+    operator's kernel launched once a step."""
+    mv, b, M, tol, maxiter, kind, names = _cg_systems("k3")
+    x, its, res, at = _traced_cg(mv, b, tol=tol, maxiter=maxiter, M=M)
+    kw = {}
+    if why == "callback":
+        seen = []
+        kw["callback"] = lambda i, xa, r: seen.append(i)
+        fn = mv
+    else:
+        reads = []
+        fn = lambda v: reads.append(float(v[0])) or mv(v)
+    x2, its2, res2, at2 = _traced_cg(fn, b, tol=tol, maxiter=maxiter, M=M, kernels=names, **kw)
+    assert at["captured"] == 1 and at2["captured"] == 0
+    assert its2 == its and res2 <= tol * float(torch.linalg.norm(b))
+    assert _rel(x2, x.double()) <= 1e-5
+    if why == "callback":
+        assert seen == list(range(1, its + 1)) and at2["frozen"] == 0
+        assert at2["runs"] == at2["launch." + kind] == its + 1
+    else:
+        # eager blocks: one read a block, the matvec's own reads besides
+        assert at2["reads"] < its / 4 + 4 and len(reads) == its + at2["frozen"] + 1
+        assert at2["launch." + kind] == its + at2["frozen"] + 1
+    # the failed capture left nothing behind: the next solve captures
+    x3, its3, _, at3 = _traced_cg(mv, b, tol=tol, maxiter=maxiter, M=M)
+    assert at3["captured"] == 1 and its3 == its and torch.equal(x3, x)
+
+
+@needs_gpu
+def test_cg_captures_on_two_threads_at_once():
+    """Two threads solving at once each capture their own step, in their own
+    memory pool: each gets the answer of a solve alone, and a solve inside
+    another capture runs no capture of its own."""
+    import threading
+
+    from cfjax_torch.operators import solvers
+
+    mv, b, M, tol, maxiter, kind, names = _cg_systems("k3")
+    x, its, _, _ = _traced_cg(mv, b, tol=tol, maxiter=maxiter, M=M)
+    out, start = [None, None], threading.Barrier(2)
+
+    def solve(j):
+        start.wait()
+        out[j] = solvers.cg(mv, b, tol=tol, maxiter=maxiter, M=M)
+        torch.cuda.synchronize()
+
+    threads = [threading.Thread(target=solve, args=(j,)) for j in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for xj, (itj, _) in out:
+        assert itj == its and torch.equal(xj, x)
+    # a step captured inside another capture would nest: cg declines
+    g, side = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        g.capture_begin()
+        try:
+            b.mul(2)
+            assert solvers._capture(lambda: None, b.device) is None
+        finally:
+            g.capture_end()
 
 
 @needs_gpu
@@ -975,11 +1124,11 @@ def test_northstar_demo_on_the_card():
     noise."""
     from cfjax_torch.examples import northstar_demo as demo
 
-    before = mvm.LAUNCHES["direct"]
-    rmse, walls, parts = demo.main(1 << 14, quick=True, device="cuda")
+    with kernel_runs("k1_family", "k1_direct") as runs:
+        rmse, walls, parts = demo.main(1 << 14, quick=True, device="cuda")
     sol = parts["solve"]
     assert sol["G"].kernel_reason is None
-    assert mvm.LAUNCHES["direct"] - before >= sol["iters"] + 1
+    assert sum(runs.values()) >= sol["iters"] + 1
     assert rmse < demo.NOISE and parts["mean"].is_cuda
     assert 0.5 <= parts["chain"]["astat"] <= 1.0 and all(t > 0 for t in walls.values())
 

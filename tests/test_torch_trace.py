@@ -157,30 +157,36 @@ def test_gradient_cg_spans(small_cholesky_size, fresh):
     (cgs,) = sp["solvers.cg"]
     its = post.solve_info[0]
     assert cgs["attrs"]["iters"] == its > 0
-    # one read for the tolerance, one a convergence test (the last one fails);
-    # around cg, the noise's copy to the device and the solve's test that the
-    # diagonal shift is PSD
-    assert cgs["attrs"]["host_syncs"] == its + 2
-    assert trace.counters()["host_syncs"] - before == its + 4
+    # one read for the tolerance and the first residual, one a block of
+    # iterations; around cg, the noise's copy to the device and the solve's
+    # test that the diagonal shift is PSD. On the CPU nothing is captured.
+    reads = cgs["attrs"]["reads"]
+    assert cgs["attrs"]["host_syncs"] == reads and 2 <= reads < its // 4
+    assert trace.counters()["host_syncs"] - before == reads + 2
+    assert cgs["attrs"]["captured"] == 0 and cgs["attrs"]["frozen"] >= 0
 
 
 @pytest.mark.parametrize("maxiter", [3, 500])
 def test_host_syncs_count_the_reads_in_cg(maxiter, fresh, monkeypatch):
-    """Every read cg makes (`Tensor.item`) is one `host_syncs`, and nothing
-    else is: on a dense SPD matrix, stopped by convergence or by maxiter."""
+    """Every read cg makes (`Tensor.item`, `Tensor.cpu`) is one `host_syncs`,
+    and nothing else is: on a dense SPD matrix, stopped by convergence or by
+    maxiter. The reads are the span's `reads`: one before the first block of
+    iterations, one after each block."""
     g = torch.Generator().manual_seed(3)
     B = torch.randn(64, 64, generator=g, dtype=torch.float64)
     A = B @ B.T + 64 * torch.eye(64, dtype=torch.float64)
     b = torch.randn(64, generator=g, dtype=torch.float64)
     reads = []
-    item = torch.Tensor.item
-    monkeypatch.setattr(torch.Tensor, "item", lambda t: reads.append(1) or item(t))
+    for name in ("item", "cpu"):
+        monkeypatch.setattr(torch.Tensor, name,
+                            lambda t, f=getattr(torch.Tensor, name): reads.append(1) or f(t))
     before = trace.counters()["host_syncs"]
     with trace.recording():
         x, (its, _) = cg(lambda v: A @ v, b, tol=1e-10, maxiter=maxiter)
     (sp,) = trace.spans()
     assert trace.counters()["host_syncs"] - before == sp["attrs"]["host_syncs"] == len(reads)
-    assert len(reads) == its + (2 if its < maxiter else 1)
+    assert len(reads) == sp["attrs"]["reads"]
+    assert len(reads) == 2 if maxiter == 3 else 2 < len(reads) < its
     assert sp["attrs"]["iters"] == its and (its == 3 if maxiter == 3 else 3 < its < maxiter)
 
 
@@ -330,7 +336,7 @@ def test_chip_smoke_slq_stages(small_cholesky_size, fresh):
                                          lanczos_iters=8, solve_tol=1e-6)
     assert np.isfinite([v, gl, gn]).all()
     assert st["lanczos_calls"] == 1 and not st["cols_hit"] and not st["quad_hit"]
-    assert st["cols_iters"] > 0 and st["quad_iters"] > 0
+    assert st["cols_iters"] > 0 and st["quad_iters"] > 0 and st["quad_frozen"] >= 0
     assert all(st[k] > 0 for k in ("lanczos_s", "cols_s", "quad_s", "vjp_s"))
     assert chip_smoke.stage_text(st).startswith("Lanczos")
     # alpha is the quadratic form's solution: (K + noise I) alpha = y
@@ -347,7 +353,8 @@ def test_chip_smoke_slq_stages(small_cholesky_size, fresh):
 def test_host_syncs_match_sync_debug_warnings(job):
     """On the card, every wait of the host for the device inside
     gp_condition and the mean is one `host_syncs`: the count equals the
-    warnings of the sync debug mode."""
+    warnings of the sync debug mode, with CG's step replayed from a CUDA
+    graph and read once a block."""
     dev = torch.device("cuda")
     cfjax_torch.set_config(device="cuda", max_cholesky_size=512)
     try:
@@ -365,8 +372,10 @@ def test_host_syncs_match_sync_debug_warnings(job):
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn")
             try:
-                post = gp_condition(k, x, y, noise=1e-2, tol=1e-5, maxiter=500, **kw)
-                post.mean(x[:64])
+                trace.clear()
+                with trace.recording():
+                    post = gp_condition(k, x, y, noise=1e-2, tol=1e-5, maxiter=500, **kw)
+                    post.mean(x[:64])
             finally:
                 torch.cuda.set_sync_debug_mode(0)
         syncs = trace.counters()["host_syncs"] - before
@@ -376,8 +385,11 @@ def test_host_syncs_match_sync_debug_warnings(job):
                                     if "synchroniz" in str(w.message)
                                     and Path(w.filename) != Path(torch.cuda.__file__))
         assert sum(where.values()) == syncs, where
-        assert syncs >= post.solve_info[0] + 2
+        (cgs,) = [s["attrs"] for s in trace.spans() if s["name"] == "solvers.cg"]
+        assert cgs["captured"] == 1 and cgs["iters"] == post.solve_info[0] > 8
+        assert syncs >= cgs["reads"] + 2 and cgs["reads"] < post.solve_info[0] / 4 + 4
     finally:
+        trace.clear()
         cfjax_torch.set_config(device="cpu",
                                max_cholesky_size=cfjax_torch.config.Config.max_cholesky_size)
 
