@@ -10,7 +10,9 @@ once at operator construction:
   2b. MatrixKernel                  -> dense A[ix][:, iy]
   3. FiniteBasis with n > rank      -> low-rank U V^T
   4. SeparableProduct on LazyGrid   -> Kronecker of per-axis gramians
-  5. input transforms (ARD/Energetic/Warped/ScaledInput/Periodic)
+  4b. ARD under constant factors    -> c k on the points divided by l once,
+                                       recurse (`ard_fold`)
+  5. input transforms (Energetic/Warped/ScaledInput/Periodic)
                                     -> pre-transform points once, recurse
   6. VerticalRescaling              -> D G D lazy product
   7. Sum with Delta terms (x is y)  -> diagonal split + recurse
@@ -21,7 +23,9 @@ once at operator construction:
 
 from __future__ import annotations
 
+import functools
 import math
+import operator
 
 import numpy as np
 import torch
@@ -39,6 +43,7 @@ from ..kernels.transforms import (
     VerticalRescaling,
     Warped,
 )
+from ..utils import trace
 from ..utils.grids import LazyGrid, UniformGrid, as_points, detect_uniform_grid
 from .gramian import Gramian, kernel_decline_reason
 from .kronecker import KroneckerOperator
@@ -93,6 +98,56 @@ def _delta_amplitude(k):
     return None
 
 
+def _split_constants(k):
+    """(the Constant factors of k, its one other factor) for a Product with
+    exactly one factor that is no Constant; ([], k) for any other kernel."""
+    if isinstance(k, Product):
+        rest = [a for a in k.args if not isinstance(a, Constant)]
+        if len(rest) == 1:
+            return [a for a in k.args if isinstance(a, Constant)], rest[0]
+    return [], k
+
+
+def ard_fold(k):
+    """(kc, l) when k is ARDKernel(k0, l) times constant factors, in any
+    order or nesting (constants inside the ARD too), and k0 is isotropic:
+    then k(x, y) = kc(x / l, y / l) for the isotropic kc = c * k0 with one
+    Constant factor c (kc = k0 where k has no constant), whose Gramian can
+    take K1 or K2. Pointwise, ARD(k0, l) is k0's profile at ||(x - y) / l||^2,
+    which is k0(x / l, y / l) for an isotropic k0 only: a bare ARD around
+    any other kernel gives (its kernel as it stands, l), the prescaling that
+    cfjax's dispatch applies to every ARD, and one under outer constants
+    gives None and stays generic, as in cfjax. None for any other kernel.
+    c and l are built from the tensors k holds, so autograd through the
+    folded kernel reaches them."""
+    outer, ard = _split_constants(k)
+    if not isinstance(ard, ARDKernel):
+        return None
+    inner, k0 = _split_constants(ard.k)
+    if input_trait(k0) != InputTrait.ISOTROPIC:
+        return None if outer else (ard.k, ard.l)
+    cs = outer + inner
+    if not cs:
+        return k0, ard.l
+    c = cs[0] if len(cs) == 1 else Constant(functools.reduce(operator.mul, (a.c for a in cs)))
+    return Product((c, k0)), ard.l
+
+
+def prescaled(l, x, y):
+    """(x / l, y / l or None): the points divided by the lengthscales once,
+    in a device span `gramian.prescale`. l is copied to the points' device
+    when it is elsewhere (a counted host sync)."""
+    xp = as_points(x)
+    sp = trace.begin("gramian.prescale", xp.device)
+    if l.device != xp.device:
+        l = trace.to_device(l, xp.device, xp.dtype)
+    l = l.to(dtype=xp.dtype)
+    xs = xp / l
+    ys = None if y is None else as_points(y) / l
+    trace.end(sp, rows=xs.shape[0] + (0 if ys is None else ys.shape[0]), d=xs.shape[1])
+    return xs, ys
+
+
 def _embed_periodic(xp):
     return torch.cat([torch.cos(2 * math.pi * xp), torch.sin(2 * math.pi * xp)], dim=1)
 
@@ -142,12 +197,16 @@ def gramian(k, x, y=None, **opts):
         return KroneckerOperator([gramian(ki, x.axes[i], None if same else ygrid.axes[i], **opts)
                                   for i, ki in enumerate(k.args)])
 
+    # 4b. ARD under constant factors -> c k on the prescaled points: an
+    #     outputscale no longer hides the isotropic kernel inside the ARD
+    #     (src/transformation.jl:83-95)
+    fold = ard_fold(k)
+    if fold is not None:
+        kc, l = fold
+        return gramian(kc, *prescaled(l, x, None if same else y), **opts)
+
     # 5. input transforms -> pre-transform points once, recurse
-    #    (src/transformation.jl:83-95, 113-121)
-    if isinstance(k, ARDKernel):
-        xp = as_points(x)
-        l = k.l.to(device=xp.device, dtype=xp.dtype)
-        return gramian(k.k, xp / l, None if same else as_points(y) / l, **opts)
+    #    (src/transformation.jl:113-121)
     if isinstance(k, Energetic):
         xp = as_points(x)
         L = torch.linalg.cholesky(k.A.to(device=xp.device, dtype=xp.dtype))

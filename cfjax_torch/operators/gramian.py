@@ -28,6 +28,7 @@ from ..kernels.parameters import to_points
 from ..kernels.profile_spec import to_spec
 from ..ops import gramian_mvm as _mvm
 from ..ops.tiles import inner_tile, matmul_p, sqdist_tile
+from ..utils import trace
 from .linop import LinearOperator
 
 
@@ -196,7 +197,7 @@ class Gramian(LinearOperator):
                 return _mvm.gramian_matvec_direct(self.k, self.x, self.y, v, spec=self._spec)
             return _mvm.gramian_matvec_expand(self.k, self.x, self.y, v, self.mode,
                                               spec=self._spec)
-        return gramian_matvec(self.k, self.x, self.y, v, self.mode, self.block)
+        return self._plain(self.x, self.y, v)
 
     def _matmat(self, V):
         # K1's many-column variant runs at the configured matmul tier, as the
@@ -205,12 +206,19 @@ class Gramian(LinearOperator):
         if self.kernel == "direct" and self._on_kernel(V):
             return _mvm.gramian_matmat_direct(self.k, self.x, self.y, V.contiguous(),
                                               spec=self._spec)
-        return gramian_matvec(self.k, self.x, self.y, V, self.mode, self.block)
+        return self._plain(self.x, self.y, V)
 
     def _rmatvec(self, v):
         if self._same:
             return self._matvec(v)
-        return gramian_matvec(self.k, self.y, self.x, v, self.mode, self.block)
+        return self._plain(self.y, self.x, v)
+
+    def _plain(self, x, y, v):
+        """The blocked plain-torch product, counted in `mvm.plain` on a CUDA
+        device (while spans are recorded)."""
+        if self.x.is_cuda:
+            trace.count("mvm.plain")
+        return gramian_matvec(self.k, x, y, v, self.mode, self.block)
 
     def todense(self):
         return gramian_dense(self.k, self.x, self.y, self.mode, self.block)

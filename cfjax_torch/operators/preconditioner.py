@@ -33,11 +33,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..kernels.base import InputTrait, input_trait
 from ..kernels.profile_spec import FAMILY_MATERN_NU, to_spec
 from ..ops.tiles import full_fp32, matmul_p, sqdist_tile
 from ..utils import trace
 from ..utils.grids import as_points
 from ..utils.testing import pairwise_xy
+from .dispatch import ard_fold, prescaled
 
 
 def _gram_ff(P, chunk: int = 2048):
@@ -59,16 +61,22 @@ def _gram_ff(P, chunk: int = 2048):
 
 
 def _panel_fn(k):
-    """(x, Z) -> K_xZ for the build. A one-leaf real-nu Matern takes its
-    tabulated family's plain version on the exact squared distances
-    (`ProfileSpec.evaluate(s, family=True)`, the function K1 and K2
-    compute): `pairwise_xy` would run cfjax's 400-node quadrature on every
-    entry, tens of GiB a block at rank 2048. Every other kernel takes
-    `pairwise_xy`."""
+    """(x, Z) -> K_xZ for the build, by the kernel's trait. A one-leaf real-nu
+    Matern takes its tabulated family's plain version on the exact squared
+    distances (`ProfileSpec.evaluate(s, family=True)`, the function K1 and
+    K2 compute): `pairwise_xy` would run cfjax's 400-node quadrature on
+    every entry, tens of GiB a block at rank 2048. Any other isotropic
+    kernel takes its profile on the squared-distance tile (the expansion at
+    full precision above `direct_sqdist_max_d`), as the lazy Gramian does:
+    `pairwise_xy` would form a (block, rank, d) difference tensor, 3 GiB a
+    block at d = 90. Every other kernel takes `pairwise_xy`."""
     spec, _ = to_spec(k)
-    if spec is None or spec.family != FAMILY_MATERN_NU:
-        return lambda a, b: pairwise_xy(k, a, b)
-    return lambda a, b: spec.evaluate(sqdist_tile(a, b, direct_max_d=a.shape[1]), family=True)
+    if spec is not None and spec.family == FAMILY_MATERN_NU:
+        return lambda a, b: spec.evaluate(sqdist_tile(a, b, direct_max_d=a.shape[1]),
+                                          family=True)
+    if input_trait(k) == InputTrait.ISOTROPIC:
+        return lambda a, b: k.profile_value(sqdist_tile(a, b, precision="highest"))
+    return lambda a, b: pairwise_xy(k, a, b)
 
 
 def nystrom_factors(k, x, noise, rank: int = 256, seed: int = 0, floor_rel: float = 1e-8,
@@ -96,6 +104,12 @@ def nystrom_factors(k, x, noise, rank: int = 256, seed: int = 0, floor_rel: floa
 def _nystrom_factors(k, x, noise, rank, seed, floor_rel, factor_dtype, build_dtype):
     """`nystrom_factors`' build, inside its span."""
     xp = as_points(x)
+    # an ARD kernel under constant factors: the build, as the operator, sees
+    # the isotropic c k on the points divided by l (`dispatch.ard_fold`)
+    fold = ard_fold(k)
+    if fold is not None:
+        k, l = fold
+        xp, _ = prescaled(l, xp, None)
     n = xp.shape[0]
     rank = min(rank, n)
     bdt = build_dtype or (torch.float64 if xp.dtype == torch.float32 else xp.dtype)

@@ -22,12 +22,15 @@ the device trace's clock, and the profiler's exports carry it.
 The record is a bounded buffer in memory (`MAX_SPANS` spans, the oldest
 dropped first): `spans()` reads it, `clear()` empties it.
 
-Counters are plain integers, always on, as `ops.gramian_mvm.LAUNCHES` is.
-`host_syncs` counts the points of the solvers, the preconditioner and the
-operators' diagonal shift where the host waits for the device: each read
-of a tensor to the host (`item`, `cpu`) and each copy of pageable host
-memory to the points' device (`to_device`), which waits for the device's
-queue as a read does. It counts the points on any device; on a CUDA
+Counters are plain integers. `host_syncs` is always on, as
+`ops.gramian_mvm.LAUNCHES` is; `mvm.plain` counts (`count`) only while spans
+are recorded: the lazy Gramian's products of CUDA tensors that took the
+plain torch path instead of a CUDA kernel, so that a silent fallback shows
+as a number. `host_syncs` counts the points of the solvers, the
+preconditioner and the operators' diagonal shift where the host waits for
+the device: each read of a tensor to the host (`item`, `cpu`) and each copy
+of pageable host memory to the points' device (`to_device`), which waits
+for the device's queue as a read does. It counts the points on any device; on a CUDA
 device each one is a wait, and on the GP solve paths these are all of
 them (a card test holds the count against
 `torch.cuda.set_sync_debug_mode("warn")`). `counters()` returns them with
@@ -47,7 +50,7 @@ import torch
 MAX_SPANS = 1 << 16
 PREFIX = "cfjax_torch."
 
-COUNTERS = {"host_syncs": 0}
+COUNTERS = {"host_syncs": 0, "mvm.plain": 0}
 
 class _Local(threading.local):
     def __init__(self):
@@ -70,6 +73,13 @@ def recording():
         yield
     finally:
         _recording -= 1
+
+
+def count(name: str) -> None:
+    """Add one to counter `name` while spans are recorded; otherwise one
+    flag check."""
+    if _recording or _profiling():
+        COUNTERS[name] += 1
 
 
 def counters() -> dict:
@@ -104,10 +114,12 @@ class Span:
             self._events[0].record(torch.cuda.current_stream(self._device))
         if push:
             stack.append(self)
-        # the profiler's range and the host clock open (and close) together
+        # the host clock is read just outside the profiler's range, at both
+        # ends: the range's own entry and exit (15-110 us each under a CPU
+        # profiler, far more on a loaded CPU) lie inside both intervals
         self._range = torch.profiler.record_function(PREFIX + name)
-        self._range.__enter__()
         self.start = time.perf_counter()
+        self._range.__enter__()
 
     def record(self) -> dict:
         """The closed span as a plain dict (its device time resolved)."""
@@ -140,8 +152,8 @@ def end(span, **attrs) -> None:
         while stack[-1] is not span:    # a child left open by an exception
             end(stack[-1])
         stack.pop()
-    span.end = time.perf_counter()
     span._range.__exit__(None, None, None)
+    span.end = time.perf_counter()
     if span._events is not None:
         span._events[1].record(torch.cuda.current_stream(span._device))
     after = counters()
