@@ -369,8 +369,8 @@ def explain(k, x, y=None, **opts) -> str:
                          f"gramian_matmat_direct ({cols})")
         elif why is None:
             parts.append(f"cuda kernel K2 gramian_matvec_expand ({_instance(op._spec)}; "
-                         f"{_tier()}); multi-RHS declined: K2 has no many-column variant "
-                         f"(plain path)")
+                         f"wgmma, {_tier()}); multi-RHS declined: K2 has no many-column "
+                         f"variant (plain path)")
         else:
             parts.append(f"cuda kernel declined: {why}")
     g = op.inner if isinstance(op, JacobianConjugatedGradientGramian) else op

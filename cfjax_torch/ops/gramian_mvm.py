@@ -20,9 +20,13 @@ K2 in `cfjax_torch/csrc/expand_mvm.cu`:
   * K2 `gramian_matvec_expand` (replaces `pallas_gramian_matvec`): b = K a
     for isotropic kernels at any d through ||x||^2 + ||y||^2 - 2 x.y, and
     for dot-product kernels through x.y, the x.y tile on the tensor cores
-    at the matmul tier's passes (`tiles.TIER_PASSES`), a one-leaf profile
-    through its family instance (the real-nu Matern's reads K1's table),
-    any other through the interpreter.
+    (wgmma tf32) at the matmul tier's passes (`tiles.TIER_PASSES`), a
+    one-leaf profile through its family instance (the real-nu Matern's
+    reads K1's table), any other through the interpreter. Its grid is
+    planned here (`expand_plan`) from the tile shape the library reports
+    (`_expand_shape`), and its scratch allocated here at the sizes the
+    library gives (`_expand_scratch`): the tf32 pieces of y and x (one
+    copy when x is y) and the norms.
 
 The sources are compiled with nvcc for sm_90a at first use into `build/`
 at the checkout root and loaded with ctypes (`ops/build.py`). Each
@@ -57,7 +61,6 @@ from .tiles import inner_tile, matmul_p, sqdist_tile, tier_passes
 DIRECT_MAX_D = 16
 # row / column tile sizes of the kernels, for the column split
 _K1_TM, _K1_TN = 64, 512
-_K2_BM, _K2_BN = 64, 64
 # K1's family instances: 128 rows per block; the staged tile's columns by
 # the instance's D (d rounded up to 1, 2, 3, 4, 8 or 16)
 _K1F_BM = 128
@@ -134,9 +137,38 @@ def expand_library() -> ctypes.CDLL:
     set."""
     lib = _build.load("expand_mvm")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.k2_gramian_matvec_expand.argtypes = [p] * 7 + [i] * 10 + [_CSpec, _CFamily, p, p]
+    lib.k2_gramian_matvec_expand.argtypes = [p] * 9 + [i] * 10 + [_CSpec, _CFamily, p, p]
     lib.k2_gramian_matvec_expand.restype = i
+    lib.k2_expand_shape.argtypes = [i] * 3 + [p] * 2
+    lib.k2_expand_shape.restype = i
+    lib.k2_expand_scratch.argtypes = [i] * 5 + [p] * 3
+    lib.k2_expand_scratch.restype = i
     return lib
+
+
+@functools.cache
+def _expand_shape(d: int, passes: int, table: bool) -> tuple:
+    """(rows a block, columns a tile) of K2 for d at `passes`, with the
+    real-nu Matern's table beside them when `table`, as the library
+    defines them."""
+    out = [ctypes.c_int() for _ in range(2)]
+    err = expand_library().k2_expand_shape(d, passes, int(table),
+                                            *(ctypes.byref(v) for v in out))
+    if err != 0:
+        raise ValueError(f"no K2 instance for d={d} at {passes} pass(es)")
+    return tuple(v.value for v in out)
+
+
+def _expand_scratch(n: int, m: int, d: int, passes: int, same: bool) -> tuple:
+    """The floats of K2's scratch, as the library lays it out: (the tf32
+    pieces of y's tiles, of x's (0 when x is y), the tiles' a and
+    ||y||^2)."""
+    out = [ctypes.c_longlong() for _ in range(3)]
+    err = expand_library().k2_expand_scratch(n, m, d, passes, int(same),
+                                              *(ctypes.byref(v) for v in out))
+    if err != 0:
+        raise ValueError(f"no K2 scratch for d={d} at {passes} pass(es)")
+    return tuple(v.value for v in out)
 
 
 @functools.lru_cache(maxsize=16)
@@ -173,6 +205,27 @@ def column_split(n_row_blocks: int, m: int, tn: int, device) -> tuple:
     want = max(1, min(col_tiles, _cdiv(4 * sms, n_row_blocks)))
     per = _cdiv(col_tiles, want)
     return _cdiv(col_tiles, per), per * tn
+
+
+@functools.lru_cache(maxsize=256)
+def expand_plan(row_blocks: int, col_tiles: int, sms: int) -> tuple:
+    """(splits, column tiles a split) of K2's grid: among the splits of
+    the column tiles into whole tiles that keep the grid within 8 waves of
+    one block an SM (K2 holds an SM's shared memory; one split always
+    counts), the one whose waves take the least time, a block costing its
+    tiles plus about two for staging x and filling the ring; the fewest
+    splits among equals. n = 2^16 keeps one split (512 row blocks, ~3.9
+    waves); a 4096-row mean over 1024 column tiles takes four (128 blocks,
+    one wave)."""
+    best = None
+    for per in range(col_tiles, 0, -1):
+        splits = _cdiv(col_tiles, per)
+        if splits > 1 and row_blocks * splits > 8 * sms:
+            break
+        cost = _cdiv(row_blocks * splits, sms) * (per + 2)
+        if best is None or cost < best[0]:
+            best = (cost, splits, per)
+    return best[1], best[2]
 
 
 def vec4_ok(d, *ts):
@@ -420,13 +473,17 @@ def gramian_matvec_expand(k, x, y, a, mode: str = "iso", precision=None,
     out = torch.empty(n, dtype=torch.float32, device=x.device)
     if n == 0 or m == 0:
         return out.zero_()
-    x2 = torch.sum(x * x, dim=1) if mode == "iso" else None
-    y2 = torch.sum(y * y, dim=1) if mode == "iso" else None
-    splits, per = column_split(_cdiv(n, _K2_BM), m, _K2_BN, x.device)
-    partial = out if splits == 1 else torch.empty((splits, n), dtype=torch.float32,
-                                                  device=x.device)
+    table = family_table(spec, x.device)
+    bm, bn = _expand_shape(d, passes, table is not None)
+    splits, per = expand_plan(_cdiv(n, bm), _cdiv(m, bn), sm_count(x.device.index))
+    same = x.data_ptr() == y.data_ptr() and x.shape == y.shape
+    f32 = dict(dtype=torch.float32, device=x.device)
+    yp, xp, cols = (torch.empty(c, **f32) if c else None
+                    for c in _expand_scratch(n, m, d, passes, same))
+    x2 = torch.empty(n, **f32)
+    partial = out if splits == 1 else torch.empty((splits, n), **f32)
     return _launch(expand_route(spec), expand_library().k2_gramian_matvec_expand, out,
-                   _ptr(x), _ptr(y), _ptr(x2), _ptr(y2), _ptr(a), _ptr(partial),
-                   _ptr(out), n, m, d, int(mode == "iso"), splits, per, passes,
-                   spec.family, spec.family_p, int(vec4_ok(d, x, y)), _cspec(spec),
-                   _cfamily(spec), _ptr(family_table(spec, x.device)))
+                   _ptr(x), _ptr(y), _ptr(a), _ptr(xp), _ptr(yp), _ptr(cols), _ptr(x2),
+                   _ptr(partial), _ptr(out), n, m, d, int(mode == "iso"), int(same), splits,
+                   per * bn, passes, spec.family, spec.family_p, _cspec(spec), _cfamily(spec),
+                   _ptr(table))

@@ -138,7 +138,8 @@ PAD_S = 0.005
 @contextlib.contextmanager
 def kernel_runs(*names):
     """Count how often the CUDA kernels `names` (their function names in
-    `csrc/`, e.g. "k1_family", "k3_tc") ran on the device inside the block,
+    `csrc/`, e.g. "k1_family", "k3_tc", or a template's name with the start
+    of its arguments, e.g. "k2_tc<true") ran on the device inside the block,
     from a `torch.profiler` trace of the device alone. The dict yielded is
     filled when the block ends. A kernel captured in a CUDA graph runs once
     a replay, where `ops.gramian_mvm.LAUNCHES` counts the host's launches:

@@ -131,10 +131,13 @@ K1_BOUND = 1e-5   # relative L2 error of K1 vs its float64 plain version
 # the CUDA kernels of each key of `ops.gramian_mvm.LAUNCHES`, by their names
 # in csrc/: CG's step is captured in a CUDA graph, whose kernels run once a
 # replay, and the solve checks count those runs from a profiler trace
-# (`runs_of`), where `LAUNCHES` counts the capture once
+# (`runs_of`), where `LAUNCHES` counts the capture once. K2's product is
+# named by its template's first argument (k2_tc<ISO, ...>): the split into
+# tf32 pieces before it, k2_tc<NP> (K2_SPLIT), shares the name k2_tc
 KERNELS = {"direct": ("k1_family", "k1_direct"), "matern": ("k1_family",),
-           "direct_cols": ("k1_matmat_family",), "expand": ("k2_tc",),
-           "expand_matern": ("k2_tc",), "grad": ("k3_tc",), "grad_matern": ("k3_tc",)}
+           "direct_cols": ("k1_matmat_family",), "expand": ("k2_tc<true", "k2_tc<false"),
+           "expand_matern": ("k2_tc<true",), "grad": ("k3_tc",), "grad_matern": ("k3_tc",)}
+K2_SPLIT = ("k2_tc<1", "k2_tc<2")
 K2_BOUND = 1e-4   # K2: the expansion cancels (cfjax's interpret tolerance is 2e-4)
 K3_BOUND = 1e-4   # K3: float32 jet and Taylor bound (cfjax's interpret tolerance is 3e-4)
 # K2 and K3 at each matmul tier (relative L2): (against their plain version
@@ -928,6 +931,68 @@ def ptxas_tc(build, lib, kernel, count):
     check(not bad, f"{kernel} instances spill or keep a stack frame: {bad}")
     regs = [int(e[5]) for e in ents]
     return len(ents), (min(regs), max(regs)), sorted({int(e[2]) for e in ents if not int(e[1])})
+
+
+def ptxas_k2_split(build):
+    """K2's split into tf32 pieces (k2_tc<NP>, NP 1 and 2) in the compiler's
+    report beside its library: two instances, no stack frame, no spills.
+    Returns their registers (min, max)."""
+    log = build.library_path("expand_mvm").with_suffix(".log").read_text()
+    ents = re.findall(r"Compiling entry function '(\S*k2_tcILi\d+EE\S*)'[^\n]*\n(?:[^\n]*\n)*?"
+                      r"\s*(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads\n[^\n]*Used (\d+) registers", log)
+    check(len(ents) == 2, f"ptxas reports {len(ents)} instances of K2's split, not 2")
+    bad = [e[0] for e in ents if int(e[1]) or int(e[2]) or int(e[3])]
+    check(not bad, f"K2's split keeps a stack frame or spills: {bad}")
+    regs = [int(e[4]) for e in ents]
+    return min(regs), max(regs)
+
+
+def k2_cell_product(tk, mvm, rng):
+    """The ARD cell's product, 6.67 * MaternP(2) at d = 90 as K2 runs it
+    once the fold has divided the points by l (scaled here to O(1)
+    distances): the operator's 2^16 x 2^16 (x is y, one column split) and
+    the posterior mean's 4096 x 2^16 (column splits), at "highest" and
+    "default". Rows 0-255 of each against the plain version at the tier and
+    in float64, within TIER_BOUND["K2"]; beside them the control, the other
+    pass count against the plain version at the tier. The operator's device
+    time against its tensor-core bound. Returns the phase-5 text."""
+    from cfjax_torch.kernels.profile_spec import to_spec
+    from cfjax_torch.ops.tiles import tier_passes
+
+    k = 6.67 * tk.MaternP(2)
+    n, d, rows = 65536, 90, slice(256)
+    x = cuda_tensor(rng.standard_normal((n, d)) / np.sqrt(d))
+    a = cuda_tensor(rng.standard_normal(n))
+    xt = cuda_tensor(rng.standard_normal((4096, d)) / np.sqrt(d))
+    check(mvm.expand_plan(4096 // 128, n // 64, mvm.sm_count(0))[0] > 1,
+          "phase 5: the mean's shape does not split K2's columns")
+    parts = []
+    for what, xx in (("operator 65536 x 65536", x), ("mean 4096 x 65536", xt)):
+        outs = {tier: mvm.gramian_matvec_expand(k, xx, x, a, precision=tier)
+                for tier in ("highest", "default")}
+        ref = mvm.gramian_matvec_expand_plain(k, xx[rows].double(), x.double(), a.double())
+        for tier, out in outs.items():
+            check(torch.isfinite(out).all().item(), f"phase 5 K2 {what} {tier}: non-finite")
+            same = mvm.gramian_matvec_expand_plain(k, xx[rows], x, a, precision=tier).double()
+            rt, r64 = rel(out[rows], same), rel(out[rows], ref)
+            control = rel(outs["default" if tier == "highest" else "highest"][rows], same)
+            b_plain, b64 = TIER_BOUND["K2"][0][tier], TIER_BOUND["K2"][1][tier]
+            check(rt <= b_plain and r64 <= b64,
+                  f"phase 5 K2 {what} {tier} ({tier_passes(tier)} passes): rows 0-255 rel "
+                  f"{rt:.3e} vs the plain version at the tier (bound {b_plain:.0e}), {r64:.3e} "
+                  f"vs float64 (bound {b64:.0e})")
+            parts.append(f"{what} {tier} rows 0-255 rel {rt:.3e} vs the plain version at the "
+                         f"tier (bound {b_plain:.0e}; the other pass count {control:.3e}), "
+                         f"{r64:.3e} vs float64 (bound {b64:.0e})")
+        del outs
+    for tier in ("highest", "default"):
+        call, dev = call_and_device_ms(
+            lambda: mvm.gramian_matvec_expand(k, x, x, a, precision=tier), reps=5)
+        b = roof(mvm.work_expand(n, n, d, mvm.profile_ops(to_spec(k)[0]), tier_passes(tier)))
+        parts.append(f"{tier} ({tier_passes(tier)} passes) {call:.3f} ms a call ({dev:.3f} "
+                     f"device), bound {b[0]:.3f} ms ({b[1]}) = {100 * b[0] / dev:.1f}% of device")
+    return "; ".join(parts)
 
 
 def rows64(k, x, y, a):
@@ -2348,14 +2413,19 @@ def phase21e_k2_solve(tk, ops, gp, mvm):
     walls, undo = timed_cg(gp)
     torch.cuda.reset_peak_memory_stats()
     try:
-        (post, wall), launches = runs_of("expand_matern", lambda: sync_time(
-            lambda: gp.gp_condition(k, x, y, noise=NOISE, tol=1e-5, maxiter=500)))
+        with kernel_runs(*KERNELS["expand_matern"], *K2_SPLIT) as runs:
+            post, wall = sync_time(
+                lambda: gp.gp_condition(k, x, y, noise=NOISE, tol=1e-5, maxiter=500))
     finally:
         undo()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     it = int(post.solve_info[0])
-    check(len(walls) == 1 and it < 500 and launches >= it,
-          f"phase 21e: {it} PCG iterations, {launches} K2 runs, {len(walls)} PCG calls")
+    launches = sum(runs[name] for name in KERNELS["expand_matern"])
+    splits = sum(runs[name] for name in K2_SPLIT)
+    # the operator's x is y: each product splits its points once
+    check(len(walls) == 1 and it < 500 and launches >= it and splits >= it,
+          f"phase 21e: {it} PCG iterations, {launches} K2 product runs, {splits} K2 split "
+          f"runs, {len(walls)} PCG calls")
     rows = slice(4096)
     with torch.no_grad():
         Ka = mvm.gramian_matvec_direct_plain(tk.Lengthscale(exact_matern(tk, 1.3), 4.0),
@@ -2368,7 +2438,8 @@ def phase21e_k2_solve(tk, ops, gp, mvm):
     with mvm.uncounted():
         call, dev = call_and_device_ms(lambda: mvm.gramian_matvec_expand(k, x, x, a), reps=5)
     print(f"phase 21e gp_condition Lengthscale(Matern(1.3), 4) n={n} d={d} noise {NOISE}: {it} "
-          f"Nystrom-PCG iterations, {launches} K2 runs of the tabulated family, {wall:.3f} s "
+          f"Nystrom-PCG iterations, {launches} K2 runs of the tabulated family ({splits} of "
+          f"its split), {wall:.3f} s "
           f"(the PCG {walls[0]:.3f} s = {100 * walls[0] / wall:.1f}%; peak {peak:.2f} GiB), "
           f"float64 residual on 4096 rows {res64:.3e} (bound 2e-4); K2 at this shape "
           f"{call:.3f} ms a call ({dev:.3f} ms device) | {how}", flush=True)
@@ -3141,6 +3212,10 @@ def main():
     fam_n, fam_stack, fam_spill, fam_regs = ptxas_k1_family(build, "k1_family", 54)
     cols_n, cols_stack, cols_spill, cols_regs = ptxas_k1_family(build, "k1_matmat_family", 108)
     k2_n, k2_regs, k2_stack = ptxas_tc(build, "expand_mvm", "k2_tc", 22)
+    split_regs = ptxas_k2_split(build)
+    # K2's wgmmas run asynchronously only where ptxas does not serialize them
+    check("C7520" not in build.library_path("expand_mvm").with_suffix(".log").read_text(),
+          "ptxas serializes K2's wgmma instructions (C7520)")
     k3_n, k3_regs, k3_stack = ptxas_tc(build, "grad_mvm", "k3_tc", 20)
     print(f"phase 0 card: {smi} | torch {torch.__version__} cuda {torch.version.cuda} | "
           f"kernel libraries {', '.join(build.LIBRARIES)} built in {built_s:.1f} s | ptxas: "
@@ -3148,7 +3223,9 @@ def main():
           f"them), stack frame {fam_stack} bytes, spills {fam_spill} bytes, registers "
           f"{fam_regs}; {cols_n} many-column K1 instances (6 D x 9 profiles x 1 or 3 tensor-"
           f"core passes, 16 columns a chunk), stack frame {cols_stack} bytes, spills {cols_spill} "
-          f"bytes, registers {cols_regs}; K2 {k2_n} instances (11 profiles x 1, 3 passes), "
+          f"bytes, registers {cols_regs}; K2 {k2_n} instances (11 profiles x 1, 3 passes; wgmma, "
+          f"none serialized) and its split's 2 (1, 2 pieces; 0 bytes stack, no spills, registers "
+          f"{split_regs}), "
           f"K3 {k3_n} (10 x 1, 3 passes): family instances 0 bytes stack, no instance spills, "
           f"registers {k2_regs} / {k3_regs}, the interpreted instances' stack {k2_stack} / {k3_stack} "
           f"bytes (the profile interpreter's)", flush=True)
@@ -3233,6 +3310,7 @@ def main():
         far = float(np.median(graph_ms(lambda: gmvm.grad_matvec(k, xx, yy, A))))
         near[key] = (times[key][1], far, near_pairs(xx, xx, gmvm.NEAR_TAU),
                      near_pairs(xx, yy, gmvm.NEAR_TAU))
+    ard_text = k2_cell_product(tk, mvm, rng)
     # bounds: each kernel's function's least work (`work_direct`,
     # `work_expand`, `work_grad`, `work_rows` beside the wrappers). K1 by its
     # family's least operations (SFU), and beside it its fp32 issue with the
@@ -3287,7 +3365,8 @@ def main():
           f"exp2's split argument ({work_k1.fp32 / 131072 ** 2 + 4:.0f} fp32 an entry) {k1_issue[0]:.3f} ms = "
           f"{100 * k1_issue[0] / k1t['ms17']:.1f}% of device | many-column K1 MaternP(2) d=3 "
           f"p=16: {cols_text(k1c)} | K2 Lengthscale(EQ, 4) n=16384 "
-          f"d=64: {tier_line('expand')} | K3 EQ n=4096 d=16: {tier_line('grad')} | K3 "
+          f"d=64: {tier_line('expand')} | K2 6.67 MaternP(2) n=65536 d=90 (the ARD cell's product): "
+          f"{ard_text} | K3 EQ n=4096 d=16: {tier_line('grad')} | K3 "
           f"MaternP(2) n=1024 d=1024: {tier_line('grad8')} | K3's near-coincident path (pairs "
           f"with s <= tau (|x|^2 + |y|^2), tau = {gmvm.NEAR_TAU}), the points against themselves "
           f"and against a fresh draw: {near_text} | library call: none for K1-K3 "

@@ -1,9 +1,10 @@
 """Time the port's four kernels through their public wrappers, at the
-shapes of `chip_smoke.py` phase 5, for the `cfjax_torch` of a checkout;
-K2 and K3 at each matmul tier ("highest" under the kernels' names, the
-tf32 tiers as "... @ high" / "... @ default", null where the checkout's
-kernel declines the tier); K1's many-column variant at p = 16 (the SLQ
-probe batch), null where the checkout has none.
+shapes of `chip_smoke.py` phase 5 (with the ARD cell's K2 product), for
+the `cfjax_torch` of a checkout; K2 and K3 at each matmul tier
+("highest" under the kernels' names, the tf32 tiers as "... @ high" /
+"... @ default", null where the checkout's kernel declines the tier);
+K1's many-column variant at p = 16 (the SLQ probe batch), null where the
+checkout has none.
 
     python3 kernel_times.py [--root DIR] [--label NAME]
 
@@ -95,6 +96,11 @@ def main():
         "K3 MaternP(2) n=d=1024": lambda: gmvm.grad_matvec(km2, xg8, xg8, ag8),
         f"K4 S @ a, phase 11's operator (nnz {S.nnz})": lambda: S @ a11,
     }
+    # the ARD cell's product: K2 on the points the fold divides by l, d = 90
+    x90, a90 = f(65536, 90, scale=90 ** -0.5), f(65536)
+    kard = 6.67 * tk.MaternP(2)
+    runs["K2 6.67 MaternP(2) n=65536 d=90 (the ARD cell's product)"] = (
+        lambda: mvm.gramian_matvec_expand(kard, x90, x90, a90))
     x17 = f(131072, 3)
     for n, x in ((16384, xh), (131072, x17)):
         A = f(n, 16)

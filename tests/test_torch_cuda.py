@@ -528,6 +528,111 @@ def test_expand_kernel_at_each_tier(k, mode, prec):
     assert torch.equal(out, mvm.gramian_matvec_expand(k, x, y, a, mode, precision=prec))
 
 
+# K2's shape classes (128 rows a block, 64-column tiles, depth in K-blocks
+# of 32 floats): d = 17 (one ragged K-block), 90 (360-byte rows, no
+# 16-byte alignment, a ragged last k-step), 128 (x's tf32 pieces resident
+# beside a ring shorter than two tiles) and 257 (at three passes x's pieces
+# go through the ring beside y's); n = 1003 and m = 701 off the tiles, and
+# the operator's case, x is y (one split of the points serves both sides),
+# at n = 300. The limits are TIER_BOUND's at every shape, x is y included:
+# on the H100, K2 with x as y reads bit for bit as on a copy of x (the
+# real-nu Matern at d = 257, 3 passes: 7.0e-8 against float64). Its float64
+# reference is the kernels' method (`_matern_reference`): Matern's own
+# float64 profile misses it where x is y (6.1e-6 at that shape, 6e-9 where
+# x is not y), at the s the float64 expansion leaves on the diagonal
+K2_SHAPE_KERNELS = {"ScaledMaternP2": (6.67 * tk.MaternP(2), "iso"),
+                    "Dot2": (tk.Dot() ** 2, "dot"),
+                    "MaternNu": (tk.Lengthscale(tk.Matern(1.3), 4.0), "iso")}
+
+
+@needs_gpu
+@pytest.mark.parametrize("prec", ["highest", "default"])
+@pytest.mark.parametrize("d", [17, 90, 128, 257])
+@pytest.mark.parametrize("name", list(K2_SHAPE_KERNELS))
+def test_expand_kernel_shapes_at_each_tier(name, d, prec):
+    """K2 at each shape class, on distinct x and y and on x as y, against
+    its plain version at the tier and in float64 (the real-nu Matern's
+    plain version on the float64 profile), one launch under its route's
+    count, the result repeated bit for bit."""
+    k, mode = K2_SHAPE_KERNELS[name]
+    kp = tk.Lengthscale(_matern_reference(1.3), 4.0) if name == "MaternNu" else k
+    x, y, _, a = _near_data(1003, 701, d)
+    key = mvm.expand_route(to_spec(k)[0])
+    xs, as_ = x[:300].contiguous(), a[:300].contiguous()
+    for x, y, a in ((x, y, a), (xs, xs, as_)):
+        before = dict(mvm.LAUNCHES)
+        out = mvm.gramian_matvec_expand(k, x, y, a, mode, precision=prec)
+        torch.cuda.synchronize()
+        assert mvm.LAUNCHES[key] == before[key] + 1
+        assert sum(mvm.LAUNCHES.values()) == sum(before.values()) + 1
+        same = mvm.gramian_matvec_expand_plain(kp, x, y, a, mode, precision=prec)
+        ref = mvm.gramian_matvec_expand_plain(kp, x.double(), y.double(), a.double(), mode)
+        assert _rel(out, same.double()) <= TIER_BOUND["K2"][0][prec]
+        assert _rel(out, ref) <= TIER_BOUND["K2"][1][prec]
+        assert torch.equal(out, mvm.gramian_matvec_expand(k, x, y, a, mode, precision=prec))
+
+
+@needs_gpu
+@pytest.mark.parametrize("prec", ["highest", "default"])
+def test_expand_kernel_splits_columns_for_a_mean(prec):
+    """The posterior mean's shape class, few rows against many columns
+    (300 x 40000 at d = 90): the columns split over the grid and the splits
+    added in a fixed order, against float64; bit-repeatable."""
+    k = 6.67 * tk.MaternP(2)
+    x, y, _, a = _near_data(300, 40000, 90)
+    assert mvm.expand_plan(-(-300 // 128), -(-40000 // 64), mvm.sm_count(0))[0] > 1
+    out = mvm.gramian_matvec_expand(k, x, y, a, precision=prec)
+    ref = mvm.gramian_matvec_expand_plain(k, x.double(), y.double(), a.double())
+    assert _rel(out, ref) <= TIER_BOUND["K2"][1][prec]
+    assert torch.equal(out, mvm.gramian_matvec_expand(k, x, y, a, precision=prec))
+
+
+# K2 on the ARD cell's points (relative L2), against its plain version at
+# the tier and against float64: the norms of x / l reach 212 where the
+# kernel lives at s ~ 1, so the expansion cancels; the float32 plain
+# version, exact products, reads 6.0e-6 against float64 and K2, whose
+# tensor cores add the passes in their own fp32 accumulator, 2.8e-5
+# against the plain version at three passes (1.5e-5 at one; H100). One
+# tf32 pass reads 8.3e-3 against float64: the cell's TF32 control
+ARD_BOUND = ({"highest": 1e-4, "high": 1e-4, "default": 1e-4},
+             {"highest": 1e-4, "high": 1e-4, "default": 3e-2})
+
+
+@needs_gpu
+@pytest.mark.parametrize("prec", ["highest", "high", "default"])
+def test_ard_folded_product_at_each_tier(prec):
+    """The ARD cell's operator, c * ARD(MaternP(2), l) at d = 90 folded onto
+    K2, at each tier: one K2 launch, the route naming wgmma, the product
+    against K2's plain version on the folded points at the tier and against
+    the float64 plain ARD reference (tests/plain_ref)."""
+    import cfjax_torch
+    from cfjax_torch.kernels.transforms import ARDKernel
+    from plain_ref import ard_matern as ref
+
+    g = torch.Generator().manual_seed(90)
+    x = torch.randn(2000, 90, generator=g, dtype=torch.float64)
+    ell = torch.exp(1.4142 + 0.5 * np.log(90) + 1.7321 * torch.randn(90, generator=g,
+                                                                     dtype=torch.float64))
+    v = torch.randn(2000, generator=g, dtype=torch.float64)
+    dev = dict(device="cuda", dtype=torch.float32)
+    xc, lc, vc = x.to(**dev), ell.to(**dev), v.to(**dev)
+    k = 6.67 * ARDKernel(tk.MaternP(2), lc)
+    cfjax_torch.set_config(matmul_precision=prec)
+    try:
+        assert "K2 gramian_matvec_expand (family instance; wgmma" in explain(k, xc)
+        before = mvm.LAUNCHES["expand"]
+        out = gramian(k, xc) @ vc
+        assert mvm.LAUNCHES["expand"] == before + 1
+    finally:
+        cfjax_torch.set_config(matmul_precision="highest")
+    same = mvm.gramian_matvec_expand_plain(6.67 * tk.MaternP(2), xc / lc, xc / lc, vc,
+                                           precision=prec)
+    assert _rel(out, same.double()) <= ARD_BOUND[0][prec]
+    x32 = x.float().double()
+    assert _rel(out.cpu(), ref.matvec(x32, x32, ell.float().double(), 6.67, v)) <= \
+        ARD_BOUND[1][prec]
+
+
 @needs_gpu
 @pytest.mark.parametrize("prec", ["highest", "high", "default"])
 @pytest.mark.parametrize("d", [3, 16, 257])

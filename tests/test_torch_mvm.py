@@ -260,3 +260,23 @@ def test_tier_passes():
     assert tier_passes() == 3
     with pytest.raises(ValueError):
         tier_passes("bf16")
+
+
+@pytest.mark.parametrize("row_blocks,col_tiles", [(512, 1024), (32, 1024), (1, 1), (8, 11),
+                                                  (3, 313), (128, 256), (2, 5000)])
+def test_expand_plan_fills_the_sms(row_blocks, col_tiles):
+    """K2's grid plan (one block an SM): every split holds whole column
+    tiles and none is empty, and no other split of the columns within 8
+    waves costs less; the ARD cell's product keeps one split and its
+    4096-row mean takes four."""
+    sms = 132
+    splits, per = mvm.expand_plan(row_blocks, col_tiles, sms)
+    assert splits * per >= col_tiles and (splits - 1) * per < col_tiles
+    assert splits == 1 or row_blocks * splits <= 8 * sms
+    cost = lambda s, p: -(-row_blocks * s // sms) * (p + 2)
+    for p in range(1, col_tiles + 1):
+        s = -(-col_tiles // p)
+        if s == 1 or row_blocks * s <= 8 * sms:
+            assert cost(splits, per) <= cost(s, p)
+    assert mvm.expand_plan(512, 1024, sms) == (1, 1024)
+    assert mvm.expand_plan(32, 1024, sms) == (4, 256)
