@@ -1,8 +1,7 @@
 // A float64 reference for K1 on the card: b = K a for the EQ kernel under
 // a lengthscale, K_ij = exp(-c |x_i - y_j|^2), every operation in float64
 // (the difference-form distance, exp, the row sum). Plain C interface,
-// loaded with ctypes by cfjax_torch/benchmarks/config5_probe.py, whose
-// `eq_matvec_f64` holds its plain torch version.
+// loaded with ctypes by tests/test_torch_cuda.py (`eq_matvec_f64`).
 //
 // It replaces no TPU kernel and runs on no path of the package: it is
 // K1's float64 plain version made fast enough to run a whole PCG solve at

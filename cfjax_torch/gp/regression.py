@@ -99,14 +99,14 @@ def gp_condition(kernel, x, y, noise: float = 1e-6,
         if (precondition == "auto" and isinstance(K0, Gramian)
                 and torch.as_tensor(noise).ndim == 0
                 and n > _config.DEFAULT.max_cholesky_size):
-            from ..operators.preconditioner import nystrom_preconditioner
+            from ..operators.preconditioner import nystrom_apply, nystrom_factors
 
             extra = set(solve_opts) - {"tol", "maxiter", "x0"}
             if extra:
                 raise TypeError(
                     f"unsupported solve_opts for the preconditioned CG path: {sorted(extra)}")
-            M = nystrom_preconditioner(kernel, x, noise, rank=min(precond_rank, n // 2),
-                                       seed=seed)
+            M = nystrom_apply(*nystrom_factors(K0, noise, rank=min(precond_rank, n // 2),
+                                               seed=seed), noise)
             alpha, info = cg(K._matvec, y, M=M, x0=solve_opts.get("x0"),
                              tol=solve_opts.get("tol"), maxiter=solve_opts.get("maxiter"))
         else:

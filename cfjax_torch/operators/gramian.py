@@ -25,7 +25,7 @@ from torch.utils.checkpoint import checkpoint
 from .. import config as _config
 from ..kernels.base import InputTrait, Kernel, input_trait
 from ..kernels.parameters import to_points
-from ..kernels.profile_spec import to_spec
+from ..kernels.profile_spec import FAMILY_MATERN_NU, to_spec
 from ..ops import gramian_mvm as _mvm
 from ..ops.tiles import inner_tile, matmul_p, sqdist_tile
 from ..utils import trace
@@ -64,6 +64,28 @@ def kernel_tile(k, xb, y, mode: str, c=None):
         c = c.to(device=xb.device, dtype=xb.dtype)
         return k.profile_value((xb @ c)[:, None] - (y @ c)[None, :])
     return vmap(lambda xi: vmap(lambda yj: k(xi, yj))(y))(xb)
+
+
+def build_tile(g):
+    """(a, b) -> the (B, m) block of kernel entries k(a_i, b_j) that the
+    Nystrom build of the Gramian g evaluates, in the dtype of a and b: from
+    the kernel as the dispatch handed it to g (`g.k_given`: its
+    hyperparameters at the caller's precision, not the copy moved to the
+    points), by g's mode. A one-leaf real-nu Matern takes its tabulated
+    family's plain version (`ProfileSpec.evaluate(s, family=True)`, the
+    function K1 and K2 compute) on the exact difference-form distances: the
+    kernel's own profile would run the 400-node quadrature on every entry.
+    Every other kernel takes `kernel_tile` in g's mode, as g's plain
+    products do; the build's blocks are never float32 (`nystrom_factors`),
+    so the matmul tier leaves the tile's products at full precision."""
+    k = g.k_given
+    if g.mode == "iso":
+        spec = g._spec or to_spec(k)[0]
+        if spec is not None and spec.family == FAMILY_MATERN_NU:
+            return lambda a, b: spec.evaluate(sqdist_tile(a, b, direct_max_d=a.shape[1]),
+                                              family=True)
+    c = slf_vector(k) if g.mode == "slf" else None
+    return lambda a, b: kernel_tile(k, a, b, g.mode, c)
 
 
 def _needs_grad(k, *ts):
@@ -172,10 +194,11 @@ class Gramian(LinearOperator):
         self.block = max(1, min(block, self.shape[0]))
         self.kernel, self._spec, self.kernel_reason = select_kernel(self)
         # the hyperparameters on the points' device and in their dtype, once
-        # (the spec above reads the kernel as given): an MVM copies nothing
-        # from the host and can be captured in a CUDA graph; a real-nu
-        # Matern's table goes to the card here too
-        self.k = to_points(k, self.x)
+        # (the spec above reads the kernel as given, and so does the Nystrom
+        # build, `build_tile`): an MVM copies nothing from the host and can
+        # be captured in a CUDA graph; a real-nu Matern's table goes to the
+        # card here too
+        self.k_given, self.k = k, to_points(k, self.x)
         if self.kernel is not None:
             _mvm.family_table(self._spec, self.device)
 

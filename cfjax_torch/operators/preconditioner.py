@@ -19,13 +19,15 @@ with Kzz^-1/2 and the Gram in float64 on the device, block by block (as
 cfjax's float64 build `_build_nystrom_hostf64` computes them), and stores
 U in float32: the apply runs in float32. Kzz^-1/2 amplifies the panel's
 float32 rounding by up to 1/sqrt(floor_rel) into the small modes of U
-(cfjax's docstring: "every mode below ~3e-6 lambda_max is junk"), and on
-an H100 BASELINE config 5's PCG on cfjax's own points (n = 10^6, rank
-2048, sigma^2 / lambda_max ~ 6e-7) stalled at 5.2e-3 after 60 iterations
-with the float32 build and converged in 10 with the float64 one (PERF.md,
-`cfjax_torch/benchmarks/config5_probe.py`). `build_dtype=torch.float32`
-keeps cfjax's float32 build. Two repairs keep a float32 apply SPD: the
-eigenvalue floor `floor_rel` and the scaled Woodbury denominator.
+(cfjax's docstring: "every mode below ~3e-6 lambda_max is junk"): on an
+H100, BASELINE config 5's PCG stalled with a float32 build and converged
+with the float64 one (PERF.md section 6). Two repairs keep a
+float32 apply SPD: the eigenvalue floor `floor_rel` and the scaled
+Woodbury denominator.
+
+The build reads the lazy `Gramian` it preconditions: its points (divided
+by l once for an ARD kernel the dispatch folds) and its entry rule
+(`gramian.build_tile`), so the dispatch decides both once.
 """
 
 from __future__ import annotations
@@ -33,13 +35,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..kernels.base import InputTrait, input_trait
-from ..kernels.profile_spec import FAMILY_MATERN_NU, to_spec
-from ..ops.tiles import full_fp32, matmul_p, sqdist_tile
+from ..ops.tiles import full_fp32, matmul_p
 from ..utils import trace
-from ..utils.grids import as_points
-from ..utils.testing import pairwise_xy
-from .dispatch import ard_fold, prescaled
+from .dispatch import gramian
+from .gramian import Gramian, build_tile
 
 
 def _gram_ff(P, chunk: int = 2048):
@@ -60,66 +59,40 @@ def _gram_ff(P, chunk: int = 2048):
     return hi, lo
 
 
-def _panel_fn(k):
-    """(x, Z) -> K_xZ for the build, by the kernel's trait. A one-leaf real-nu
-    Matern takes its tabulated family's plain version on the exact squared
-    distances (`ProfileSpec.evaluate(s, family=True)`, the function K1 and
-    K2 compute): `pairwise_xy` would run cfjax's 400-node quadrature on
-    every entry, tens of GiB a block at rank 2048. Any other isotropic
-    kernel takes its profile on the squared-distance tile (the expansion at
-    full precision above `direct_sqdist_max_d`), as the lazy Gramian does:
-    `pairwise_xy` would form a (block, rank, d) difference tensor, 3 GiB a
-    block at d = 90. Every other kernel takes `pairwise_xy`."""
-    spec, _ = to_spec(k)
-    if spec is not None and spec.family == FAMILY_MATERN_NU:
-        return lambda a, b: spec.evaluate(sqdist_tile(a, b, direct_max_d=a.shape[1]),
-                                          family=True)
-    if input_trait(k) == InputTrait.ISOTROPIC:
-        return lambda a, b: k.profile_value(sqdist_tile(a, b, precision="highest"))
-    return lambda a, b: pairwise_xy(k, a, b)
+def nystrom_factors(G, noise, rank: int = 256, seed: int = 0, floor_rel: float = 1e-8):
+    """(U, E, denom) of the rank-`rank` Nystrom preconditioner of G + noise
+    I for a square lazy Gramian G (see `nystrom_preconditioner`, which
+    applies them): U the (n, rank) panel on G's device in its points'
+    dtype, E and denom from the eigh of U^T U, in U's dtype.
 
-
-def nystrom_factors(k, x, noise, rank: int = 256, seed: int = 0, floor_rel: float = 1e-8,
-                    factor_dtype=np.float32, build_dtype=None):
-    """(U, E, denom) of the rank-`rank` Nystrom preconditioner of K + noise
-    I (see `nystrom_preconditioner`, which applies them): U the (n, rank)
-    panel on x's device in x's dtype, E and denom from the eigh of U^T U,
-    in U's dtype.
-
-    `build_dtype` is the dtype of the kernel panel, its product with
-    Kzz^-1/2 and the Gram U^T U: by default float64 for float32 points
-    (U rounded to float32 as each block is stored, the Gram summed from the
-    float64 blocks) and the points' own dtype otherwise; float32 points
-    with build_dtype=torch.float32 build as cfjax does (the Gram by
-    `_gram_ff`). The host-side factors are rounded to `factor_dtype` before
-    they reach the device, float32 as cfjax rounds them, except Kzz^-1/2
-    in a float64 build of float32 points."""
+    The panel, its product with Kzz^-1/2 and the Gram U^T U are built in
+    float64 for float32 points (U rounded to float32 as each block is
+    stored, the Gram summed from the float64 blocks), in the points' own
+    dtype otherwise (the Gram by `_gram_ff`). The host-side factors reach
+    the device rounded to float32, as cfjax rounds them, except Kzz^-1/2 in
+    the float64 build of float32 points."""
+    if not (isinstance(G, Gramian) and G.is_symmetric):
+        raise TypeError(f"the Nystrom build takes a square lazy Gramian, not {G!r}")
     sp = trace.begin("precond.nystrom")
     try:
-        return _nystrom_factors(k, x, noise, rank, seed, floor_rel, factor_dtype, build_dtype)
+        return _nystrom_factors(G, noise, rank, seed, floor_rel)
     finally:
         trace.end(sp)
 
 
-def _nystrom_factors(k, x, noise, rank, seed, floor_rel, factor_dtype, build_dtype):
+def _nystrom_factors(G, noise, rank, seed, floor_rel):
     """`nystrom_factors`' build, inside its span."""
-    xp = as_points(x)
-    # an ARD kernel under constant factors: the build, as the operator, sees
-    # the isotropic c k on the points divided by l (`dispatch.ard_fold`)
-    fold = ard_fold(k)
-    if fold is not None:
-        k, l = fold
-        xp, _ = prescaled(l, xp, None)
+    xp = G.x
     n = xp.shape[0]
     rank = min(rank, n)
-    bdt = build_dtype or (torch.float64 if xp.dtype == torch.float32 else xp.dtype)
+    bdt = torch.float64 if xp.dtype == torch.float32 else xp.dtype
     widened = bdt != xp.dtype
     # the host's part, in two spans: the landmarks and Kzz^-1/2, then the
     # eigh of the Gram and the factors' copies to the device
     host = trace.begin("precond.nystrom.host")
     idx = np.random.default_rng(seed).choice(n, rank, replace=False)
     Z = xp[trace.to_device(torch.as_tensor(idx), xp.device, span=host)]
-    panel = _panel_fn(k)
+    panel = build_tile(G)
     # Kzz eigh in float64 on the host (rank points — trivial)
     Zh = trace.cpu(Z.detach(), host).to(torch.float64)
     Kzz = panel(Zh, Zh).numpy()
@@ -128,7 +101,7 @@ def _nystrom_factors(k, x, noise, rank, seed, floor_rel, factor_dtype, build_dty
     floor = max(float(w[-1]), 0.0) * floor_rel
     inv_sqrt = np.where(w > floor, 1.0 / np.sqrt(np.maximum(w, floor)), 0.0)
     W0 = V * inv_sqrt[None, :]
-    W0 = trace.to_device(torch.from_numpy(W0 if widened else W0.astype(factor_dtype)),
+    W0 = trace.to_device(torch.from_numpy(W0 if widened else W0.astype(np.float32)),
                          xp.device, bdt, host)
     trace.end(host)
     Zb = Z.to(bdt)
@@ -138,17 +111,17 @@ def _nystrom_factors(k, x, noise, rank, seed, floor_rel, factor_dtype, build_dty
     # peak memory is U plus one block's kernel panel
     block = 8192
     U = torch.empty((n, rank), dtype=xp.dtype, device=xp.device)
-    G = torch.zeros((rank, rank), dtype=bdt, device=xp.device) if widened else None
+    Gram = torch.zeros((rank, rank), dtype=bdt, device=xp.device) if widened else None
     for i in range(0, n, block):
         Ub = matmul_p(panel(xp[i:i + block].to(bdt), Zb), W0, precision="highest")
         if widened:
-            G += matmul_p(Ub.T, Ub, precision="highest")
+            Gram += matmul_p(Ub.T, Ub, precision="highest")
         U[i:i + block] = Ub
     if not widened:
         hi, lo = _gram_ff(U, chunk=block)
     host = trace.begin("precond.nystrom.host")
     if widened:
-        B = trace.cpu(G, host).double().numpy()
+        B = trace.cpu(Gram, host).double().numpy()
     else:
         B = trace.cpu(hi, host).double().numpy() + trace.cpu(lo, host).double().numpy()
     s, E = np.linalg.eigh(0.5 * (B + B.T))
@@ -160,9 +133,8 @@ def _nystrom_factors(k, x, noise, rank, seed, floor_rel, factor_dtype, build_dty
     # scaling keeps M SPD with cond(M^-1 K) ~ s_max / s_cap.
     s_cap = float(noise) / (16.0 * np.finfo(np.float32).eps)
     denom = np.where(s > s_cap, s * (s_cap + float(noise)) / s_cap, s + float(noise))
-    Ej = trace.to_device(torch.from_numpy(E.astype(factor_dtype)), xp.device, U.dtype, host)
-    dj = trace.to_device(torch.from_numpy(denom.astype(factor_dtype)), xp.device, U.dtype,
-                         host)
+    Ej = trace.to_device(torch.from_numpy(E.astype(np.float32)), xp.device, U.dtype, host)
+    dj = trace.to_device(torch.from_numpy(denom.astype(np.float32)), xp.device, U.dtype, host)
     trace.end(host)
     return U, Ej, dj
 
@@ -188,6 +160,11 @@ def nystrom_preconditioner(k, x, noise, rank: int = 256, seed: int = 0,
 
     `noise` is the variance added to the diagonal (sigma^2). The landmarks
     are `rank` rows drawn by `np.random.default_rng(seed).choice`, as cfjax
-    draws them, so both packages pick the same points. Memory is one (n,
-    rank) panel on the device of x."""
-    return nystrom_apply(*nystrom_factors(k, x, noise, rank, seed, floor_rel), noise)
+    draws them, so both packages pick the same points. The sketch is of the
+    lazy Gramian `gramian(k, x)` returns, or of `Gramian(k, x)` where the
+    dispatch finds another structure. Memory is one (n, rank) panel on the
+    device of x."""
+    G = gramian(k, x)
+    if not isinstance(G, Gramian):
+        G = Gramian(k, x)
+    return nystrom_apply(*nystrom_factors(G, noise, rank, seed, floor_rel), noise)

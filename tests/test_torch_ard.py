@@ -215,8 +215,8 @@ def test_logml_gradient_matches_cfjax(d, spelling):
 def test_pcg_on_an_ard_dot_kernel(small_cholesky_size, monkeypatch):
     """ARD around a dot-product kernel, (x.y + 1)^2 at d = 5: the operator is
     the dot kernel on x / l, as cfjax's (both prescale a bare ARD), and the
-    Nystrom build evaluates that same kernel on the same points (never its
-    profile on distances). At rank 32, above the kernel's 21 features, the
+    Nystrom build reads that Gramian: the same kernel in the dot mode on the
+    same points (never its profile on distances). At rank 32, above the kernel's 21 features, the
     sketch is the operator to the float32 rounding of the stored factors,
     so PCG stops within 12 iterations (8 here; a build from the profile on
     distances takes 160), and alpha is the dense solve's to 1e-8 (tol 1e-10
@@ -228,11 +228,12 @@ def test_pcg_on_an_ard_dot_kernel(small_cholesky_size, monkeypatch):
     K = op.todense()
     Kj = np.asarray(j_gramian(jk.ARDKernel(jk.Polynomial(2, 1.0), jx(ell)), jx(x)).todense())
     assert rel(K, torch.from_numpy(Kj.copy())) < 1e-12
-    calls = []
-    monkeypatch.setattr(precond, "pairwise_xy",
-                        lambda kk, a, b, f=precond.pairwise_xy: calls.append(kk) or f(kk, a, b))
+    built = []
+    monkeypatch.setattr(precond, "build_tile",
+                        lambda g, f=precond.build_tile: built.append(g) or f(g))
     post = gp_condition(k, x, y, noise=1e-2, precond_rank=32, tol=1e-10, maxiter=500)
-    assert calls and all(kk is k.k for kk in calls)
+    (g,) = built
+    assert g.mode == "dot" and g.k_given is k.k and torch.equal(g.x, x / ell)
     alpha = torch.linalg.solve(K + 1e-2 * torch.eye(512, dtype=K.dtype), y)
     assert post.solve_info[0] <= 12
     assert rel(post.alpha, alpha) < 1e-8
@@ -317,20 +318,16 @@ def test_logml_gradient_through_the_fold(spelling):
     assert float(torch.linalg.norm(l1)) > 0 and float(c1) != 0
 
 
-def test_nystrom_build_takes_the_fold(monkeypatch):
-    """The build of c * ARD(MaternP(2), l) is the build of c * MaternP(2) on
-    x / l, bit for bit, and neither evaluates its kernel pairwise (a
-    (block, rank, d) difference tensor): an isotropic kernel's panel is its
-    profile on the distance tile, inside an ARD or not."""
+def test_nystrom_build_takes_the_fold():
+    """The build from gramian(c * ARD(MaternP(2), l), x) is the build from
+    gramian(c * MaternP(2), x / l), bit for bit, and neither evaluates its
+    kernel pairwise (a (block, rank, d) difference tensor): the fold hands
+    the build an isotropic kernel, whose entries are its profile on the
+    distance tile."""
     x, ell, c, _, _ = problem(300, 90)
-
-    def refuse(*a):
-        raise AssertionError("pairwise_xy on an isotropic kernel")
-
-    monkeypatch.setattr(precond, "pairwise_xy", refuse)
-    opts = dict(rank=32, seed=5, factor_dtype=np.float64)
-    want = precond.nystrom_factors(c * tk.MaternP(2), x / ell, 1e-2, **opts)
-    got = precond.nystrom_factors(c * ARDKernel(tk.MaternP(2), ell), x, 1e-2, **opts)
+    Gs = (gramian(c * ARDKernel(tk.MaternP(2), ell), x), gramian(c * tk.MaternP(2), x / ell))
+    assert all(isinstance(G, Gramian) and G.mode == "iso" for G in Gs)
+    got, want = (precond.nystrom_factors(G, 1e-2, rank=32, seed=5) for G in Gs)
     assert got[0].shape == (300, 32)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 

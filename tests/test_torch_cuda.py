@@ -1359,6 +1359,27 @@ def test_highest_tier_ignores_global_tf32():
     assert _rel(out, exact) <= 1e-6 < _rel(rounded, exact)
 
 
+def eq_matvec_f64(x, y, a, lengthscale: float = 1.0):
+    """b = K a in float64 for Lengthscale(EQ, lengthscale) on CUDA tensors:
+    the float64 reference kernel, csrc/reference_f64.cu."""
+    import ctypes
+
+    from cfjax_torch.ops import build
+
+    lib = build.load("reference_f64")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.eq_matvec_f64.argtypes = [p, p, p, p, i, i, i, ctypes.c_double, p]
+    lib.eq_matvec_f64.restype = i
+    x, y, a = x.double().contiguous(), y.double().contiguous(), a.double().contiguous()
+    out = torch.empty(x.shape[0], dtype=torch.float64, device=x.device)
+    err = lib.eq_matvec_f64(x.data_ptr(), y.data_ptr(), a.data_ptr(), out.data_ptr(),
+                            x.shape[0], y.shape[0], x.shape[1], 0.5 / lengthscale ** 2,
+                            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"eq_matvec_f64 failed to launch: cudaError {err}")
+    return out
+
+
 @needs_gpu
 def test_config5_pcg_converges_on_cfjax_points():
     """BASELINE config 5's solve on cfjax's own points (n = 10^6, rank 2048,
@@ -1366,7 +1387,6 @@ def test_config5_pcg_converges_on_cfjax_points():
     converges within 55 PCG iterations (the float32 build stalled at 5.2e-3
     after 60 on an H100, PERF.md), the float64 residual on 4096 rows within
     2e-4."""
-    from cfjax_torch.benchmarks.config5_probe import eq_matvec_f64
     from cfjax_torch.benchmarks.run_baseline import SIZES, barneshut_draws, check_rows
     from cfjax_torch.operators import cg, nystrom_preconditioner
 

@@ -29,9 +29,11 @@ from cfjax_torch.gp import gp_condition as t_condition
 from cfjax_torch.gp import log_marginal_likelihood as t_lml
 from cfjax_torch.operators import (CholeskyFactorization, LowRankFactorization, cg,
                                    factorize, solve, solve_with_info)
+from cfjax_torch.operators import preconditioner as pre
 from cfjax_torch.operators.dispatch import explain as t_explain
 from cfjax_torch.operators.dispatch import gramian as t_gramian
 from cfjax_torch.operators.preconditioner import nystrom_preconditioner as t_nystrom
+from cfjax_torch.utils import trace
 
 torch.set_num_threads(2)
 
@@ -123,6 +125,44 @@ def test_nystrom_apply_matches_reference(problem):
     Mt = t_nystrom(tk.from_reference(kj), torch.tensor(x), NOISE, rank=64)
     np.testing.assert_allclose(Mt(torch.tensor(y)).numpy(), np.asarray(Mj(jnp.asarray(y))),
                                rtol=1e-6)
+
+
+BUILD_CASES = {"MaternP2_d3": (lambda l: tk.MaternP(2), 3),
+               "LengthscaleMatern2.3": (lambda l: tk.Lengthscale(tk.Matern(2.3), 0.9), 3),
+               "c*ARD_MaternP2_d90": (lambda l: 6.67 * tk.ARDKernel(tk.MaternP(2), l), 90),
+               "ARD_Polynomial2_dot": (lambda l: tk.ARDKernel(tk.Polynomial(2, 1.0), l), 5)}
+
+
+@pytest.mark.parametrize("name", sorted(BUILD_CASES))
+def test_nystrom_build_reads_the_gramian(name, rng, small_cholesky_size, monkeypatch):
+    """gp_condition builds its preconditioner from the operator it solves
+    with: its factors are those of the public wrapper's build, bit for bit;
+    U, E and denom are float32 on float32 points; and the points are
+    divided by an ARD kernel's l once a solve (one `gramian.prescale` span
+    under `gp.condition`, none without an ARD)."""
+    make, d = BUILD_CASES[name]
+    n = 300
+    x = torch.tensor(rng.standard_normal((n, d)), dtype=torch.float32)
+    y = torch.sin(x[:, 0])
+    k = make(torch.tensor(rng.uniform(0.5, 2.0, d), dtype=torch.float32))
+    built = []
+    monkeypatch.setattr(pre, "nystrom_factors",
+                        lambda *a, f=pre.nystrom_factors, **kw: built.append(f(*a, **kw))
+                        or built[-1])
+    trace.clear()
+    with trace.recording():
+        t_condition(k, x, y, noise=NOISE, tol=1e-4, maxiter=20)
+    sp = trace.spans()
+    trace.clear()
+    (cond,) = [s for s in sp if s["name"] == "gp.condition"]
+    prescales = [s for s in sp if s["name"] == "gramian.prescale"]
+    assert len(prescales) == ("ARD" in name)
+    assert all(s["root"] == cond["id"] and s["attrs"]["rows"] == n for s in prescales)
+    t_nystrom(k, x, NOISE, rank=n // 2)
+    (U, E, denom), want = built
+    assert U.shape == (n, n // 2)
+    assert U.dtype == E.dtype == denom.dtype == torch.float32
+    assert all(torch.equal(a, b) for a, b in zip((U, E, denom), want))
 
 
 def test_cg_and_solve_methods(problem):

@@ -18,7 +18,7 @@
 * Config 5's Nystrom build on float32 points: the port builds the panel and
   its Gram in float64 (PERF.md: the float32 build stalled config 5's PCG
   on an H100), so its apply agrees with cfjax's build on the same points
-  in float64 within 5e-5, where either float32 build is about 1e-3 off;
+  in float64 within 5e-5, where cfjax's float32 build is about 1e-3 off;
   PCG in float64 takes cfjax's iterations within 1. The real-nu Matern panel
   through the family's plain version against `pairwise_xy`'s (cfjax's
   quadrature): 1e-5 in float64. "highest" holds float32 products at full
@@ -44,6 +44,7 @@ from cfjax_torch.operators import preconditioner as pre
 from cfjax_torch.operators.dispatch import gramian
 from cfjax_torch.ops import grad_mvm, tiles
 from cfjax_torch.ops import gramian_mvm as mvm
+from cfjax_torch.utils.testing import pairwise_xy
 from cfjax_torch.utils.besselk import (MATERN_JET_KNOTS, MATERN_JET_OCTAVES, MATERN_STEPS,
                                        MATERN_TABLE_MAX_NU, matern_nu_jet_knots,
                                        matern_nu_jet_octave, matern_nu_jet_taylor,
@@ -209,10 +210,10 @@ def box_points():
 def test_nystrom_float32_points_match_float64_build(box_points):
     """The port's preconditioner on float32 points against cfjax's built on
     the same points in float64: within 5e-5 relative on y (the float32
-    apply's rounding on the modes near sigma^2 / lambda_max); the float32
-    builds (cfjax's, and the port's with build_dtype=torch.float32) are
-    over 1e-4 off: the rounding the float64 build removes. PCG in float64
-    takes cfjax's float64 iterations within 1; in float32 it converges."""
+    apply's rounding on the modes near sigma^2 / lambda_max); cfjax's
+    float32 build is over 1e-4 off: the rounding the float64 build removes.
+    PCG in float64 takes cfjax's float64 iterations within 1; in float32 it
+    converges."""
     x, y = box_points
     kj, kt = jk.Lengthscale(jk.EQ(), 1.0), tk.Lengthscale(tk.EQ(), 1.0)
     xt, yt = torch.tensor(x), torch.tensor(y)
@@ -221,10 +222,7 @@ def test_nystrom_float32_points_match_float64_build(box_points):
     rel = lambda u: np.linalg.norm(u - ref) / np.linalg.norm(ref)
     M = pre.nystrom_preconditioner(kt, xt, S2, rank=RANK5)
     assert rel(M(yt).double().numpy()) <= 5e-5
-    M32 = pre.nystrom_apply(*pre.nystrom_factors(kt, xt, S2, rank=RANK5,
-                                                 build_dtype=torch.float32), S2)
     Mj32 = j_nystrom(kj, jnp.asarray(x), S2, rank=RANK5)
-    assert rel(M32(yt).double().numpy()) > 1e-4
     assert rel(np.asarray(Mj32(jnp.asarray(y)), dtype=np.float64)) > 1e-4
     x64, y64 = jnp.asarray(x, jnp.float64), jnp.asarray(y, jnp.float64)
     Gj = j_gramian(kj, x64)
@@ -241,30 +239,17 @@ def test_nystrom_float32_points_match_float64_build(box_points):
     assert len(hist) == it < 60 and float(res) <= 1e-4 * float(torch.linalg.norm(yt))
 
 
-def test_nystrom_build_dtypes(box_points):
-    """A float32 build (build_dtype=torch.float32) is the algorithm the
-    float64 one runs: on float64 points both give the same factors; on
-    float32 points U is float32 either way."""
-    x, _ = box_points
-    kt = tk.Lengthscale(tk.EQ(), 1.0)
-    U, E, d = pre.nystrom_factors(kt, torch.tensor(x), S2, rank=RANK5)
-    assert U.dtype == E.dtype == d.dtype == torch.float32 and tuple(U.shape) == (N5, RANK5)
-    x64 = torch.tensor(x, dtype=torch.float64)
-    a = pre.nystrom_factors(kt, x64, S2, rank=RANK5)
-    b = pre.nystrom_factors(kt, x64, S2, rank=RANK5, build_dtype=torch.float64)
-    for u, v in zip(a, b):
-        assert u.dtype == torch.float64 and torch.equal(u, v)
-
-
 def test_matern_nystrom_panel_matches_quadrature(rng, monkeypatch):
-    """Lengthscale(Matern(2.3), 0.9): M's apply with the panel through the
-    tabulated family's plain version against the panel through
-    `pairwise_xy` (cfjax's quadrature), float64: 1e-5 relative."""
+    """Lengthscale(Matern(2.3), 0.9): M's apply with the build's entries
+    through the tabulated family's plain version (`gramian.build_tile`)
+    against the entries through `pairwise_xy` (cfjax's quadrature),
+    float64: 1e-5 relative."""
     x = torch.tensor(rng.standard_normal((600, 3)))
     v = torch.tensor(rng.standard_normal(600))
     k = tk.Lengthscale(tk.Matern(2.3), 0.9)
     out = pre.nystrom_preconditioner(k, x, 1e-2, rank=96)(v)
-    monkeypatch.setattr(pre, "_panel_fn", lambda k: lambda a, b: pre.pairwise_xy(k, a, b))
+    monkeypatch.setattr(pre, "build_tile",
+                        lambda g: lambda a, b: pairwise_xy(g.k_given, a, b))
     ref = pre.nystrom_preconditioner(k, x, 1e-2, rank=96)(v)
     assert float(torch.linalg.norm(out - ref) / torch.linalg.norm(ref)) <= 1e-5
 
