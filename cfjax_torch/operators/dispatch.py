@@ -377,8 +377,13 @@ def explain(k, x, y=None, **opts) -> str:
     if isinstance(g, GradientGramian):
         parts.append(f"gradient mode = {g.mode}")
         why = g.kernel_reason
-        parts.append(f"cuda kernel K3 grad_matvec ({_instance(g._spec)}; {_tier()})"
-                     if why is None else f"cuda kernel declined: {why}")
+        if why is None:
+            from ..ops.grad_mvm import grad_design
+
+            parts.append(f"cuda kernel K3 grad_matvec ({_instance(g._spec)}; "
+                         f"{grad_design(g.d, g._spec)}, {_tier()})")
+        else:
+            parts.append(f"cuda kernel declined: {why}")
     if isinstance(op, KroneckerOperator):
         parts.append("factors: " + " ⊗ ".join(f"{type(f).__name__}{f.shape}" for f in op.factors))
     if isinstance(op, SumOperator):

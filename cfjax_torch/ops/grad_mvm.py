@@ -13,14 +13,16 @@ and raises on what it does not take; on CPU tensors it takes the plain
 torch version `grad_matvec_plain`, which takes f' and f'' from autodiff of
 `k.profile` and forms s and <r, A> as cfjax's `grad_matvec_iso` does, its
 products at the matmul tier. The kernel runs its four products on the
-tensor cores at the tier's passes (`tiles.TIER_PASSES`), takes f' and f''
-from the derivative spec's family in registers (`to_spec(k,
+tensor cores (wgmma) at the tier's passes (`tiles.TIER_PASSES`), takes f'
+and f'' from the derivative spec's family in registers (`to_spec(k,
 derivative=True)`, one-leaf kernels; the real-nu Matern's from two
-tables, `matern_jet_table`) or its interpreted jet, and recomputes every
-near-coincident pair in difference form, exact at coincident points (see
-the source's header). Forward-only, like the Pallas kernel. Launches
-count in `gramian_mvm.LAUNCHES["grad"]`, the real-nu Matern family's
-under "grad_matern".
+tables, `matern_jet_table`) or its interpreted jet, forms the norms
+itself, and recomputes s and w of every near-coincident pair in
+difference form, exact at coincident points (see the source's header).
+Its grid is planned by K2's `expand_plan`, the splits' partial outputs
+capped in bytes. Forward-only, like the Pallas kernel.
+Launches count in `gramian_mvm.LAUNCHES["grad"]`, the real-nu Matern
+family's under "grad_matern".
 """
 
 from __future__ import annotations
@@ -36,14 +38,10 @@ from ..kernels.profile_spec import (FAMILY_EQ, FAMILY_MATERN, FAMILY_MATERN_NU, 
 from ..utils.besselk import matern_nu_jet_knots
 from ..utils.roofline import Work
 from . import build as _build
-from .gramian_mvm import _cdiv, _CSpec, _cspec, _launch, _ptr, column_split, vec4_ok
+from .gramian_mvm import _cdiv, _CSpec, _cspec, _launch, _ptr, expand_plan, sm_count
 from .tiles import inner_tile, map_rows, matmul_p, sqdist_tile, tier_passes
 
-# row / column tile sizes of the kernel, for the column split
-_K3_TM, _K3_TN = 128, 64
-# most column tiles one split sums into its partial output (see grad_mvm.cu)
-_K3_MAX_TILES = 64
-# most bytes of the splits' partial outputs (splits x n x d floats) at large d
+# most bytes of the splits' partial outputs (splits x n x d floats)
 _K3_PARTIAL_BYTES = 1 << 26
 # the near-coincident threshold tau of the kernel (K3_TAU in grad_mvm.cu): a
 # pair with s <= tau (|x_i|^2 + |y_j|^2) is recomputed in difference form
@@ -67,9 +65,32 @@ def library() -> ctypes.CDLL:
     """The K3 library (built once per source digest), with its C signature set."""
     lib = _build.load("grad_mvm")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.k3_grad_matvec.argtypes = [p] * 8 + [i] * 10 + [_CSpec, _CJet, p, p]
+    lib.k3_grad_matvec.argtypes = [p] * 6 + [i] * 11 + [_CSpec, _CJet, p, p]
     lib.k3_grad_matvec.restype = i
+    lib.k3_scratch.argtypes = [i] * 4
+    lib.k3_scratch.restype = ctypes.c_longlong
+    lib.k3_resident.argtypes = [i] * 3
+    lib.k3_resident.restype = i
+    lib.k3_shape.argtypes = [p] * 2
+    lib.k3_shape.restype = None
     return lib
+
+
+@functools.cache
+def _grad_shape() -> tuple:
+    """(rows a block, columns a tile) of K3, as the library defines them."""
+    out = [ctypes.c_int() for _ in range(2)]
+    library().k3_shape(*(ctypes.byref(v) for v in out))
+    return tuple(v.value for v in out)
+
+
+def grad_design(d: int, spec: ProfileSpec) -> str:
+    """K3's design and the shape it takes for d at the configured tier:
+    "wgmma, x resident" where x's pieces stay in shared memory, else
+    "wgmma, x streamed" (over d)."""
+    table = int(spec.family == FAMILY_MATERN_NU)
+    resident = library().k3_resident(d, tier_passes(), table)
+    return "wgmma, x " + ("resident" if resident == 1 else "streamed")
 
 
 # (fp32 instructions, SFU operations) of a derivative family's jet f', f''
@@ -177,6 +198,12 @@ def _check_inputs(k, x, y, A, spec, mode):
     return spec
 
 
+def _vec4(d, *ts):
+    """The near pairs' rows are read 16 bytes at a time: d a multiple of 4
+    and every array 16-byte aligned."""
+    return d % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in ts)
+
+
 def grad_matvec(k, x, y, A, mode: str = "iso", spec: ProfileSpec = None, precision=None):
     """K3: the gradient-gramian block MVM (CUDA), or its plain version for
     CPU tensors. x (n, d), y (m, d), A (m, d) -> (n, d). The products run
@@ -191,21 +218,15 @@ def grad_matvec(k, x, y, A, mode: str = "iso", spec: ProfileSpec = None, precisi
     out = torch.empty((n, d), dtype=torch.float32, device=x.device)
     if n == 0 or m == 0 or d == 0:
         return out.zero_()
-    iso = mode == "iso"
-    # |x_i|^2, |y_j|^2 and <y_j, A_j> for the expansion (iso)
-    x2 = torch.sum(x * x, dim=1) if iso else None
-    y2 = torch.sum(y * y, dim=1) if iso else None
-    ya = torch.sum(y * A, dim=1) if iso else None
-    splits, per = column_split(_cdiv(n, _K3_TM), m, _K3_TN, x.device)
-    most = max(1, _K3_PARTIAL_BYTES // (4 * n * d))
-    if splits > most:
-        per = _cdiv(_cdiv(m, _K3_TN), most) * _K3_TN
-    per = min(per, _K3_MAX_TILES * _K3_TN)
-    splits = _cdiv(m, per)
+    lib = library()
+    bm, bn = _grad_shape()
+    splits, per = expand_plan(_cdiv(n, bm), _cdiv(m, bn), sm_count(x.device.index),
+                              max(1, _K3_PARTIAL_BYTES // (4 * n * d)))
+    scratch = torch.empty(lib.k3_scratch(n, m, d, passes), dtype=torch.float32, device=x.device)
     partial = out if splits == 1 else torch.empty((splits, n, d), dtype=torch.float32,
                                                   device=x.device)
-    return _launch(grad_route(spec), library().k3_grad_matvec, out,
-                   _ptr(x), _ptr(y), _ptr(A), _ptr(x2), _ptr(y2), _ptr(ya), _ptr(partial),
-                   _ptr(out), n, m, d, int(iso), splits, per, passes, spec.family,
-                   spec.family_p, int(vec4_ok(d, x, y, A)), _cspec(spec), _cjet(spec),
+    return _launch(grad_route(spec), lib.k3_grad_matvec, out, _ptr(x), _ptr(y), _ptr(A),
+                   _ptr(scratch), _ptr(partial), _ptr(out), n, m, d, int(mode == "iso"), splits,
+                   per, passes, spec.family, spec.family_p, int(_vec4(d, x, y, A)),
+                   int(x.data_ptr() == y.data_ptr() and n == m), _cspec(spec), _cjet(spec),
                    _ptr(jet_table(spec, x.device)))

@@ -208,30 +208,28 @@ def column_split(n_row_blocks: int, m: int, tn: int, device) -> tuple:
 
 
 @functools.lru_cache(maxsize=256)
-def expand_plan(row_blocks: int, col_tiles: int, sms: int) -> tuple:
-    """(splits, column tiles a split) of K2's grid: among the splits of
-    the column tiles into whole tiles that keep the grid within 8 waves of
-    one block an SM (K2 holds an SM's shared memory; one split always
-    counts), the one whose waves take the least time, a block costing its
-    tiles plus about two for staging x and filling the ring; the fewest
-    splits among equals. n = 2^16 keeps one split (512 row blocks, ~3.9
-    waves); a 4096-row mean over 1024 column tiles takes four (128 blocks,
-    one wave)."""
+def expand_plan(row_blocks: int, col_tiles: int, sms: int, most: int = None) -> tuple:
+    """(splits, column tiles a split) of K2's and K3's grids: among the
+    splits of the column tiles into whole tiles that keep the grid within
+    8 waves of one block an SM (each kernel holds an SM's shared memory;
+    one split always counts) and take at most `most` splits where it is
+    given (K3's cap on the bytes of the splits' partial outputs), the one
+    whose waves take the least time, a block costing its tiles plus about
+    two for staging x and filling the ring; the fewest splits among
+    equals. n = 2^16 keeps one split (512 row blocks, ~3.9 waves); a
+    4096-row mean over 1024 column tiles takes four (128 blocks, one
+    wave); K3 at n = m = 4096 (32 row blocks, 64 column tiles) four of 16
+    tiles, 128 blocks in one wave on 132 SMs."""
     best = None
     for per in range(col_tiles, 0, -1):
         splits = _cdiv(col_tiles, per)
-        if splits > 1 and row_blocks * splits > 8 * sms:
+        capped = most is not None and splits > most
+        if splits > 1 and (row_blocks * splits > 8 * sms or capped):
             break
         cost = _cdiv(row_blocks * splits, sms) * (per + 2)
         if best is None or cost < best[0]:
             best = (cost, splits, per)
     return best[1], best[2]
-
-
-def vec4_ok(d, *ts):
-    """The tensor-core kernels stage rows with 16-byte copies: d a multiple
-    of 4 and every array 16-byte aligned."""
-    return d % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in ts)
 
 
 def _check_inputs(k, x, y, a, spec, mode, cols=False):

@@ -133,6 +133,8 @@ def run_world(fn, world: int, *args, backend: str = "gloo", device: str = "cpu")
 
 
 PAD_S = 0.005
+# the profiler's warm-up before each trace's window: kernels and host time
+PRIME, WARM_S = 8, 0.05
 
 
 @contextlib.contextmanager
@@ -148,22 +150,39 @@ def kernel_runs(*names):
     The trace's window is padded: the device is idle when it opens, and
     `PAD_S` of host time passes, the device idle, after it opens and
     before it closes. Unpadded, 4 of about 80 traces of a solve on an
-    H100 missed one to three of its kernels; padded, one card test's
-    trace still reads one run short when its whole file runs (PERF.md)."""
+    H100 missed one to three of its kernels. Padded, the traces of a
+    whole-file run of tests/test_torch_cuda.py on an H100 still lost
+    the first three device records of nearly every window, and nothing
+    after them; `PRIME` fills of a one-float buffer launched as the
+    window opened took that loss there, but alone the same tests then
+    lost the fills and a solve's first product besides (PERF.md). So
+    the profiler is prepared in a warm-up step of its schedule, which
+    keeps nothing: the fills and `WARM_S` of host time run there, and
+    the window opens after it. Then a whole-file run counted every run;
+    the process that had compiled the kernels on a fresh machine still
+    lost about 7 records at the start of most of its windows, with pads
+    of 5 or 50 ms alike (PERF.md)."""
     out = dict.fromkeys(names, 0)
     if not torch.cuda.is_available():
         yield out
         return
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     def pad():
         torch.cuda.synchronize()
         time.sleep(PAD_S)
 
     pats = {name: re.compile(rf"(^|\s){re.escape(name)}\b") for name in names}
+    buf = torch.empty(1, device="cuda")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True,
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        for _ in range(PRIME):
+            buf.fill_(0.0)
+        torch.cuda.synchronize()
+        time.sleep(WARM_S)
+        prof.step()
         pad()
         yield out
         pad()

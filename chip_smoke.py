@@ -131,12 +131,14 @@ K1_BOUND = 1e-5   # relative L2 error of K1 vs its float64 plain version
 # the CUDA kernels of each key of `ops.gramian_mvm.LAUNCHES`, by their names
 # in csrc/: CG's step is captured in a CUDA graph, whose kernels run once a
 # replay, and the solve checks count those runs from a profiler trace
-# (`runs_of`), where `LAUNCHES` counts the capture once. K2's product is
-# named by its template's first argument (k2_tc<ISO, ...>): the split into
-# tf32 pieces before it, k2_tc<NP> (K2_SPLIT), shares the name k2_tc
+# (`runs_of`), where `LAUNCHES` counts the capture once. K2's and K3's
+# products are named by their template's first argument (k2_tc<ISO, ...>,
+# k3_tc<ISO, ...>): the split into tf32 pieces before each, k2_tc<NP>
+# (K2_SPLIT) and k3_tc<NP>, shares the name
 KERNELS = {"direct": ("k1_family", "k1_direct"), "matern": ("k1_family",),
            "direct_cols": ("k1_matmat_family",), "expand": ("k2_tc<true", "k2_tc<false"),
-           "expand_matern": ("k2_tc<true",), "grad": ("k3_tc",), "grad_matern": ("k3_tc",)}
+           "expand_matern": ("k2_tc<true",), "grad": ("k3_tc<true", "k3_tc<false"),
+           "grad_matern": ("k3_tc<true",)}
 K2_SPLIT = ("k2_tc<1", "k2_tc<2")
 K2_BOUND = 1e-4   # K2: the expansion cancels (cfjax's interpret tolerance is 2e-4)
 K3_BOUND = 1e-4   # K3: float32 jet and Taylor bound (cfjax's interpret tolerance is 3e-4)
@@ -933,19 +935,59 @@ def ptxas_tc(build, lib, kernel, count):
     return len(ents), (min(regs), max(regs)), sorted({int(e[2]) for e in ents if not int(e[1])})
 
 
-def ptxas_k2_split(build):
-    """K2's split into tf32 pieces (k2_tc<NP>, NP 1 and 2) in the compiler's
-    report beside its library: two instances, no stack frame, no spills.
-    Returns their registers (min, max)."""
-    log = build.library_path("expand_mvm").with_suffix(".log").read_text()
-    ents = re.findall(r"Compiling entry function '(\S*k2_tcILi\d+EE\S*)'[^\n]*\n(?:[^\n]*\n)*?"
+def ptxas_split(build, lib, kernel):
+    """A split into tf32 pieces (K2's k2_tc<NP>, K3's k3_tc<NP>, NP 1 and 2)
+    in the compiler's report beside its library: two instances, no stack
+    frame, no spills. Returns their registers (min, max)."""
+    log = build.library_path(lib).with_suffix(".log").read_text()
+    ents = re.findall(rf"Compiling entry function '(\S*{kernel}ILi\d+EE\S*)'[^\n]*\n(?:[^\n]*\n)*?"
                       r"\s*(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
                       r"loads\n[^\n]*Used (\d+) registers", log)
-    check(len(ents) == 2, f"ptxas reports {len(ents)} instances of K2's split, not 2")
+    check(len(ents) == 2, f"ptxas reports {len(ents)} instances of {kernel}'s split, not 2")
     bad = [e[0] for e in ents if int(e[1]) or int(e[2]) or int(e[3])]
-    check(not bad, f"K2's split keeps a stack frame or spills: {bad}")
+    check(not bad, f"{kernel}'s split keeps a stack frame or spills: {bad}")
     regs = [int(e[4]) for e in ents]
     return min(regs), max(regs)
+
+
+def serialized(build, lib, kernel):
+    """The instances of `kernel` whose wgmma instructions ptxas serializes
+    for want of registers (C7511), by the compiler's report beside `lib`."""
+    log = build.library_path(lib).with_suffix(".log").read_text()
+    return len(set(re.findall(rf"\(C7511\)[^\n]*function '(\S*{kernel}I\S*)'", log)))
+
+
+def phase0_ptxas(build):
+    """Phase 0's checks of the compiler's reports: K1's instances keep no
+    stack frame and spill nothing, K2's and K3's tensor-core instances and
+    their splits as `ptxas_tc` and `ptxas_split` require, and no wgmma is
+    serialized for its own sake (C7520). Returns the phase's text, with
+    the instances whose wgmmas ptxas serializes for want of registers
+    (C7511): a loss of speed, not of correctness."""
+    fam_n, fam_stack, fam_spill, fam_regs = ptxas_k1_family(build, "k1_family", 54)
+    cols_n, cols_stack, cols_spill, cols_regs = ptxas_k1_family(build, "k1_matmat_family", 108)
+    k2_n, k2_regs, k2_stack = ptxas_tc(build, "expand_mvm", "k2_tc", 22)
+    split_regs = ptxas_split(build, "expand_mvm", "k2_tc")
+    # K2's and K3's wgmmas run asynchronously only where ptxas does not
+    # serialize them
+    for lib in ("expand_mvm", "grad_mvm"):
+        check("C7520" not in build.library_path(lib).with_suffix(".log").read_text(),
+              f"ptxas serializes the wgmma instructions of {lib} (C7520)")
+    k3_n, k3_regs, k3_stack = ptxas_tc(build, "grad_mvm", "k3_tc", 20)
+    k3_split_regs = ptxas_split(build, "grad_mvm", "k3_tc")
+    k2_ser = serialized(build, "expand_mvm", "k2_tc")
+    k3_ser = serialized(build, "grad_mvm", "k3_tc")
+    return (f"{fam_n} K1 family instances (6 D x 9 profiles, the real-nu Matern's table among "
+            f"them), stack frame {fam_stack} bytes, spills {fam_spill} bytes, registers "
+            f"{fam_regs}; {cols_n} many-column K1 instances (6 D x 9 profiles x 1 or 3 tensor-"
+            f"core passes, 16 columns a chunk), stack frame {cols_stack} bytes, spills "
+            f"{cols_spill} bytes, registers {cols_regs}; K2 {k2_n} instances (11 profiles x 1, 3 "
+            f"passes; wgmma, serialized for want of registers (C7511) in {k2_ser}) and its "
+            f"split's 2 (1, 2 pieces; 0 bytes stack, no spills, registers {split_regs}), "
+            f"K3 {k3_n} (10 x 1, 3 passes; wgmma, serialized for want of registers (C7511) in "
+            f"{k3_ser}) and its split's 2 (registers {k3_split_regs}): family instances 0 bytes "
+            f"stack, no instance spills, registers {k2_regs} / {k3_regs}, the interpreted "
+            f"instances' stack {k2_stack} / {k3_stack} bytes (the profile interpreter's)")
 
 
 def k2_cell_product(tk, mvm, rng):
@@ -3209,26 +3251,9 @@ def main():
     build.build()
     mvm.library(), mvm.expand_library(), gmvm.library(), tmvm.library()
     built_s = time.perf_counter() - t0
-    fam_n, fam_stack, fam_spill, fam_regs = ptxas_k1_family(build, "k1_family", 54)
-    cols_n, cols_stack, cols_spill, cols_regs = ptxas_k1_family(build, "k1_matmat_family", 108)
-    k2_n, k2_regs, k2_stack = ptxas_tc(build, "expand_mvm", "k2_tc", 22)
-    split_regs = ptxas_k2_split(build)
-    # K2's wgmmas run asynchronously only where ptxas does not serialize them
-    check("C7520" not in build.library_path("expand_mvm").with_suffix(".log").read_text(),
-          "ptxas serializes K2's wgmma instructions (C7520)")
-    k3_n, k3_regs, k3_stack = ptxas_tc(build, "grad_mvm", "k3_tc", 20)
     print(f"phase 0 card: {smi} | torch {torch.__version__} cuda {torch.version.cuda} | "
           f"kernel libraries {', '.join(build.LIBRARIES)} built in {built_s:.1f} s | ptxas: "
-          f"{fam_n} K1 family instances (6 D x 9 profiles, the real-nu Matern's table among "
-          f"them), stack frame {fam_stack} bytes, spills {fam_spill} bytes, registers "
-          f"{fam_regs}; {cols_n} many-column K1 instances (6 D x 9 profiles x 1 or 3 tensor-"
-          f"core passes, 16 columns a chunk), stack frame {cols_stack} bytes, spills {cols_spill} "
-          f"bytes, registers {cols_regs}; K2 {k2_n} instances (11 profiles x 1, 3 passes; wgmma, "
-          f"none serialized) and its split's 2 (1, 2 pieces; 0 bytes stack, no spills, registers "
-          f"{split_regs}), "
-          f"K3 {k3_n} (10 x 1, 3 passes): family instances 0 bytes stack, no instance spills, "
-          f"registers {k2_regs} / {k3_regs}, the interpreted instances' stack {k2_stack} / {k3_stack} "
-          f"bytes (the profile interpreter's)", flush=True)
+          f"{phase0_ptxas(build)}", flush=True)
 
     p1 = phase1_kernels(tk, mvm)
 

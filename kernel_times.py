@@ -81,19 +81,23 @@ def main():
     f = lambda *shape, scale=1.0: torch.tensor(scale * rng.standard_normal(shape),
                                                dtype=torch.float32, device="cuda")
     xh, ah, x64 = f(16384, 3), f(16384), f(16384, 64)
-    xg7, ag7 = f(4096, 16, scale=0.5), f(4096, 16)
+    xg7, ag7, xgm = f(4096, 16, scale=0.5), f(4096, 16), f(1024, 16, scale=0.5)
     xg8, ag8 = f(1024, 1024), f(1024, 1024)
     x11 = torch.tensor(np.random.default_rng(11).uniform(0, 20, (32768, 2)),
                        dtype=torch.float32, device="cuda")
     S, _ = sparse_gramian(tk.Lengthscale(tk.EQ(), 0.2), x11, tol=1e-6, method="tree")
     a11 = f(32768)
     k1, k2, keq, km2 = tk.MaternP(2), tk.Lengthscale(tk.EQ(), 4.0), tk.EQ(), tk.MaternP(2)
+    km27 = tk.Matern(2.7)
     runs = {
         "K1 MaternP(2) n=16384 d=3": lambda: mvm.gramian_matvec_direct(k1, xh, xh, ah),
         "K2 Lengthscale(EQ, 4) n=16384 d=64": lambda: mvm.gramian_matvec_expand(k2, x64, x64,
                                                                                  ah),
         "K3 EQ n=4096 d=16": lambda: gmvm.grad_matvec(keq, xg7, xg7, ag7),
         "K3 MaternP(2) n=d=1024": lambda: gmvm.grad_matvec(km2, xg8, xg8, ag8),
+        "K3 Matern(2.7) n=4096 d=16": lambda: gmvm.grad_matvec(km27, xg7, xg7, ag7),
+        # config 4's posterior mean: 1024 test points against the 4096
+        "K3 EQ 1024x4096 d=16": lambda: gmvm.grad_matvec(keq, xgm, xg7, ag7),
         f"K4 S @ a, phase 11's operator (nnz {S.nnz})": lambda: S @ a11,
     }
     # the ARD cell's product: K2 on the points the fold divides by l, d = 90

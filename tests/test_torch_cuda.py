@@ -181,11 +181,14 @@ def _grad_data(n, m, d, coincident=16, seed=0):
 
 
 @needs_gpu
-@pytest.mark.parametrize("d", [1, 3, 16, 17, 257])
+@pytest.mark.parametrize("d", [1, 3, 16, 17, 90, 257, 1024])
 @pytest.mark.parametrize("k,mode", [(tk.EQ(), "iso"), (tk.MaternP(2), "iso"),
                                     (tk.Lengthscale(tk.MaternP(3), 0.5), "iso"),
+                                    (tk.MaternP(1), "iso"), (tk.Lengthscale(tk.RQ(1.5), 0.8), "iso"),
+                                    (tk.Cauchy(), "iso"), (tk.InverseMultiQuadratic(1.0), "iso"),
                                     (tk.Dot() ** 2, "dot"), (tk.ExponentialDot(), "dot")],
-                         ids=["EQ", "MaternP2", "LengthscaleMaternP3", "Dot2", "ExponentialDot"])
+                         ids=["EQ", "MaternP2", "LengthscaleMaternP3", "MaternP1", "RQ", "Cauchy",
+                              "IMQ", "Dot2", "ExponentialDot"])
 def test_grad_kernel_matches_plain(d, k, mode):
     x, y, A = _grad_data(1003, 601, d)
     before = mvm.LAUNCHES["grad"]
@@ -214,7 +217,10 @@ def test_grad_kernel_on_coincident_points(d):
 
 @needs_gpu
 def test_grad_kernel_ragged_and_rectangular_shapes():
-    for n, m, d in ((7, 4096, 1024), (1, 65, 31), (129, 1, 5)):
+    # the mean's 1024 x 4096; n and m off the tiles, n != m; m below one
+    # column tile; d past one chunk of phase C
+    for n, m, d in ((7, 4096, 1024), (1, 65, 31), (129, 1, 5), (1024, 4096, 16), (64, 63, 8),
+                    (70, 50, 90), (300, 4096, 1)):
         x, y, A = _grad_data(n, m, d)
         out = grad_mvm.grad_matvec(tk.MaternP(2), x, y, A)
         ref = grad_mvm.grad_matvec_plain(tk.MaternP(2), x.double(), y.double(), A.double())
@@ -241,7 +247,9 @@ def test_grad_kernel_refuses_grad_and_wrong_inputs():
 def test_gradient_gramian_on_cuda_selects_k3():
     x, _, _ = _grad_data(300, 1, 16)
     how = explain(GradientKernel(tk.EQ()), x)
-    assert "cuda kernel K3" in how
+    assert "cuda kernel K3" in how and "wgmma, x resident" in how
+    x1024, _, _ = _grad_data(8, 1, 1024)
+    assert "wgmma, x streamed" in explain(GradientKernel(tk.EQ()), x1024)
     G = gramian(GradientKernel(tk.EQ()), x)
     v = torch.ones(G.shape[1], device="cuda")
     before = mvm.LAUNCHES["grad"]
@@ -635,7 +643,7 @@ def test_ard_folded_product_at_each_tier(prec):
 
 @needs_gpu
 @pytest.mark.parametrize("prec", ["highest", "high", "default"])
-@pytest.mark.parametrize("d", [3, 16, 257])
+@pytest.mark.parametrize("d", [1, 3, 16, 17, 90, 257, 1024])
 @pytest.mark.parametrize("k,mode", [(tk.EQ(), "iso"), (tk.MaternP(2), "iso"),
                                     (2.0 * tk.EQ() + 0.5 * tk.MaternP(2), "iso"),
                                     (tk.ExponentialDot(), "dot")],
@@ -842,7 +850,7 @@ def _cg_systems(which):
         x = (0.5 * torch.randn(4096, 16, generator=g)).cuda()
         y = (torch.cos(x) + 0.01 * torch.randn(4096, 16, generator=g).cuda()).reshape(-1)
         K = gramian(GradientKernel(tk.EQ()), x).add_diagonal(1e-2)
-        return K._matvec, y, None, 1e-5, 1000, "grad", ("k3_tc",)
+        return K._matvec, y, None, 1e-5, 1000, "grad", ("k3_tc<true", "k3_tc<false")
     x = torch.randn(20000, 3, generator=g).cuda()
     y = torch.sin(x[:, 0]) + 0.01 * torch.randn(20000, generator=g).cuda()
     K = gramian(tk.MaternP(2), x).add_diagonal(1e-2)

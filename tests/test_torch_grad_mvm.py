@@ -197,3 +197,54 @@ def test_near_threshold_matches_the_kernel_source():
     tau = re.search(r"constexpr float K3_TAU = ([0-9.]+)f / ([0-9.]+)f;", src)
     assert tau is not None
     assert float(tau.group(1)) / float(tau.group(2)) == grad_mvm.NEAR_TAU
+
+
+# (n, m, d) of the kernel's callers: config 4's product and its mean, the
+# README's n = d = 1024, ragged and rectangular shapes, m below one column
+# tile, and sizes where the partial outputs' byte cap binds
+PLAN_SHAPES = [(4096, 4096, 16), (1024, 4096, 16), (1024, 1024, 1024), (1003, 601, 257),
+               (1, 65, 31), (129, 1, 5), (7, 4096, 1024), (65536, 65536, 16), (300, 100000, 64),
+               (16384, 2048, 1024)]
+
+
+def _k3_plan(n, m, d, sms=132):
+    """K3's grid plan as its wrapper asks for it: K2's `expand_plan` over
+    128-row blocks and 64-column tiles, the splits capped by the bytes of
+    their partial outputs."""
+    from cfjax_torch.ops import grad_mvm, gramian_mvm
+
+    most = max(1, grad_mvm._K3_PARTIAL_BYTES // (4 * n * d))
+    return gramian_mvm.expand_plan(-(-n // 128), -(-m // 64), sms, most)
+
+
+@pytest.mark.parametrize("n,m,d", PLAN_SHAPES)
+def test_grad_plan_covers_every_tile_once(n, m, d):
+    """K3's grid plan: every (row block, column tile) lies in exactly one
+    block's split, no split is empty, the splits' partial outputs stay
+    within the byte cap, and the plan is the same when asked again."""
+    from cfjax_torch.ops import grad_mvm
+
+    splits, per = _k3_plan(n, m, d)
+    assert _k3_plan(n, m, d) == (splits, per)
+    row_blocks, tiles = -(-n // 128), -(-m // 64)
+    seen = {}
+    for rb in range(row_blocks):
+        for s in range(splits):
+            own = range(s * per, min((s + 1) * per, tiles))
+            assert len(own) > 0
+            for t in own:
+                seen[rb, t] = seen.get((rb, t), 0) + 1
+    assert seen == {(rb, t): 1 for rb in range(row_blocks) for t in range(tiles)}
+    assert splits == 1 or splits * n * d * 4 <= grad_mvm._K3_PARTIAL_BYTES
+
+
+@pytest.mark.parametrize("n,m", [(4096, 4096), (1024, 4096)])
+def test_grad_plan_fills_the_waves_at_config4(n, m):
+    """At config 4's product and its mean on 132 SMs no wave is mostly
+    empty, and at the product a block walks more than 4 tiles."""
+    splits, per = _k3_plan(n, m, 16)
+    blocks = -(-n // 128) * splits
+    waves = -(-blocks // 132)
+    assert blocks - (waves - 1) * 132 >= 132 // 2
+    if n == m:
+        assert per > 4 and (splits, per) == (4, 16)
